@@ -1,0 +1,90 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in ``csrc/`` are compiled by ``nvcc`` into one shared
+library with a plain C interface, loaded with ``ctypes``.  The build
+runs at first use, into ``_build/`` next to this file, and is keyed by a
+hash of the sources and flags, so an edited kernel is rebuilt and an
+unchanged one is reused.  ``nvcc`` is taken from ``$CUDA_HOME/bin``
+(default ``/usr/local/cuda``) or the ``PATH``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_DIR = Path(__file__).parent
+SRC_DIR = _DIR / "csrc"
+BUILD_DIR = _DIR / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # no FMA contraction, IEEE division and square root: the push
+    # columns then match the plain PyTorch version bit for bit
+    "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
+    "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
+]
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            f"nvcc not found (looked in {cand} and on PATH); the CUDA "
+            "kernels are built on a machine with the CUDA toolkit"
+        )
+    return found
+
+
+def build() -> tuple[Path, float]:
+    """Compile the sources if no library for their hash exists yet.
+    Returns the library path and the seconds the build took (0 when
+    the library was already there).  The compiler's resource report
+    (``-Xptxas -v``) is kept beside it as ``<name>.log``."""
+    sources = sorted(SRC_DIR.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in sources:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    lib = BUILD_DIR / f"libopal_kernels_{h.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+        capture_output=True, text=True,
+    )
+    seconds = time.perf_counter() - t0
+    lib.with_suffix(".log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}"
+        )
+    tmp.replace(lib)
+    return lib, seconds
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed), with every C
+    function's argument and result types declared."""
+    path, _ = build()
+    L = ctypes.CDLL(str(path))
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = L.opal_fused_push_deposit
+    fn.restype = i32
+    fn.argtypes = (
+        [vp] * 24 + [ctypes.c_longlong] + [i32] * 5 + [f32] * 9 + [vp]
+    )
+    return L

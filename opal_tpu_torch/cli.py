@@ -1,0 +1,389 @@
+"""Command-line entry point: ``python -m opal_tpu_torch input.yaml``.
+
+The single-device, non-QED electron path of ``opal_tpu/cli.py``: read
+the YAML deck, build the grid and the electron population, then
+alternate output dumps with blocks of simulation steps, printing the
+same banner, progress lines, loss warnings and output files.  The
+fused-kernel block, window, resort and migration cadences and the
+capacities are auto-sized by the same rules, so one deck runs the same
+schedule in both packages.  Decks that need what is not ported (QED,
+lasers and their boundaries, ions, several devices, electrostatic
+initialization, checkpoints) are refused with exit code 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from . import constants as const
+from .config import Config, ConfigError
+from .convert import to_numpy
+from .diagnostics import output as out
+from .diagnostics.progress import ettc, pretty_duration, simulation_time
+from .grid import HALO, GridGeometry
+from .ops.fused import PAD
+from .species import SpeciesSpec, initialize
+
+
+class NotPorted(ValueError):
+    """A deck asks for a part of opal_tpu the port does not have yet."""
+
+
+def _required_capacity(geom: GridGeometry, npc: int, density) -> int:
+    """Worst-case per-device particle count for an initial sampling."""
+    if npc <= 0:
+        return 8
+    cells = np.arange(geom.nx)
+    x_centre = geom.xmin + (cells + 0.5) * geom.dx
+    ne = np.broadcast_to(
+        np.asarray(density(x_centre), dtype=np.float64), x_centre.shape
+    )
+    active = ne * geom.dx > 0.0
+    g = cells[active] + geom.left_pad
+    dev = g // geom.n_loc
+    counts = np.bincount(dev, minlength=geom.n_devices)
+    return int(counts.max()) * npc
+
+
+def _round_up(n: int, m: int = 8) -> int:
+    return max(m, ((n + m - 1) // m) * m)
+
+
+def fused_auto_sizing(span_gap: int, w_max: int, resort: int,
+                      v_spread: float, r_pinned: bool = False):
+    """Fused window/cadence auto-sizing (``opal_tpu/cli.py:47-73``): the
+    window covers the sorted block span + ``resort`` steps of
+    velocity-spread dispersion + slack; the sort cadence halves while
+    the window would not fit the field table or dispersion dominates.
+    Returns ``(window, resort)``."""
+    dcells = lambda r: int(np.ceil(0.95 * v_spread * r))
+    if not r_pinned:
+        while resort > 8 and (
+            _round_up(span_gap + 6 + dcells(resort), 8) > w_max
+            or dcells(resort) > 2 * (span_gap + 6)
+        ):
+            resort //= 2
+    auto_w = _round_up(span_gap + 6 + dcells(resort), 8)
+    return max(8, min(512, auto_w, w_max)), resort
+
+
+def _refuse_unported(cfg: Config, n_devices: int):
+    def flag(section, field):
+        try:
+            return cfg.read_bool(section, field)
+        except ConfigError:
+            return False
+
+    if flag("qed", "photon_emission") or flag("qed", "photon_absorption"):
+        raise NotPorted("QED (photon emission/absorption) is not yet ported")
+    if cfg.contains("laser"):
+        raise NotPorted("laser and absorbing boundaries are not yet ported")
+    try:
+        ions = cfg.read_usize("ions", "npc")
+    except ConfigError:
+        ions = 0
+    if ions > 0:
+        raise NotPorted("ion species are not yet ported")
+    if n_devices != 1:
+        raise NotPorted(
+            f"{n_devices}-device runs are not yet ported (one device only)"
+        )
+    if flag("control", "initialise_fields"):
+        raise NotPorted("electrostatic field initialization is not yet ported")
+    if flag("control", "checkpoint"):
+        raise NotPorted("checkpointing is not yet ported")
+
+
+def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
+          field_dtype=torch.float64, device=None):
+    """Parse an input file and construct the Simulation plus initial
+    state.  Returns (sim, state-dict, run-parameters)."""
+    from .sim import SimOptions, Simulation
+
+    input_cfg = Config.from_file(path)
+    input_cfg.with_context("constants")
+
+    def tpu_opt(field, default):
+        try:
+            return input_cfg.read_f64("tpu", field)
+        except ConfigError:
+            return default
+
+    if n_devices is None:
+        n_devices = int(tpu_opt("devices", 0)) or 1
+    _refuse_unported(input_cfg, n_devices)
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+
+    nx = input_cfg.read_usize("control", "nx")
+    xmin = input_cfg.read_f64("control", "xmin")
+    dx = input_cfg.read_f64("control", "dx")
+    dt = 0.95 * dx / const.SPEED_OF_LIGHT
+    tstart = input_cfg.read_f64("control", "start")
+    tend = input_cfg.read_f64("control", "end")
+    current_deposition = input_cfg.read_bool("control", "current_deposition")
+    n_outputs = input_cfg.read_usize("control", "n_outputs")
+
+    geom = GridGeometry(nx=nx, dx=dx, xmin=xmin, n_devices=1)
+
+    capacity_factor = tpu_opt("capacity_factor", 1.5)
+    migration_capacity = int(tpu_opt("migration_capacity", 16384))
+    seed = int(tpu_opt("seed", 0))
+    # the fused kernel serves f32 particle state; f64 runs use the
+    # unfused ops
+    fused_default = 1 if dtype == torch.float32 else 0
+    fused_pusher = bool(tpu_opt("fused_pusher", fused_default))
+    block_explicit = int(tpu_opt("fused_block", -1))
+    fused_block = block_explicit if block_explicit > 0 else 8192
+    _r_opt = int(tpu_opt("fused_resort_every", 0))
+    r_pinned = _r_opt > 0
+    fused_resort_every = _r_opt if r_pinned else 64
+    migration_every = int(tpu_opt("migration_every", 0))  # 0 = auto
+
+    epc = input_cfg.read_usize("electrons", "npc")
+    epc_for_w = max(1, epc)
+    if fused_pusher and block_explicit <= 0:
+        # capacities are block multiples: shrink the block (down to
+        # 1024) rather than let the rounding inflate a small run's
+        # buffers, and cap it so a sorted block spans <= ~32 cells
+        try:
+            ne_est = input_cfg.func("electrons", "ne", "x")
+            est = int(
+                _required_capacity(geom, epc_for_w, ne_est) * capacity_factor
+            )
+        except ConfigError:
+            est = 0
+        while (
+            est and fused_block > 1024
+            and _round_up(est, fused_block) > est * 1.25
+        ):
+            fused_block //= 2
+        while fused_block > 1024 and -(-fused_block // epc_for_w) > 32:
+            fused_block //= 2
+    span_gap = -(-fused_block // epc_for_w)
+    # the window read must fit the field table
+    w_max = (geom.n_loc + 2 * HALO + 2 * PAD - 8) // 8 * 8
+
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    # the work integral accumulates for the whole run: field dtype
+    np_work_dtype = np.float64 if field_dtype == torch.float64 else np_dtype
+
+    eospec = input_cfg.read_strings("electrons", "output")
+    especs = SpeciesSpec.electron(eospec)
+    specs = {"electron": especs}
+    if epc > 0:
+        ne = input_cfg.func("electrons", "ne", "x")
+        ux = input_cfg.func3("electrons", "ux", ("x", "urand", "nrand"))
+        uy = input_cfg.func3("electrons", "uy", ("x", "urand", "nrand"))
+        uz = input_cfg.func3("electrons", "uz", ("x", "urand", "nrand"))
+        cap = _round_up(int(_required_capacity(geom, epc, ne) * capacity_factor))
+        if fused_pusher and cap >= fused_block:
+            # capacity % block == 0; big decks round to 4 blocks
+            mult = fused_block * (4 if cap >= 64 * fused_block else 1)
+            cap = _round_up(cap, mult)
+        state = initialize(
+            especs, geom, epc, ne, ux, uy, uz, dt, cap, seed=seed,
+            dtype=np_dtype, work_dtype=np_work_dtype, device=device,
+        )
+    else:
+        cap = 8
+        state = initialize(
+            especs, geom, 0, lambda x: x * 0, None, None, None, dt, cap,
+            seed=seed, dtype=np_dtype, work_dtype=np_work_dtype,
+            device=device,
+        )
+    states = {"electron": state}
+    capacities = {"electron": cap}
+
+    # ---- fused window / cadence sizing (needs the initial momenta) ---
+    # periodic deposition decks are the instability class: floor the
+    # velocity-spread estimate at 0.1 (opal_tpu/cli.py:490-531)
+    v_spread = 0.1 if current_deposition else 0.05
+    alive = state.alive.cpu().numpy()
+    vx = (state.ux.cpu().numpy() / state.gamma.cpu().numpy())[alive]
+    if alive.any():
+        v_spread = max(v_spread, float(vx.max() - vx.min()))
+    auto_w, fused_resort_every = fused_auto_sizing(
+        span_gap, w_max, fused_resort_every, v_spread,
+        r_pinned=r_pinned or not fused_pusher,
+    )
+    fused_window = int(tpu_opt("fused_window", auto_w))
+    fused_window = max(8, min(fused_window, w_max))
+    # deferred migration: the exchange may wait until 8x the initial
+    # peak |vx| would carry a leaver past the 2-cell deposit reach
+    max_drift = 0.95
+    if migration_every == 0:
+        v_peak = 0.05
+        if alive.any():
+            v_peak = max(v_peak, float(np.abs(vx).max()))
+        if fused_pusher:
+            max_drift = min(0.95, 8.0 * v_peak * 0.95)
+            migration_every = max(
+                1, min(fused_resort_every, int(1.8 / max_drift))
+            )
+        else:
+            migration_every = 1
+    auto_mw = _round_up(max(1, epc) * (fused_resort_every + 3), 8)
+    migration_window = int(tpu_opt("migration_window", max(4096, auto_mw)))
+    # misfit fallback: capacity // 16 on periodic deposition decks
+    _mis_div = 16 if current_deposition else 64
+    auto_misfit = _round_up(max(1024, sum(capacities.values()) // _mis_div))
+    fused_misfit_capacity = int(tpu_opt("fused_misfit_capacity", auto_misfit))
+
+    options = SimOptions(
+        dt=dt,
+        current_deposition=current_deposition,
+        migration_capacity=migration_capacity,
+        fused_pusher=fused_pusher,
+        fused_block=fused_block,
+        fused_window=fused_window,
+        fused_resort_every=fused_resort_every,
+        fused_misfit_capacity=fused_misfit_capacity,
+        migration_every=migration_every,
+        migration_window=migration_window,
+        max_drift_cells_per_step=max_drift,
+    )
+    sim = Simulation(geom, options, specs, device=device, dtype=dtype,
+                     field_dtype=field_dtype)
+    total_steps = int((tend - tstart) / dt)
+    run_params = dict(
+        tstart=tstart, tend=tend, n_outputs=n_outputs,
+        total_steps=total_steps, capacities=capacities,
+        steps_per_block=int(tpu_opt("steps_per_block", 0)),
+    )
+    return sim, states, run_params
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="opal_tpu_torch",
+        description="1d3v PIC simulation on PyTorch/CUDA (opal_tpu port)",
+    )
+    parser.add_argument("input", help="path to YAML input configuration")
+    parser.add_argument("--devices", type=int, default=None,
+                        help="number of devices (only 1 is ported)")
+    parser.add_argument("--f32", action="store_true",
+                        help="run everything in float32 (bench mode)")
+    parser.add_argument("--f64", action="store_true",
+                        help="run everything in float64 (parity mode; "
+                             "the unfused ops). Default is MIXED "
+                             "precision: f32 particles on the fused "
+                             "kernel + f64 fields/energy integration")
+    args = parser.parse_args(argv)
+
+    if args.f32 and args.f64:
+        print("opal_tpu_torch: --f32 and --f64 are mutually exclusive",
+              file=sys.stderr)
+        return 1
+
+    path = Path(args.input)
+    output_dir = path.parent
+    try:
+        sim, species, rp = build(
+            path, n_devices=args.devices,
+            dtype=torch.float64 if args.f64 else torch.float32,
+            field_dtype=torch.float32 if args.f32 else torch.float64,
+        )
+    except NotPorted as exc:
+        print(f"opal_tpu_torch: {exc}", file=sys.stderr)
+        return 1
+    except (ConfigError, ValueError) as exc:
+        print(f"opal_tpu_torch: {exc}", file=sys.stderr)
+        print("Usage: python -m opal_tpu_torch input-file", file=sys.stderr)
+        return 1
+    geom, opt = sim.geom, sim.options
+
+    n_outputs = rp["n_outputs"]
+    total_steps = rp["total_steps"]
+    steps_bt_output = max(total_steps // max(n_outputs, 1), 1)
+    # the same chunking of output spans into run() calls as opal_tpu,
+    # so the sort/migrate schedule (which restarts per call) matches
+    spb = rp.get("steps_per_block", 0)
+    if spb == 0:
+        spb = 200 if (sim.dtype == torch.float64 or not opt.fused_pusher) \
+            else 1000
+    if spb > 0 and steps_bt_output > spb + spb // 2:
+        nchunks = -(-steps_bt_output // spb)
+        run_chunk = -(-steps_bt_output // nchunks)
+    else:
+        run_chunk = steps_bt_output
+
+    def run_span(E, B, J, rho, species, t, counters, nsteps):
+        done = 0
+        while done < nsteps:
+            n = min(run_chunk, nsteps - done)
+            E, B, J, rho, species, t, counters = sim.run(
+                E, B, J, rho, species, t, counters, n
+            )
+            done += n
+        return E, B, J, rho, species, t, counters
+
+    kind = (
+        torch.cuda.get_device_name(sim.device)
+        if sim.device.type == "cuda" else "cpu"
+    )
+    print(f"Running 1 task on {kind} ({geom.n_loc} cells/device)...")
+    if opt.fused_pusher:
+        fused_on = [n for n in species if sim._fused_applicable(n, species[n])]
+        print(f"[fused pusher: {', '.join(fused_on) if fused_on else 'no applicable species (unfused ops)'}]")
+
+    E, B, J, rho = sim.init_fields()
+    counters = sim.zero_counters()
+    t = rp["tstart"]
+    runtime = time.monotonic()
+
+    def dump(index):
+        if sim.electron_chi_is_lazy:
+            species["electron"] = sim.refresh_electron_chi(
+                E, B, species["electron"]
+            )
+        E_h, B_h, J_h, rho_h = to_numpy((E, B, J, rho))
+        species_h = {k: to_numpy(v) for k, v in species.items()}
+        out.write_grid_data(output_dir, index, E_h, B_h, J_h, rho_h, geom)
+        for skey, spec in sim.specs.items():
+            out.write_particle_outputs(
+                output_dir, index, spec, species_h[skey], geom,
+                rp["capacities"][skey],
+            )
+        fe = sim.em_field_energy(E, B)
+        ee = sim.total_kinetic_energy("electron", species["electron"])
+        out.write_energies(output_dir, index, fe, ee, 0.0, 0.0)
+
+    for i in range(n_outputs):
+        dump(i)
+        if i > 0:
+            done = i * steps_bt_output
+            total = n_outputs * steps_bt_output
+            print(
+                f"Output {i: >4} at t = {simulation_time(t)}, "
+                f"RT = {pretty_duration(time.monotonic() - runtime)}, "
+                f"ETTC = {pretty_duration(ettc(runtime, done, total))}..."
+            )
+        else:
+            print(f"Output {i: >4} at t = {simulation_time(t)}...")
+        sys.stdout.flush()
+
+        E, B, J, rho, species, t, counters = run_span(
+            E, B, J, rho, species, t, counters, steps_bt_output
+        )
+        lost = {k: int(v) for k, v in counters.items() if int(v) > 0}
+        if lost:
+            print(f"warning: buffer-overflow particle losses: {lost}",
+                  file=sys.stderr)
+
+    dump(n_outputs)
+    print(
+        f"Output {n_outputs: >4} at t = {simulation_time(float(t))}, "
+        f"RT = {pretty_duration(time.monotonic() - runtime)}"
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,394 @@
+"""Fused gather + Vay push + deposit: the PIC hot loop of the port.
+
+One pass per block of ``block`` particles does what three passes
+(``ops.interp.fields_at`` -> ``ops.pusher.vay_push`` ->
+``ops.deposit.deposit``) do: the particle columns are read once, the
+block's field window and its deposit tile stay in fast memory.  It is
+the port of ``opal_tpu/ops/fused.py``'s Pallas kernel (``_kernel_block``
+launched by ``fused_push_deposit``), in its lite Vay form: electrons,
+deposit on, no chi/gamma-half/prev_x outputs.  The CUDA kernel is
+``csrc/fused_push_deposit.cu``; :func:`fused_push_deposit_reference` is
+the same function in plain PyTorch ops.
+
+Shape contract (as in the JAX kernel)
+-------------------------------------
+* particle columns are (capacity,) with capacity % block == 0; f32
+  floats and int32 cells; ``anchors`` (capacity/block,) int32 window
+  bases in table-row space.
+* particles are *approximately* cell-sorted: block b sees field rows
+  [anchors[b], anchors[b] + window).  Alive rows whose cell is outside
+  rel in [1, window-3] (or outside the deposit reach) are not updated
+  and not deposited; they are flagged in ``miss`` and handled by the
+  caller's compacted fallback (``Simulation._fused_push_deposit``).
+* the field slab is an (n_rows, 8) f32 table with columns
+  Ex Ey Ez Bx By Bz 0 0 and ``PAD`` extra rows on both sides.
+
+Deposit output layout
+---------------------
+An (n_rows, 16) slab whose 16 columns are the reference's 15 deposit
+taps (5 longitudinal-flux cells for jx, 3 b-spline taps each for jy/jz,
+3+1 for rho) plus one pad column, each stored *unshifted* at the
+particle's post-push cell row; :func:`fold_out_slab` shifts and sums
+them into (J, rho).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from .. import constants as const
+from .deposit import _particle_values
+from .interp import flux, weight
+
+F32 = torch.float32
+
+#: extra field-table rows on each side so base-2 .. base+W+2 never leave
+#: the table for any in-domain (or one-cell-out leaver) particle
+PAD = 8
+
+#: the 16 deposit columns: (tap offset, target) with target 0..2 = J
+#: xyz, 3 = rho, 4 = unused pad; mirrors ops.deposit._particle_values
+COLS = (
+    (-2, 0), (-1, 0), (0, 0), (1, 0), (2, 0),
+    (-1, 1), (0, 1), (1, 1),
+    (-1, 2), (0, 2), (1, 2),
+    (-1, 3), (0, 3), (1, 3), (-2, 3), (0, 4),
+)
+
+
+class FusedSpec(NamedTuple):
+    """Static configuration of one fused-kernel instantiation (the lite
+    Vay electron form of ``opal_tpu.ops.fused.FusedSpec``)."""
+
+    block: int          # particles per block (BS)
+    window: int         # field cells visible per block (W)
+    n_rows: int         # field table rows (n_slab + 2*PAD)
+    dx: float
+    dt: float
+    charge: float       # species charge: macrocharge = weight * charge
+    mass: float
+    # field-table row = particle cell + row_off (HALO + PAD)
+    row_off: int = 0
+    # output the per-step work INCREMENT (seeded at 0) for a caller that
+    # accumulates work in a wider dtype, instead of accumulating into
+    # the f32 work column passed in
+    work_inc: bool = False
+
+
+def _scalars(spec: FusedSpec) -> dict:
+    """The push constants, each formed in f64 exactly as the JAX kernel
+    forms them (Python float products) and rounded once to f32."""
+    C = const.SPEED_OF_LIGHT
+    alpha = spec.charge * spec.dt / (2.0 * spec.mass * C)
+    return dict(
+        charge=spec.charge,
+        alpha=alpha,
+        c=C,
+        kwork=spec.charge * C,
+        dt=spec.dt,
+        talpha=alpha * C,
+        kx=C * spec.dt / spec.dx,
+        inv_dt=1.0 / spec.dt,
+        inv_dx=1.0 / spec.dx,
+    )
+
+
+def _reach_rows(spec: FusedSpec):
+    """[lo, hi] table rows whose deposit taps stay inside the current
+    slab after :func:`fold_out_slab` trims the PAD rows."""
+    return PAD + 2, spec.n_rows - PAD - 3
+
+
+def fused_push_deposit_reference(spec: FusedSpec, anchors, cell, x, y, z,
+                                 ux, uy, uz, gamma, weight_, work, eb_rows):
+    """Plain PyTorch version of the fused kernel, vectorized over all
+    rows.  Same arguments and results as :func:`fused_push_deposit`.
+
+    The arithmetic follows the JAX kernel operation by operation (same
+    association, constants rounded to f32 once), so on a card the CUDA
+    kernel, built without FMA contraction, reproduces its push columns
+    bit for bit; the deposit slab differs only by summation order."""
+    n = cell.shape[0]
+    BS, W, n_rows = spec.block, spec.window, spec.n_rows
+    nblk = n // BS
+    k = {name: float(v) for name, v in _scalars(spec).items()}
+
+    base = anchors.long().repeat_interleave(BS)
+    row = cell.long() + spec.row_off
+    rel = row - base
+    relf = rel.to(F32)
+    q = weight_ * k["charge"]
+    lo_row, hi_row = _reach_rows(spec)
+    fit = (rel >= 1) & (rel <= W - 3) & (row >= lo_row) & (row <= hi_row)
+    alive = q != 0.0
+    miss = alive & ~fit
+    upd = fit & alive
+    fitf = fit.to(F32)
+
+    # ---- field gather: the 4 live b-spline taps, rows rel-1 .. rel+2,
+    # summed from 0 in ascending order (the JAX W-cell loop adds exact
+    # zeros for every other cell, so the sums are the same) ----------
+    d = relf + x
+    zero = torch.zeros_like(x)
+    Ex, Ey, Ez, By, Bz = zero, zero, zero, zero, zero
+    for kk in range(4):
+        wdf = (rel + (kk - 1)).to(F32)
+        e = eb_rows[torch.clamp(row + (kk - 1), 0, n_rows - 1)]
+        ce = weight(d - wdf)          # edge taps (Ey, Ez)
+        cc = weight(d - wdf - 0.5)    # centred taps (Ex, By, Bz)
+        Ex = Ex + cc * e[:, 0]
+        Ey = Ey + ce * e[:, 1]
+        Ez = Ez + ce * e[:, 2]
+        By = By + cc * e[:, 4]
+        Bz = Bz + cc * e[:, 5]
+    Bx = zero + eb_rows[torch.clamp(row, 0, n_rows - 1), 3]
+    Ex, Ey, Ez, Bx, By, Bz = (f * fitf for f in (Ex, Ey, Ez, Bx, By, Bz))
+
+    # ---- Vay push (electron.rs:268-330), lite form with work --------
+    C = k["c"]
+    alpha = k["alpha"]
+    ig = 1.0 / gamma
+    vx, vy, vz = C * ux * ig, C * uy * ig, C * uz * ig
+    uhx = ux + alpha * (Ex + (vy * Bz - vz * By))
+    uhy = uy + alpha * (Ey + (vz * Bx - vx * Bz))
+    uhz = uz + alpha * (Ez + (vx * By - vy * Bx))
+    gh = torch.sqrt(1.0 + uhx * uhx + uhy * uhy + uhz * uhz)
+    work_in = torch.zeros_like(ux) if spec.work_inc else work
+    wk = work_in + k["kwork"] * (uhx * Ex + uhy * Ey + uhz * Ez) * k["dt"] / gh
+    upx = uhx + alpha * Ex
+    upy = uhy + alpha * Ey
+    upz = uhz + alpha * Ez
+    gp2 = 1.0 + upx * upx + upy * upy + upz * upz
+    ta = k["talpha"]
+    tvx, tvy, tvz = ta * Bx, ta * By, ta * Bz
+    ustar = upx * tvx + upy * tvy + upz * tvz
+    t2 = tvx * tvx + tvy * tvy + tvz * tvz
+    sig = gp2 - t2
+    gn = torch.sqrt(0.5 * sig + torch.sqrt(0.25 * sig * sig + t2 + ustar * ustar))
+    ign = 1.0 / gn
+    itx, ity, itz = tvx * ign, tvy * ign, tvz * ign
+    s = 1.0 / (1.0 + itx * itx + ity * ity + itz * itz)
+    udt = upx * itx + upy * ity + upz * itz
+    unx = s * (upx + udt * itx + (upy * itz - upz * ity))
+    uny = s * (upy + udt * ity + (upz * itx - upx * itz))
+    unz = s * (upz + udt * itz + (upx * ity - upy * itx))
+
+    # ---- x advance and the +-1 cell shift (sign of floor) -----------
+    xn = x + k["kx"] * unx * ign
+    fl = torch.floor(xn)
+    celln = row + torch.sign(fl).long()
+    xn = xn - fl
+    prevn = x - fl
+
+    cols = dict(
+        cell=(torch.where(upd, celln, row) - spec.row_off).to(torch.int32),
+        x=torch.where(upd, xn, x),
+        y=torch.where(upd, y + vy * k["dt"], y),
+        z=torch.where(upd, z + vz * k["dt"], z),
+        ux=torch.where(upd, unx, ux),
+        uy=torch.where(upd, uny, uy),
+        uz=torch.where(upd, unz, uz),
+        gamma=torch.where(upd, gn, gamma),
+    )
+    cols["winc" if spec.work_inc else "work"] = torch.where(upd, wk, work_in)
+
+    # ---- next window bases: per-block minimum of the post-push fit
+    # rows, or of the alive rows' pre-push cells when none fit --------
+    sent = n_rows
+    amin_fit = torch.where(upd, celln, sent).view(nblk, BS).amin(dim=1)
+    amin_alive = torch.where(alive, row, sent).view(nblk, BS).amin(dim=1)
+    amin = torch.where(amin_fit == sent, amin_alive, amin_fit)
+    anchors_next = torch.clamp(amin - 1, 2, n_rows - W - 2).to(torch.int32)
+
+    # ---- charge-conserving deposit of the 16 unshifted tap columns ---
+    qd = torch.where(upd, q, 0.0)
+    qf = qd * k["inv_dt"]
+    qx = qd * k["inv_dx"]
+    qy = qx * (C * uny * ign)
+    qz = qx * (C * unz * ign)
+    w_m1 = weight(1.0 + xn)
+    w_0 = weight(xn)
+    w_p1 = weight(1.0 - xn)
+    w_q = weight(2.0 - xn)  # the reference's index-2 rho quirk
+    vals = torch.stack(
+        [qf * flux(b - prevn, b - xn) for b in (-1.5, -0.5, 0.5, 1.5, 2.5)]
+        + [qy * w_m1, qy * w_0, qy * w_p1,
+           qz * w_m1, qz * w_0, qz * w_p1,
+           qx * w_m1, qx * w_0, qx * w_p1, qx * w_q,
+           torch.zeros_like(qd)],
+        dim=1,
+    )
+    vals = torch.where(upd[:, None], vals, 0.0)
+    out = torch.zeros((n_rows, 16), dtype=F32, device=x.device)
+    out.index_add_(0, torch.where(upd, celln, 0), vals)
+    return cols, miss.to(F32), out, anchors_next
+
+
+def _check_args(spec: FusedSpec, anchors, cols: dict, work, eb_rows):
+    dev = eb_rows.device
+    n = cols["cell"].shape[0]
+    if n % spec.block:
+        raise ValueError(f"capacity {n} is not a multiple of block {spec.block}")
+    if spec.window + 4 > spec.n_rows:
+        raise ValueError("window + 4 must not exceed the field table rows")
+    want = dict(cols, anchors=anchors, eb_rows=eb_rows)
+    if not spec.work_inc:
+        want["work"] = work
+    elif work is not None:
+        raise ValueError("work_inc kernels take no work column")
+    for name, t in want.items():
+        if t is None:
+            raise ValueError(f"{name} is required")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, eb_rows on {dev}")
+        dtype = torch.int32 if name in ("cell", "anchors") else F32
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in want.items():
+        shape = {
+            "anchors": (n // spec.block,), "eb_rows": (spec.n_rows, 8),
+        }.get(name, (n,))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
+
+
+def fused_push_deposit(spec: FusedSpec, anchors, cell, x, y, z, ux, uy, uz,
+                       gamma, weight_, work, eb_rows):
+    """Run the fused gather + push + deposit over all particle blocks.
+
+    CPU tensors go through :func:`fused_push_deposit_reference`; CUDA
+    tensors launch the CUDA kernel (``csrc/fused_push_deposit.cu``) on
+    the current stream, or raise.  ``work`` is the f32 work column, or
+    ``None`` with ``spec.work_inc``.
+
+    Returns ``(cols, miss, out_slab, anchors_next)``: ``cols`` the
+    updated columns (cell x y z ux uy uz gamma, and ``work`` or
+    ``winc``), ``miss`` an f32 0/1 mask of alive rows outside their
+    window, ``out_slab`` the (n_rows, 16) unshifted deposit
+    accumulator, and ``anchors_next`` the window bases for the next
+    step.
+    """
+    args = (spec, anchors, cell, x, y, z, ux, uy, uz, gamma, weight_,
+            work, eb_rows)
+    if cell.device.type == "cpu":
+        return fused_push_deposit_reference(*args)
+    if cell.device.type != "cuda":
+        raise ValueError(f"no fused kernel for device {cell.device}")
+    cols_in = dict(cell=cell, x=x, y=y, z=z, ux=ux, uy=uy, uz=uz,
+                   gamma=gamma, weight=weight_)
+    _check_args(spec, anchors, cols_in, work, eb_rows)
+    from .._build import library
+
+    lib = library()
+    n = cell.shape[0]
+    out_cols = {name: torch.empty_like(t) for name, t in cols_in.items()
+                if name != "weight"}
+    wname = "winc" if spec.work_inc else "work"
+    out_cols[wname] = torch.empty_like(x)
+    miss = torch.empty_like(x)
+    anchors_next = torch.empty_like(anchors)
+    out = torch.zeros((spec.n_rows, 16), dtype=F32, device=x.device)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+    k = _scalars(spec)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.opal_fused_push_deposit(
+            ptr(anchors), ptr(cell), ptr(x), ptr(y), ptr(z), ptr(ux),
+            ptr(uy), ptr(uz), ptr(gamma), ptr(weight_),
+            ptr(None if spec.work_inc else work), ptr(eb_rows),
+            *(ptr(out_cols[c]) for c in
+              ("cell", "x", "y", "z", "ux", "uy", "uz", "gamma", wname)),
+            ptr(miss), ptr(anchors_next), ptr(out),
+            n, spec.block, spec.window, spec.n_rows, spec.row_off, PAD,
+            *(k[c] for c in ("charge", "alpha", "c", "kwork", "dt",
+                             "talpha", "kx", "inv_dt", "inv_dx")),
+            ctypes.c_void_p(stream),
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused_push_deposit kernel failed: cudaError {rc}")
+    fused_push_deposit.launches += 1
+    return out_cols, miss, out, anchors_next
+
+
+#: kernel launches since the count was last reset (chip_smoke.py reads
+#: it to show the main path ran through the kernel)
+fused_push_deposit.launches = 0
+
+
+def make_eb_rows(E_slab, B_slab):
+    """(n_slab, 3)+(n_slab, 3) field slabs -> padded (n_rows, 8) f32 table."""
+    n_slab = E_slab.shape[0]
+    eb = torch.zeros((n_slab + 2 * PAD, 8), dtype=F32, device=E_slab.device)
+    eb[PAD:PAD + n_slab, 0:3] = E_slab
+    eb[PAD:PAD + n_slab, 3:6] = B_slab
+    return eb
+
+
+def fold_out_slab(out_slab):
+    """(n_rows, 16) unshifted tap accumulator -> (n_slab, 3) J and
+    (n_slab,) rho: column c with tap offset ``off`` adds at row + off.
+    Rows the kernel writes stay >= 2 away from the table edge, so the
+    wrapped rows are zero."""
+    n_rows = out_slab.shape[0]
+    offs = torch.tensor([off for off, _ in COLS], device=out_slab.device)
+    src = (torch.arange(n_rows, device=out_slab.device)[:, None]
+           - offs[None, :]) % n_rows
+    shifted = torch.gather(out_slab, 0, src)
+    tgt = [t for _, t in COLS]
+    comp = [
+        sum(shifted[:, k] for k in range(len(COLS)) if tgt[k] == c)
+        for c in range(4)
+    ]
+    J = torch.stack(comp[:3], dim=-1)
+    return J[PAD:-PAD], comp[3][PAD:-PAD]
+
+
+def deposit_into_slab(out_slab, row, x, prev_x, macrocharge, velocity,
+                      dx, dt):
+    """Misfit-fallback deposition added into the kernel's (n_rows, 16)
+    tap slab (a new tensor is returned), so one fold serves kernel and
+    fallback alike.  ``row`` is table-row space (cell + row_off).  Rows
+    outside the deposit reach [PAD+2, n_rows-PAD-3] deposit nothing;
+    callers count them as losses.  Dead rows must carry zero
+    macrocharge."""
+    n_rows = out_slab.shape[0]
+    vals, _plan = _particle_values(
+        x, prev_x, macrocharge, velocity[:, 1], velocity[:, 2], dx, dt
+    )
+    vals = torch.cat([vals, torch.zeros_like(vals[:, :1])], dim=1)
+    row = row.long()
+    ok = (row >= PAD + 2) & (row <= n_rows - PAD - 3)
+    out = out_slab.clone()
+    out.index_add_(
+        0, torch.where(ok, row, 0),
+        torch.where(ok[:, None], vals, 0.0).to(out.dtype),
+    )
+    return out
+
+
+def block_anchors(spec: FusedSpec, cell):
+    """Per-block window bases for a cell-sorted state: the block's
+    minimum cell in table-row space, minus 1 so rel >= 1, clipped to
+    [2, n_rows - W - 2] so neither the window read nor the deposit
+    write (base-2 .. base+W+2) leaves the table."""
+    mins = cell.view(-1, spec.block).amin(dim=1)
+    return torch.clamp(
+        mins + spec.row_off - 1, 2, spec.n_rows - spec.window - 2
+    ).to(torch.int32)
+
+
+def misfit_compact(miss, capacity):
+    """Indices of up to ``capacity`` misfit rows (ascending), plus the
+    overflow count (0-d int64).  Entries beyond the misfit total come
+    back as n, the length of ``miss``."""
+    m = miss > 0.5
+    R = torch.cumsum(m.long(), dim=0)
+    table = torch.searchsorted(
+        R, torch.arange(1, capacity + 1, device=miss.device)
+    )
+    return table, torch.clamp(R[-1] - capacity, min=0)

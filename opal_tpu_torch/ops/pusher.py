@@ -1,0 +1,133 @@
+"""Relativistic electron push, vectorized over SoA particle columns.
+
+The Vay leapfrog push of ``src/particle/electron.rs:268-330`` (as in
+``opal_tpu/ops/pusher.py``), including the quantum parameter and the
+work integral.  The optical-depth decrement against the photon
+emission rate needs the QED rate tables, which are not ported: callers
+pass ``tau=None`` and the decrement is skipped, which is what the
+reference's non-emission runs amount to (tau is never consumed there).
+
+Positions stay in [0, 1) as fractional cell offsets and the integer
+cell index moves by at most one cell per step (CFL).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import constants as const
+
+
+def _dot(a, b):
+    return (a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1]) + a[:, 2] * b[:, 2]
+
+
+def _cross(a, b):
+    return torch.stack(
+        [
+            a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+            a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+            a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0],
+        ],
+        dim=1,
+    )
+
+
+def _cell_fixup(cell, x, prev_x):
+    """Shift the cell index when the fractional offset leaves [0, 1)
+    (``electron.rs:319-329``): by the sign of floor(x), not floor(x)."""
+    fl = torch.floor(x)
+    shift = torch.sign(fl).to(cell.dtype)
+    return cell + shift, x - fl, prev_x - fl
+
+
+class PushResult(NamedTuple):
+    cell: torch.Tensor
+    x: torch.Tensor
+    prev_x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+    u: torch.Tensor
+    gamma: torch.Tensor
+    chi: torch.Tensor
+    tau: torch.Tensor | None
+    work: torch.Tensor
+
+
+def vay_push(cell, x, y, z, u, gamma, tau, work, E, B, dx, dt):
+    """Vay et al. leapfrog push for electrons (electron.rs:268-330).
+
+    ``u`` is p/(mc) with shape (N, 3); ``E``, ``B`` the fields at the
+    particle, (N, 3).  Updates momentum, gamma, chi and the work
+    integral.  ``tau`` must be ``None``: the optical-depth decrement
+    against the emission rate is not ported (see the module note).
+    """
+    if tau is not None:
+        raise NotImplementedError(
+            "the optical-depth decrement (QED emission rate) is not ported; "
+            "pass tau=None"
+        )
+    c = const.SPEED_OF_LIGHT
+    v = c * u / gamma[:, None]
+
+    # u_i = u_{i-1/2} + (q dt / 2 m c) (E + v x B)
+    alpha = const.ELECTRON_CHARGE * dt / (2.0 * const.ELECTRON_MASS * c)
+    u_half = u + alpha * (E + _cross(v, B))
+    gamma_half = torch.sqrt(1.0 + _dot(u_half, u_half))
+    work = work + const.ELECTRON_CHARGE * c * _dot(u_half, E) * dt / gamma_half
+
+    # quantum parameter from F.u at the half step
+    F = gamma_half[:, None] * E + c * _cross(u_half, B)
+    eu = _dot(E, u_half)
+    chi = (
+        torch.sqrt(torch.clamp(_dot(F, F) - eu * eu, min=0.0))
+        / const.CRITICAL_FIELD
+    )
+
+    # u' = u_i + (q dt / 2 m c) E
+    u_prime = u_half + alpha * E
+    gamma_prime_sqd = 1.0 + _dot(u_prime, u_prime)
+
+    tau_v = alpha * c * B  # the Vay paper's tau vector
+    u_star = _dot(u_prime, tau_v)
+    t2 = _dot(tau_v, tau_v)
+    sigma = gamma_prime_sqd - t2
+    gamma_new = torch.sqrt(
+        0.5 * sigma + torch.sqrt(0.25 * sigma * sigma + t2 + u_star * u_star)
+    )
+
+    t_v = tau_v / gamma_new[:, None]
+    s = 1.0 / (1.0 + _dot(t_v, t_v))
+    u_new = s[:, None] * (
+        u_prime + _dot(u_prime, t_v)[:, None] * t_v + _cross(u_prime, t_v)
+    )
+
+    prev_x = x
+    dxi = c * u_new[:, 0] * dt / (dx * gamma_new)
+    x_new = x + dxi
+    # transverse positions advance with the *old* velocity, as in the
+    # reference (electron.rs:315-316)
+    y_new = y + v[:, 1] * dt
+    z_new = z + v[:, 2] * dt
+
+    cell, x_new, prev_x = _cell_fixup(cell, x_new, prev_x)
+    return PushResult(cell, x_new, prev_x, y_new, z_new, u_new, gamma_new,
+                      chi, None, work)
+
+
+def electron_chi(ux, uy, uz, gamma, E, B):
+    """Instantaneous electron quantum parameter from the local fields:
+    chi = |F.u| / (m c E_crit), the invariant the Vay push evaluates at
+    the half step (``electron.rs:283-285``), here from the full-step
+    momentum.  Refreshes the stale chi diagnostic of lite fused runs."""
+    c = const.SPEED_OF_LIGHT
+    fx = gamma * E[:, 0] + c * (uy * B[:, 2] - uz * B[:, 1])
+    fy = gamma * E[:, 1] + c * (uz * B[:, 0] - ux * B[:, 2])
+    fz = gamma * E[:, 2] + c * (ux * B[:, 1] - uy * B[:, 0])
+    eu = E[:, 0] * ux + E[:, 1] * uy + E[:, 2] * uz
+    return (
+        torch.sqrt(torch.clamp(fx * fx + fy * fy + fz * fz - eu * eu, min=0.0))
+        / const.CRITICAL_FIELD
+    )

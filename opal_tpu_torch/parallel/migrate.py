@@ -1,0 +1,198 @@
+"""The maintenance sort and the edge migration of a cell-sorted species.
+
+Ports of ``opal_tpu/parallel/migrate.py``'s ``sort_state``
+(``:494-569``) and ``migrate_edges`` (``:679-903``) at one device.  The
+JAX versions move the state as one packed float matrix; here every
+column moves at its own dtype (cells stay integers, and the
+field-dtype ``work`` column of mixed-precision runs is never rounded
+to the particle dtype, which the packed matrix does).
+
+Both are free of host synchronisation: window positions and index
+tables stay tensors, and dropped writes go to a scratch row past the
+window.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..grid import GridGeometry
+from ..species import ParticleState
+
+_BIG = 2**30
+
+
+def sort_state(state: ParticleState, n_loc: int) -> ParticleState:
+    """Local cell re-sort: alive rows ascending by the key
+    ``2*cell + (ux > 0)``, dead rows to the tail with key ``_BIG`` and
+    the in-range placeholder cell ``n_loc - 1``.
+
+    The direction bit keeps the state strictly cell-sorted but puts
+    counter-streaming populations into different kernel blocks, so each
+    block drifts coherently.  ``prev_x`` and ``gamma`` are rebuilt
+    (``prev_x`` as the sorted ``x``, ``gamma = sqrt(1 + |u|^2)``) and
+    ``chi`` is zeroed, as the reference does."""
+    dead = ~state.alive
+    cell = torch.where(dead, n_loc - 1, state.cell).to(state.cell.dtype)
+    skey = torch.where(
+        dead, _BIG, 2 * cell + (state.ux > 0.0).to(cell.dtype)
+    )
+    order = torch.argsort(skey, stable=True)
+    skip = {"prev_x", "gamma", "chi"}
+    cols = {
+        name: (cell if name == "cell" else a)[order]
+        for name, a in state.columns().items()
+        if name not in skip
+    }
+    st = dataclasses.replace(state, **cols)
+    return dataclasses.replace(
+        st,
+        prev_x=st.x.clone(),
+        gamma=torch.sqrt(1.0 + st.ux * st.ux + st.uy * st.uy + st.uz * st.uz),
+        chi=torch.zeros_like(state.chi),
+    )
+
+
+def pack_state_window(state: ParticleState, widx) -> dict:
+    """Rows ``widx`` (the head and tail windows) of every column."""
+    return {name: a[widx] for name, a in state.columns().items()}
+
+
+def unpack_state_window(W: dict, state: ParticleState, widx) -> ParticleState:
+    """Write the window rows back into copies of the state's columns."""
+    cols = {}
+    for name, a in state.columns().items():
+        a = a.clone()
+        a[widx] = W[name]
+        cols[name] = a
+    return dataclasses.replace(state, **cols)
+
+
+def _take(col, idx, n):
+    """``col[idx]`` with rows ``idx >= n`` filled with zero (False)."""
+    rows = col[torch.clamp(idx, max=n - 1)]
+    ok = (idx < n).view(-1, *([1] * (col.dim() - 1)))
+    return torch.where(ok, rows, torch.zeros_like(rows))
+
+
+def _put(col, dest, rows):
+    """``col[dest] = rows`` where ``dest < len(col)``; other rows drop
+    into a scratch row past the end."""
+    n = col.shape[0]
+    ext = torch.cat([col, col[:1]])
+    ext[torch.clamp(dest, max=n)] = rows
+    return ext[:n]
+
+
+def migrate_edges(state: ParticleState, geom: GridGeometry,
+                  send_capacity: int, window: int):
+    """Migration for a cell-sorted state at one device: every leaver,
+    every freed slot and the dead pool live in the head/tail ``window``
+    rows, so the exchange touches O(window) rows.  The exchange with
+    the ring neighbours is a send to itself: right leavers re-enter at
+    the left edge into the lowest free head slots, left leavers at the
+    right edge into the lowest free tail slots.  Leavers outside the
+    windows, sends beyond ``send_capacity`` and arrivals without a free
+    slot are counted in the returned overflow, never silently dropped.
+
+    Returns ``(state, overflow)`` with ``overflow`` a 0-d int64 tensor.
+    """
+    n = state.alive.shape[0]
+    K = int(min(window, n // 2))
+    cap = int(min(send_capacity, K // 2))
+    dev = state.alive.device
+
+    # tail window: just below the alive/dead boundary (sorted states
+    # keep dead rows at the tail), clamped so the windows never overlap
+    t0 = torch.clamp(state.alive.sum() - K // 2, K, n - K)
+    ar = torch.arange(K, device=dev)
+    widx = torch.cat([ar, t0 + ar])
+
+    tot_l = torch.sum(state.alive & (state.cell < 0))
+    tot_r = torch.sum(state.alive & (state.cell >= geom.n_loc))
+    W = pack_state_window(state, widx)
+    W, overflow = _edges_core(W, geom, tot_l, tot_r, K, cap)
+    return unpack_state_window(W, state, widx), overflow
+
+
+def _edges_core(W: dict, geom: GridGeometry, tot_l, tot_r, K: int, cap: int):
+    """The edge exchange on the (2K,) head+tail window columns ``W``
+    (``opal_tpu/parallel/migrate.py:739-862`` at one periodic device).
+    Returns ``(W_new, overflow)``."""
+    if geom.n_devices != 1 or geom.left_boundary != "periodic":
+        raise NotImplementedError(
+            "only the single-device periodic edge migration is ported"
+        )
+    n_loc = geom.n_loc
+    alive_w, cell_w = W["alive"], W["cell"]
+    dev = cell_w.device
+    L = 2 * K
+
+    go_left = alive_w & (cell_w < 0)
+    go_right = alive_w & (cell_w >= n_loc)
+    gone = go_left | go_right
+    free_after = ~alive_w | gone
+    missed = (tot_l + tot_r) - torch.sum(gone)
+
+    # (4, 2K) running counts, scanned along the contiguous dimension
+    cum = torch.cumsum(
+        torch.stack([go_left, go_right, gone, free_after]).long(), dim=1
+    )
+    n_left, n_right, nf = cum[0, -1], cum[1, -1], cum[3, -1]
+    q = torch.arange(1, 2 * cap + 1, device=dev)
+    lt = torch.searchsorted(cum[0], q[:cap])
+    rt = torch.searchsorted(cum[1], q[:cap])
+    gt = torch.searchsorted(cum[2], q)
+    # per-half free-slot tables, lowest rows first: arrivals land in the
+    # slots leavers just vacated, or in the pool rows nearest the alive
+    # region
+    nf_h = cum[3, K - 1]
+    fh = torch.searchsorted(cum[3, :K], q[:cap])
+    ft = K + torch.searchsorted(cum[3, K:] - nf_h, q)
+    nf_t = nf - nf_h
+
+    lane = torch.arange(cap, device=dev)
+    overflow = (
+        torch.clamp(n_left - cap, min=0) + torch.clamp(n_right - cap, min=0)
+        + missed
+    )
+
+    send_left = {k: _take(v, lt, L) for k, v in W.items()}
+    send_left["cell"] = send_left["cell"] + n_loc
+    send_right = {k: _take(v, rt, L) for k, v in W.items()}
+    send_right["cell"] = send_right["cell"] - n_loc
+    # one device: what leaves on the right arrives from the left
+    n_arr_l = torch.clamp(n_right, max=cap)
+    n_arr_r = torch.clamp(n_left, max=cap)
+    from_left, from_right = send_right, send_left
+
+    # retire leavers: zero the row (alive False, weight 0, momentum 0,
+    # cell 0) except gamma, which stays 1 so no 0/0 reaches a division
+    W = {
+        k: _put(v, gt, torch.full((), 1 if k == "gamma" else 0,
+                                  dtype=v.dtype, device=dev))
+        for k, v in W.items()
+    }
+
+    # insert: left arrivals take the lowest free head slots, right
+    # arrivals the lowest free tail slots; left arrivals beyond the
+    # head's free count spill into the tail after the right side's
+    vl = lane < n_arr_l
+    vr = lane < n_arr_r
+    n_r_used = torch.minimum(n_arr_r, nf_t)
+    ok_r = vr & (lane < n_r_used)
+    dest_r = torch.where(ok_r, ft[lane], L)
+    in_head = lane < nf_h
+    spill = lane - nf_h + n_r_used
+    ok_l = vl & (in_head | (spill < torch.clamp(nf_t, max=2 * cap)))
+    dest_l = torch.where(
+        ok_l,
+        torch.where(in_head, fh[lane], ft[torch.clamp(spill, 0, 2 * cap - 1)]),
+        L,
+    )
+    W = {k: _put(v, dest_l, from_left[k]) for k, v in W.items()}
+    W = {k: _put(v, dest_r, from_right[k]) for k, v in W.items()}
+    ins_overflow = vl.sum() + vr.sum() - ok_l.sum() - ok_r.sum()
+    return W, overflow + ins_overflow

@@ -1,0 +1,442 @@
+"""The particle-in-cell simulation core: the non-QED electron step.
+
+One step, in the reference's hot-loop order (``src/main.rs:238-267``)
+and ``opal_tpu/sim.py``'s (``:1020-1247``), on one device:
+
+1. refresh the halo fields (a local wrap on the periodic grid);
+2. push each species: the fused CUDA kernel (gather + Vay push +
+   deposit) plus the compacted unfused fallback for rows outside their
+   block window, or the unfused ops for species the kernel cannot take;
+3. migrate leavers when the exchange runs every step;
+4. deposit the unfused species and fold the halo currents;
+5. the Yee field advance.
+
+``run`` is an eager Python loop over the same static phase schedule as
+``opal_tpu``: a maintenance sort opens every R-step period and a
+migration phase closes every M-step block.  Loss counters are device
+int64 tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from . import constants as const
+from .fields import sm_mask, zero_fields
+from .grid import HALO, GridGeometry, apply_boundaries, em_field_energy_local
+from .ops import fused as F
+from .ops import maxwell
+from .ops.deposit import deposit
+from .ops.interp import fields_at
+from .ops.pusher import electron_chi, vay_push
+from .parallel import halo
+from .parallel.migrate import migrate_edges, sort_state
+from .species import ParticleState, SpeciesSpec, kinetic_energy_weights
+
+
+@dataclasses.dataclass(frozen=True)
+class SimOptions:
+    """Static switches of the step (the fields of
+    ``opal_tpu.sim.SimOptions`` that the non-QED electron path reads)."""
+
+    dt: float
+    current_deposition: bool = True
+    # leavers sent per side per exchange; more are counted as losses
+    migration_capacity: int = 4096
+    # upper bound on any particle's per-step cell drift, in cells (the
+    # CFL default 0.95 is always safe); slow decks may defer migration
+    # until drift * M reaches the 2-cell deposit/gather reach
+    max_drift_cells_per_step: float = 0.95
+    # the fused CUDA kernel for electrons (f32 state, capacity a
+    # multiple of fused_block); alive rows outside their block window
+    # go through a compacted unfused fallback of fused_misfit_capacity
+    # rows per step, and any excess is counted as a loss
+    fused_pusher: bool = False
+    fused_block: int = 4096
+    fused_window: int = 32
+    fused_misfit_capacity: int = 1024
+    # resort cadence R: a local re-sort (migrate.sort_state) opens every
+    # R-step period; between sorts the kernel re-anchors each block from
+    # its own fit-row minimum
+    fused_resort_every: int = 1
+    # migration cadence M: the edge exchange closes every M-step block
+    # (M == 1: inline in every step)
+    migration_every: int = 1
+    # head/tail rows the edge exchange of a cell-sorted species scans
+    migration_window: int = 16384
+
+
+class Carry(NamedTuple):
+    """The state the step loop threads: fields, species, time, loss
+    counters and the per-species kernel window bases."""
+
+    E: torch.Tensor
+    B: torch.Tensor
+    J: torch.Tensor
+    rho: torch.Tensor
+    species: dict
+    t: float
+    counters: dict
+    anchors: dict
+
+
+class Simulation:
+    """Geometry, options and species of one run, on one device."""
+
+    def __init__(
+        self,
+        geom: GridGeometry,
+        options: SimOptions,
+        species: dict[str, SpeciesSpec],
+        device="cpu",
+        dtype=torch.float64,
+        field_dtype=None,
+    ):
+        """``dtype`` is the particle-state precision; ``field_dtype``
+        (default: same) the grid-field precision.  Mixed precision (f32
+        particles, f64 fields) keeps the fused f32 kernel while the Yee
+        integration, current accumulation and energy sums run in f64."""
+        if geom.n_devices != 1 or geom.left_boundary != "periodic":
+            raise NotImplementedError(
+                "only single-device periodic grids are ported"
+            )
+        for name, spec in species.items():
+            if spec.kind != "electron":
+                raise NotImplementedError(
+                    f"species {name!r} of kind {spec.kind!r} is not ported"
+                )
+        self.geom = geom
+        self.options = options
+        self.specs = dict(species)
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.field_dtype = field_dtype if field_dtype is not None else dtype
+
+    # ------------------------------------------------------------------
+    # the push
+    # ------------------------------------------------------------------
+
+    @property
+    def _n_rows(self) -> int:
+        return self.geom.n_loc + 2 * HALO + 2 * F.PAD
+
+    def _fused_applicable(self, name, st: ParticleState) -> bool:
+        """Whether the fused kernel can serve this species."""
+        opt = self.options
+        return (
+            opt.fused_pusher
+            and st.x.dtype == torch.float32
+            and st.x.shape[0] % opt.fused_block == 0
+            # window read/write (base-2 .. base+W+2) must fit the table
+            and opt.fused_window + 4 <= self._n_rows
+        )
+
+    def _fused_spec(self, name) -> F.FusedSpec:
+        opt, geom = self.options, self.geom
+        spec = self.specs[name]
+        return F.FusedSpec(
+            block=opt.fused_block, window=opt.fused_window,
+            n_rows=self._n_rows, dx=geom.dx, dt=opt.dt,
+            charge=spec.charge, mass=spec.mass, row_off=HALO + F.PAD,
+            # mixed precision: the work column is field-dtype and the
+            # kernel outputs bare increments accumulated here in f64
+            work_inc=self.field_dtype != self.dtype,
+        )
+
+    def _velocity(self, st: ParticleState):
+        return const.SPEED_OF_LIGHT * st.u / st.gamma[:, None]
+
+    def _push_species(self, name, st: ParticleState, E_slab, B_slab):
+        """The unfused electron push: field gather + Vay push."""
+        geom, opt = self.geom, self.options
+        Ep, Bp = fields_at(E_slab, B_slab, st.cell + HALO, st.x)
+        res = vay_push(
+            st.cell, st.x, st.y, st.z, st.u, st.gamma, None, st.work,
+            Ep.to(st.x.dtype), Bp.to(st.x.dtype), geom.dx, opt.dt,
+        )
+        return dataclasses.replace(
+            st, cell=res.cell, x=res.x, prev_x=res.prev_x, y=res.y,
+            z=res.z, ux=res.u[:, 0], uy=res.u[:, 1], uz=res.u[:, 2],
+            gamma=res.gamma, chi=res.chi, work=res.work,
+        )
+
+    def _fused_push_deposit(self, name, st: ParticleState, E_slab, B_slab,
+                            anchors):
+        """The fused kernel plus the compacted unfused fallback for alive
+        rows outside their block window (``opal_tpu/sim.py:541-721``).
+
+        Depositing before migration equals the reference's
+        post-migration deposit: a one-cell leaver deposits into halo
+        rows, which the fold adds to the neighbour.
+
+        Returns (state, J_add, rho_add, losses, anchors_next)."""
+        opt, geom = self.options, self.geom
+        spec = self.specs[name]
+        fspec = self._fused_spec(name)
+        eb = F.make_eb_rows(E_slab, B_slab)
+        cols, miss, out_slab, anchors_next = F.fused_push_deposit(
+            fspec, anchors, st.cell, st.x, st.y, st.z,
+            st.ux, st.uy, st.uz, st.gamma, st.weight,
+            None if fspec.work_inc else st.work, eb,
+        )
+        upd = {k: cols[k] for k in
+               ("cell", "x", "y", "z", "ux", "uy", "uz", "gamma")}
+        # the lite kernel leaves prev_x and chi unchanged: nothing reads
+        # prev_x between steps and chi is refreshed at output time
+        upd["work"] = (
+            st.work + cols["winc"].to(st.work.dtype) if fspec.work_inc
+            else cols["work"]
+        )
+
+        n = st.cell.shape[0]
+        mtab, losses = F.misfit_compact(miss, opt.fused_misfit_capacity)
+        # one host read per step: most steps have no misfit at all, and
+        # then the fallback launches nothing
+        n_mis = int((mtab < n).sum())
+        if n_mis:
+            idx = mtab[:n_mis]
+            m_cell, m_x = st.cell[idx], st.x[idx]
+            m_q = st.weight[idx].to(torch.float32) * spec.charge
+            Ep, Bp = fields_at(E_slab, B_slab, m_cell + HALO, m_x)
+            res = vay_push(
+                m_cell, m_x, st.y[idx], st.z[idx],
+                torch.stack([st.ux[idx], st.uy[idx], st.uz[idx]], dim=1),
+                st.gamma[idx],
+                None, st.work[idx], Ep.to(st.x.dtype), Bp.to(st.x.dtype),
+                geom.dx, opt.dt,
+            )
+            fb = dict(
+                cell=res.cell, x=res.x, y=res.y, z=res.z, ux=res.u[:, 0],
+                uy=res.u[:, 1], uz=res.u[:, 2], gamma=res.gamma,
+                work=res.work,
+            )
+            for k, v in fb.items():
+                upd[k][idx] = v.to(upd[k].dtype)
+            if opt.current_deposition:
+                vel = const.SPEED_OF_LIGHT * res.u / res.gamma[:, None]
+                out_slab = F.deposit_into_slab(
+                    out_slab, res.cell + fspec.row_off, res.x, res.prev_x,
+                    m_q, vel, geom.dx, opt.dt,
+                )
+                # deposit-reach violations drop taps: counted as losses
+                viol = (m_q != 0.0) & (
+                    (m_cell < -(HALO - 2)) | (m_cell > geom.n_loc + HALO - 3)
+                )
+                losses = losses + viol.sum()
+        J_add, rho_add = F.fold_out_slab(out_slab)
+        return (
+            dataclasses.replace(st, **upd), J_add, rho_add, losses,
+            anchors_next,
+        )
+
+    # ------------------------------------------------------------------
+    # schedule
+    # ------------------------------------------------------------------
+
+    def _cadences(self, species):
+        """(M, R): migration-exchange and maintenance-sort cadences in
+        steps (``opal_tpu/sim.py:889-925``)."""
+        opt = self.options
+        drift = float(opt.max_drift_cells_per_step)
+        if drift < 0.5:
+            # slow-drift deck: excursion ceil(drift * M) <= HALO - 2
+            m_cap = int((HALO - 2) / max(drift, 1e-9))
+        else:
+            m_cap = HALO - 1
+        M = max(1, min(opt.migration_every, m_cap))
+        if opt.current_deposition and any(
+            self.specs[n].charge != 0.0
+            and not self._fused_applicable(n, species[n])
+            for n in self.specs
+        ):
+            # the unfused deposit has no PAD rows of margin
+            M = min(M, max(1, int((HALO - 3) / max(drift, 1e-9)))
+                    if drift < 0.5 else HALO - 3)
+        R = max(1, opt.fused_resort_every)
+        return M, R
+
+    def _wrap(self, st: ParticleState):
+        """Single-device migration of an unsorted species on the
+        periodic grid: boundary crossings wrap in place."""
+        n_loc = self.geom.n_loc
+        cell = (
+            st.cell
+            + torch.where(st.cell < 0, n_loc, 0)
+            - torch.where(st.cell >= n_loc, n_loc, 0)
+        ).to(st.cell.dtype)
+        return dataclasses.replace(st, cell=cell), torch.zeros(
+            (), dtype=torch.int64, device=self.device
+        )
+
+    def _migrate(self, name, st):
+        opt = self.options
+        if self._fused_applicable(name, st):
+            return migrate_edges(
+                st, self.geom, opt.migration_capacity, opt.migration_window
+            )
+        return self._wrap(st)
+
+    def _sort_phase(self, c: Carry) -> Carry:
+        """Maintenance sort of every fused species + fresh block
+        anchors; runs once per sort period."""
+        species, anchors = dict(c.species), dict(c.anchors)
+        for name in self.specs:
+            if self._fused_applicable(name, species[name]):
+                st = sort_state(species[name], self.geom.n_loc)
+                anchors[name] = F.block_anchors(self._fused_spec(name), st.cell)
+                species[name] = st
+        return c._replace(species=species, anchors=anchors)
+
+    def _migrate_phase(self, c: Carry) -> Carry:
+        """The exchange of every species; closes each M-step block."""
+        species, counters = dict(c.species), dict(c.counters)
+        for name in self.specs:
+            species[name], ovf = self._migrate(name, species[name])
+            counters[name] = counters[name] + ovf
+        return c._replace(species=species, counters=counters)
+
+    def _device_step(self, c: Carry, inline_sort, inline_migrate) -> Carry:
+        geom, opt = self.geom, self.options
+        E = c.E
+        species, counters, anchors = (
+            dict(c.species), dict(c.counters), dict(c.anchors)
+        )
+        E_slab, B_slab = halo.exchange_fields(E, c.B, geom)
+
+        fused_dep = {}
+        for name in self.specs:
+            st = species[name]
+            if self._fused_applicable(name, st):
+                if inline_sort:
+                    st = sort_state(st, geom.n_loc)
+                    anch = F.block_anchors(self._fused_spec(name), st.cell)
+                else:
+                    anch = anchors[name]
+                st, J_add, rho_add, losses, anchors[name] = (
+                    self._fused_push_deposit(name, st, E_slab, B_slab, anch)
+                )
+                fused_dep[name] = (J_add, rho_add)
+                counters[name] = counters[name] + losses
+            else:
+                st = self._push_species(name, st, E_slab, B_slab)
+            if inline_migrate:
+                st, ovf = self._migrate(name, st)
+                counters[name] = counters[name] + ovf
+            species[name] = st
+
+        n_slab = geom.n_loc + 2 * HALO
+        J_slab = torch.zeros((n_slab, 3), dtype=E.dtype, device=E.device)
+        rho_slab = torch.zeros((n_slab,), dtype=E.dtype, device=E.device)
+        if opt.current_deposition:
+            for J_add, rho_add in fused_dep.values():
+                J_slab = J_slab + J_add.to(E.dtype)
+                rho_slab = rho_slab + rho_add.to(E.dtype)
+            for name, spec in self.specs.items():
+                if spec.charge == 0.0 or name in fused_dep:
+                    continue
+                st = species[name]
+                macrocharge = torch.where(
+                    st.alive, st.weight * spec.charge, 0.0
+                )
+                J_slab, rho_slab = deposit(
+                    J_slab, rho_slab, st.cell + HALO, st.x, st.prev_x,
+                    macrocharge, self._velocity(st), geom.dx, opt.dt,
+                )
+        J, rho = halo.fold_currents(J_slab, rho_slab, geom)
+        E_own, B_own = apply_boundaries(
+            E_slab[HALO:-HALO], B_slab[HALO:-HALO], geom, 0, c.t, opt.dt
+        )
+        E_slab = torch.cat([E_slab[:HALO], E_own, E_slab[-HALO:]])
+        B_slab = torch.cat([B_slab[:HALO], B_own, B_slab[-HALO:]])
+        J_slab = torch.nn.functional.pad(J, (0, 0, HALO, HALO))
+
+        E_slab, B_slab = maxwell.advance(
+            E_slab, B_slab, J_slab, opt.dt, geom.dx,
+            sm_mask(geom, E.device),
+        )
+        return Carry(E_slab[HALO:-HALO], B_slab[HALO:-HALO], J, rho,
+                     species, c.t + opt.dt, counters, anchors)
+
+    def run(self, E, B, J, rho, species, t0, counters, nsteps: int):
+        """Advance ``nsteps`` steps over the static phase schedule;
+        returns (E, B, J, rho, species, t, counters) with J/rho from the
+        final step (for output parity)."""
+        opt = self.options
+        M, R = self._cadences(species)
+        any_fused = any(
+            self._fused_applicable(n, species[n]) for n in self.specs
+        )
+        inline_migrate = M == 1
+        inline_sort = any_fused and R == 1
+        sort_phase = any_fused and R > 1
+        Mb = 1 if inline_migrate else M
+        # placeholders: the sort phase computes the bases before the
+        # first fused step of every run
+        anchors = {
+            n: torch.full((species[n].x.shape[0] // opt.fused_block,), 2,
+                          dtype=torch.int32, device=self.device)
+            for n in self.specs if self._fused_applicable(n, species[n])
+        }
+        c = Carry(E, B, J, rho, dict(species), float(t0), dict(counters),
+                  anchors)
+
+        def blocks(c, k):
+            # k steps as M-step blocks, each closed by the exchange
+            for lo in range(0, k, Mb):
+                for _ in range(min(Mb, k - lo)):
+                    c = self._device_step(c, inline_sort, inline_migrate)
+                if not inline_migrate:
+                    c = self._migrate_phase(c)
+            return c
+
+        if not sort_phase:
+            c = blocks(c, nsteps)
+        else:
+            R_eff = max(Mb, (R // Mb) * Mb)
+            for lo in range(0, nsteps, R_eff):
+                c = blocks(self._sort_phase(c), min(R_eff, nsteps - lo))
+        return c.E, c.B, c.J, c.rho, c.species, c.t, c.counters
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+
+    def init_fields(self):
+        return zero_fields(self.geom, self.field_dtype, self.device)
+
+    def zero_counters(self):
+        """Per-species loss counters: device int64 scalars."""
+        return {
+            name: torch.zeros((), dtype=torch.int64, device=self.device)
+            for name in self.specs
+        }
+
+    def em_field_energy(self, E, B) -> float:
+        return float(em_field_energy_local(E, B, self.geom))
+
+    def total_kinetic_energy(self, name: str, state: ParticleState) -> float:
+        """Kinetic energy of a species in joules (``mod.rs:227-240``),
+        reduced in the field dtype."""
+        ke = kinetic_energy_weights(self.specs[name], state)
+        return float(torch.sum(ke.to(self.field_dtype)))
+
+    @property
+    def electron_chi_is_lazy(self) -> bool:
+        """True when the step leaves electron chi stale: the fused
+        kernel skips the per-step chi diagnostic."""
+        return self.options.fused_pusher
+
+    def refresh_electron_chi(self, E, B, st: ParticleState) -> ParticleState:
+        """Recompute electron chi from the current momenta and fields
+        (the full-step invariant, equal to the reference's half-step
+        value to O(dt))."""
+        E_slab, B_slab = halo.exchange_fields(E, B, self.geom)
+        Ep, Bp = fields_at(E_slab, B_slab, st.cell + HALO, st.x)
+        chi = electron_chi(
+            st.ux, st.uy, st.uz, st.gamma,
+            Ep.to(st.x.dtype), Bp.to(st.x.dtype),
+        )
+        return dataclasses.replace(st, chi=chi)

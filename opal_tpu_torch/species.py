@@ -1,0 +1,225 @@
+"""Particle species: fixed-capacity structure-of-arrays state.
+
+As in ``opal_tpu/species.py``, a species is a set of per-field columns
+with a fixed capacity and an ``alive`` mask (the reference's
+``Population<T>``, ``src/particle/mod.rs:141-376``), here as a
+dataclass of torch tensors.  Momentum ``u`` is p/(mc); ``gamma`` the
+Lorentz factor.  Only electrons are ported: the ion and photon columns
+keep their names, for parity with ``opal_tpu``, and stay ``None``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from . import constants as const
+from .grid import GridGeometry
+
+
+@dataclasses.dataclass
+class ParticleState:
+    """Per-device SoA particle storage (all columns length = capacity).
+
+    Optional per-species columns are ``None`` when unused: ``tau``/
+    ``work`` exist for electrons, ``tau_abs``/``tau_st``/``birth_time``
+    for photons.
+    """
+
+    cell: torch.Tensor  # (N,) int32, device-local owned-cell index
+    x: torch.Tensor  # (N,) fractional offset in [0, 1)
+    prev_x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+    weight: torch.Tensor
+    ux: torch.Tensor
+    uy: torch.Tensor
+    uz: torch.Tensor
+    gamma: torch.Tensor
+    chi: torch.Tensor
+    tau: torch.Tensor | None
+    tau_abs: torch.Tensor | None
+    tau_st: torch.Tensor | None
+    work: torch.Tensor | None
+    birth_time: torch.Tensor | None
+    alive: torch.Tensor  # (N,) bool
+    pol: torch.Tensor | None = None
+    basis: torch.Tensor | None = None
+
+    @property
+    def u(self) -> torch.Tensor:
+        """(N, 3) stack of the momentum columns."""
+        return torch.stack([self.ux, self.uy, self.uz], dim=1)
+
+    def columns(self) -> dict:
+        """The non-None columns by name, in dataclass order."""
+        return {
+            f.name: getattr(self, f.name)
+            for f in dataclasses.fields(self)
+            if getattr(self, f.name) is not None
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class SpeciesSpec:
+    """Static description of a species."""
+
+    name: str
+    kind: str  # 'electron' | 'ion' | 'photon'
+    charge: float = 0.0  # SI, per real particle
+    mass: float = 0.0  # SI
+    output: tuple[str, ...] = ()
+
+    @staticmethod
+    def electron(output=()) -> "SpeciesSpec":
+        return SpeciesSpec(
+            "electron", "electron", const.ELECTRON_CHARGE, const.ELECTRON_MASS,
+            tuple(output),
+        )
+
+
+def dead_default(fname: str, is_photon: bool) -> float:
+    """Dead-slot fill value for one column: tau columns are +inf so dead
+    slots never trigger emission/absorption; photon gamma is |k| = 0,
+    massive gamma 1 so energy formulas stay finite."""
+    if fname in ("tau", "tau_abs", "tau_st"):
+        return np.inf
+    if fname == "birth_time":
+        return -np.inf
+    if fname == "gamma":
+        return 0.0 if is_photon else 1.0
+    return 0.0
+
+
+def _empty_fields(spec: SpeciesSpec, n: int, dtype, work_dtype=None):
+    fields = {
+        f.name: None for f in dataclasses.fields(ParticleState)
+    }
+    fields.update(
+        cell=np.zeros(n, np.int32),
+        alive=np.zeros(n, bool),
+        **{
+            k: np.full(n, dead_default(k, spec.kind == "photon"), dtype)
+            for k in ("x", "prev_x", "y", "z", "weight", "ux", "uy", "uz",
+                      "gamma", "chi")
+        },
+    )
+    fields["tau"] = np.full(n, np.inf, dtype)
+    # the work integral accumulates every step for the whole run: under
+    # mixed precision it lives in the field dtype (f64)
+    fields["work"] = np.zeros(n, work_dtype or dtype)
+    return fields
+
+
+def initialize(
+    spec: SpeciesSpec,
+    geom: GridGeometry,
+    npc: int,
+    density: Callable,
+    ux: Callable,
+    uy: Callable,
+    uz: Callable,
+    dt: float,
+    capacity_per_device: int,
+    seed: int = 0,
+    dtype=np.float64,
+    work_dtype=None,
+    device="cpu",
+) -> ParticleState:
+    """Sample the initial distribution (``mod.rs:172-203``) host-side
+    with numpy, draw for draw as ``opal_tpu.species.initialize``, and
+    place the columns on ``device``.
+
+    Per interior cell: ``nreal = density(x_centre) * dx`` real particles
+    shared equally by ``npc`` macroparticles; positions uniform in the
+    cell; momenta from ``u*(x, urand, nrand)``; optical depths ~ Exp(1).
+    The arrays have shape (n_devices * capacity_per_device,) with each
+    device's particles in its own contiguous block.
+    """
+    if spec.kind != "electron":
+        raise NotImplementedError(f"{spec.kind} species are not ported")
+    rng = np.random.default_rng(seed)
+    fields = _empty_fields(
+        spec, geom.n_devices * capacity_per_device, dtype, work_dtype
+    )
+
+    if npc > 0:
+        cells = np.arange(geom.nx)
+        x_centre = geom.xmin + (cells + 0.5) * geom.dx
+        nreal = (
+            np.broadcast_to(
+                np.asarray(density(x_centre), dtype=np.float64), x_centre.shape
+            )
+            * geom.dx
+        )
+        active = nreal > 0.0
+        weights = np.where(active, nreal / npc, 0.0)
+
+        cell_rep = np.repeat(cells[active], npc)
+        w_rep = np.repeat(weights[active], npc)
+        n = cell_rep.size
+
+        xi = rng.random(n)
+        real_x = geom.xmin + (cell_rep + xi) * geom.dx
+        u = np.stack(
+            [
+                np.broadcast_to(
+                    np.asarray(f(real_x, rng.random(n), rng.standard_normal(n)),
+                               dtype=np.float64), (n,)
+                )
+                for f in (ux, uy, uz)
+            ],
+            axis=-1,
+        )
+
+        g = cell_rep + geom.left_pad
+        dev = g // geom.n_loc
+        local_cell = g - dev * geom.n_loc
+
+        counts = np.bincount(dev, minlength=geom.n_devices)
+        if counts.max() > capacity_per_device:
+            raise ValueError(
+                f"species {spec.name}: device particle count "
+                f"{counts.max()} exceeds capacity {capacity_per_device}"
+            )
+
+        order = np.argsort(dev, kind="stable")
+        slot_in_dev = np.empty(n, np.int64)
+        start = 0
+        for d, cnt in enumerate(counts):
+            sel = order[start : start + cnt]
+            slot_in_dev[sel] = np.arange(cnt)
+            start += cnt
+        slots = dev * capacity_per_device + slot_in_dev
+
+        gamma = np.sqrt(1.0 + np.sum(u * u, axis=-1))
+        prev_x = xi - const.SPEED_OF_LIGHT * (u[:, 0] / gamma) * dt / geom.dx
+
+        fields["cell"][slots] = local_cell.astype(np.int32)
+        fields["x"][slots] = xi
+        fields["prev_x"][slots] = prev_x
+        fields["weight"][slots] = w_rep
+        fields["ux"][slots] = u[:, 0]
+        fields["uy"][slots] = u[:, 1]
+        fields["uz"][slots] = u[:, 2]
+        fields["gamma"][slots] = gamma
+        fields["alive"][slots] = True
+        fields["tau"][slots] = rng.exponential(size=n)
+
+    return ParticleState(**{
+        k: None if v is None else torch.from_numpy(v).to(device)
+        for k, v in fields.items()
+    })
+
+
+def kinetic_energy_weights(spec: SpeciesSpec, state: ParticleState):
+    """Per-electron kinetic energy in joules (macroparticle), in the
+    cancellation-free form u^2 / (gamma + 1) of gamma - 1
+    (``electron.rs:122-126``)."""
+    to_joules = 1.0e6 * const.ELECTRON_MASS_MEV * const.ELEMENTARY_CHARGE
+    u2 = state.ux * state.ux + state.uy * state.uy + state.uz * state.uz
+    ke = state.weight * u2 / (state.gamma + 1.0) * to_joules
+    return torch.where(state.alive, ke, 0.0)

@@ -1,0 +1,191 @@
+"""The fused gather + push + deposit: opal_tpu's Pallas kernel (run in
+interpret mode, as opal_tpu's own tests run it on the CPU) against the
+port's plain PyTorch version, at f32 in the lite Vay form, with the
+work increment on and off.  Also the host helpers around the kernel.
+
+Tolerances: cells, miss flags and next-step anchors must be equal.
+The float columns agree within 1e-6 of each column's largest magnitude
+(~8 f32 ulps): both evaluate the same f32 operation sequence, but XLA's
+CPU backend contracts multiply-adds into FMAs and the port's CPU ops do
+not, which moves results by a few ulps of the operands' magnitude, also
+on components that cancel toward zero.  The deposit slab sums particles
+in another order (a one-hot matmul against a scatter-add): within 1e-5
+of its largest entry.
+
+The CUDA kernel against the plain version needs a card and is marked
+``cuda``; it skips here.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from opal_tpu import constants as const
+from opal_tpu.ops import fused as JF
+from opal_tpu_torch.grid import HALO
+from opal_tpu_torch.ops import fused as TF
+
+pytestmark = pytest.mark.unit
+
+NX = 40
+N_SLAB = NX + 2 * HALO
+N_ROWS = N_SLAB + 2 * TF.PAD
+BS, NBLK = 128, 3
+DX = 500.0
+DT = 0.95 * DX / const.SPEED_OF_LIGHT
+COLS = ("cell", "x", "y", "z", "ux", "uy", "uz", "gamma")
+
+
+def _inputs(seed=0):
+    """A cell-sorted f32 state of 3 blocks with: dead tail rows, rows
+    pushed out of their block's window (misses), rows past the deposit
+    reach, and momenta that move some rows across cells; a non-zero
+    E and B table."""
+    rng = np.random.default_rng(seed)
+    n = BS * NBLK
+    cell = np.sort(rng.integers(0, NX, n)).astype(np.int32)
+    cell[5] = cell[5] + 25          # beyond any window of block 0
+    cell[200] = -3                  # outside the deposit reach
+    cell[201] = NX + HALO - 1
+    u = rng.normal(0.0, 0.4, (3, n))
+    weight = np.full(n, 1e7)
+    weight[-20:] = 0.0              # dead rows
+    f32 = lambda a: np.asarray(a, np.float32)
+    st = dict(
+        cell=cell, x=f32(rng.random(n)), y=f32(rng.normal(0, 1, n)),
+        z=f32(rng.normal(0, 1, n)), ux=f32(u[0]), uy=f32(u[1]),
+        uz=f32(u[2]), gamma=f32(np.sqrt(1.0 + (u ** 2).sum(0))),
+        weight=f32(weight), work=f32(rng.normal(0.0, 1e-20, n)),
+    )
+    E = rng.normal(0.0, 100.0, (N_SLAB, 3))
+    B = rng.normal(0.0, 1e-6, (N_SLAB, 3))
+    return st, E, B
+
+
+def _specs(window, work_inc):
+    kw = dict(block=BS, window=window, n_rows=N_ROWS, dx=DX, dt=DT,
+              charge=const.ELECTRON_CHARGE, mass=const.ELECTRON_MASS,
+              row_off=HALO + TF.PAD, work_inc=work_inc)
+    return JF.FusedSpec(pusher="vay", lite=True, work_out=True, **kw), \
+        TF.FusedSpec(**kw)
+
+
+def _t(a, device="cpu"):
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+@pytest.mark.parametrize("window,work_inc", [(16, True), (40, False)])
+def test_kernel_matches_pallas(window, work_inc):
+    st, E, B = _inputs()
+    jspec, tspec = _specs(window, work_inc)
+    eb_j = JF.make_eb_rows(jnp.asarray(E), jnp.asarray(B))
+    eb_t = TF.make_eb_rows(_t(E), _t(B))
+    np.testing.assert_array_equal(eb_t.numpy(), np.asarray(eb_j))
+    anch_j = JF.block_anchors(jspec, jnp.asarray(st["cell"]))
+    anch_t = TF.block_anchors(tspec, _t(st["cell"]))
+    np.testing.assert_array_equal(anch_t.numpy(), np.asarray(anch_j))
+
+    args = [st[c] for c in COLS] + [st["weight"]]
+    work = None if work_inc else st["work"]
+    cj, mj, oj, aj = JF.fused_push_deposit(
+        jspec, anch_j, *map(jnp.asarray, args),
+        None if work is None else jnp.asarray(work), eb_j, interpret=True,
+    )
+    ct, mt, ot, at = TF.fused_push_deposit(
+        tspec, anch_t, *map(_t, args), None if work is None else _t(work),
+        eb_t,
+    )
+    mj = np.asarray(mj)
+    assert mj.sum() > 0 and mj.sum() < mj.size / 2  # misses exercised
+    np.testing.assert_array_equal(mt.numpy(), mj, err_msg="miss")
+    np.testing.assert_array_equal(at.numpy(), np.asarray(aj),
+                                  err_msg="anchors_next")
+    np.testing.assert_array_equal(ct["cell"].numpy(), np.asarray(cj["cell"]))
+    assert (np.asarray(cj["cell"]) != st["cell"]).any()  # cells shift
+    for name in COLS[1:] + ("winc" if work_inc else "work",):
+        want = np.asarray(cj[name])
+        np.testing.assert_allclose(ct[name].numpy(), want, rtol=0,
+                                   atol=1e-6 * np.abs(want).max(),
+                                   err_msg=name)
+    oj = np.asarray(oj)
+    assert np.abs(oj).max() > 0
+    np.testing.assert_allclose(ot.numpy(), oj, rtol=0,
+                               atol=1e-5 * np.abs(oj).max(), err_msg="out")
+
+    # the fold of the tap slab into (J, rho): the same gather and sums
+    Jj, rj = JF.fold_out_slab(jnp.asarray(oj))
+    Jt, rt = TF.fold_out_slab(_t(oj))
+    np.testing.assert_allclose(Jt.numpy(), np.asarray(Jj), rtol=1e-6,
+                               atol=1e-7 * np.abs(np.asarray(Jj)).max())
+    np.testing.assert_allclose(rt.numpy(), np.asarray(rj), rtol=1e-6,
+                               atol=1e-7 * np.abs(np.asarray(rj)).max())
+
+
+def test_deposit_into_slab():
+    """Fallback rows deposit into the tap slab; rows outside the deposit
+    reach deposit nothing.  JAX contracts a one-hot matrix, the port
+    scatter-adds: within 1e-5 of the slab's largest entry."""
+    rng = np.random.default_rng(2)
+    n = 64
+    row = rng.integers(0, N_ROWS, n).astype(np.int32)
+    x = rng.random(n)
+    prev_x = x + rng.uniform(-0.9, 0.9, n)
+    q = np.full(n, -1.6e-12)
+    vel = rng.normal(0.0, 1e7, (n, 3))
+    slab = rng.normal(0.0, 1.0, (N_ROWS, 16)).astype(np.float32)
+    sj = JF.deposit_into_slab(
+        jnp.asarray(slab), *(jnp.asarray(a, jnp.float32)
+                             for a in (row, x, prev_x, q, vel)), DX, DT,
+    )
+    st = TF.deposit_into_slab(
+        _t(slab), _t(row), *(_t(np.float32(a)) for a in (x, prev_x, q, vel)),
+        DX, DT,
+    )
+    sj = np.asarray(sj)
+    np.testing.assert_allclose(st.numpy(), sj, rtol=0,
+                               atol=1e-5 * np.abs(sj).max())
+
+
+@pytest.mark.parametrize("capacity", [4, 64])
+def test_misfit_compact(capacity):
+    """Index table and overflow count equal, with and without
+    overflow."""
+    rng = np.random.default_rng(4)
+    miss = (rng.random(1024) < 0.01).astype(np.float32)
+    tj, oj = JF.misfit_compact(jnp.asarray(miss), capacity)
+    tt, ot = TF.misfit_compact(_t(miss), capacity)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(tj))
+    assert int(ot) == int(oj)
+    assert (int(ot) > 0) == (capacity < miss.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,work_inc", [(16, True), (40, False)])
+def test_cuda_kernel_matches_plain(window, work_inc):
+    """On a card: the CUDA kernel (built without FMA contraction)
+    reproduces the plain PyTorch version's push columns, miss flags and
+    anchors bit for bit; the slab within 1e-5 of its largest entry
+    (float atomics add in no fixed order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    st, E, B = _inputs()
+    _, spec = _specs(window, work_inc)
+    dev = "cuda"
+    eb = TF.make_eb_rows(_t(E, dev), _t(B, dev))
+    cell = _t(st["cell"], dev)
+    anch = TF.block_anchors(spec, cell)
+    args = [_t(st[c], dev) for c in COLS[1:]] + [_t(st["weight"], dev)]
+    work = None if work_inc else _t(st["work"], dev)
+    before = TF.fused_push_deposit.launches
+    ck, mk, ok, ak = TF.fused_push_deposit(spec, anch, cell, *args, work, eb)
+    assert TF.fused_push_deposit.launches == before + 1
+    cr, mr, orf, ar = TF.fused_push_deposit_reference(
+        spec, anch, cell, *args, work, eb
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(mk, mr) and torch.equal(ak, ar)
+    for name in cr:
+        assert torch.equal(ck[name], cr[name]), name
+    scale = orf.abs().max().item()
+    assert (ok - orf).abs().max().item() <= 1e-5 * scale
