@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profile DIR   # phases 1, 2 and a profiled phase 8
 
 Builds the port's CUDA kernel from ``opal_tpu_torch/csrc`` and drives
-the port on the card, phase by phase, each printing one line:
+the port on the card, phase by phase, each printing one line or more:
 
 1. device: the card, the CUDA version and ``nvidia-smi``'s name and
    power limit (there is no CPU fallback: without a card this exits 1);
@@ -19,16 +20,32 @@ the port on the card, phase by phase, each printing one line:
    ``examples/two_stream.yaml`` at its full width, cut to 2000 steps
    over 4 outputs, with the kernel's launch count;
 5. bench scale: the 8.39M-electron periodic deck of ``bench.py``'s
-   defaults through ``Simulation`` for two sort periods (640 steps).
+   defaults through ``Simulation`` for two sort periods (640 steps);
+6. hole_boring kernels vs plain: the Boris form (carbon ions) and the
+   Vay form with the work increment (electrons) against their plain
+   versions at the hole_boring shapes (753,664 rows a species, block
+   2048, window 56, n_rows 20,228), on the deck's sorted initial states
+   and random laser-strength fields, with both times;
+7. a small hole_boring deck (nx 800, npc 10, 200 steps, both species)
+   stepped on the card and on the CPU, whose fields and energies must
+   agree;
+8. hole_boring CLI drive (this slice's main path):
+   ``opal_tpu_torch.cli.main`` on ``examples/hole_boring.yaml`` at its
+   full width (nx 20,000, npc 100 a species), with the slab moved to
+   -9..-4 um and the run cut to t = -19..-7 um/c (12,630 steps over 3
+   outputs), so that the pulse's peak reaches the slab: the launches of
+   each kernel form, the losses, the outputs and the ions' heating.
 
-Any failed check raises, so the script exits non-zero without the final
-line.  Before the last line it prints one JSON object describing each
-kernel of the path, and ``nvidia-smi``'s name and power limit; the last
-line is ``{"ok": true, "device": {...}}``.
+Phases 1-8 take about five minutes.  Any failed check raises, so the
+script exits non-zero without the final line.  Before the last line it
+prints one JSON object describing each kernel form of the paths, and
+``nvidia-smi``'s name and power limit; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import io
 import json
@@ -46,11 +63,17 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 KERNEL = dict(
-    name="fused_push_deposit",
     route="cuda",
     source="opal_tpu_torch/csrc/fused_push_deposit.cu",
     replaces="opal_tpu/ops/fused.py:727",
 )
+#: the H100 SXM's HBM rate and f32 (non-tensor-core) peak, at 700 W
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+#: f32 operations a pushed row costs, counted from the kernel source:
+#: the 4-tap gather ~114, the push (Vay ~113, Boris ~81), the x/y/z
+#: advance ~10, the deposit's weights, fluxes and 15 adds ~143
+OPS_PER_ROW = {"vay": 380, "boris": 348}
 # bench.py's non-QED defaults (bench.py:145-498)
 BENCH = dict(particles=8 * 2**20, nx=1024, block=8192, window=12,
              resort=320, migrate=160, misfit=256, drift_cells=0.0095,
@@ -104,10 +127,27 @@ def two_stream_state(geom, npc, cap, dt, device, seed=0):
     )
 
 
-def kernel_vs_plain(label, st, spec, fields_seed=1):
+def bound(spec, n_rows_state, n_pushed):
+    """(bound_ms, bound_by): the least time the card could take for one
+    launch: each input column read once and each output written once
+    (4 B a value: 9 inputs, the work column when it is read, the 8
+    updated columns, the work output and ``miss``; the anchors both
+    ways, the field table read, the deposit slab written) over the HBM
+    rate, against the f32 operations of the rows that were pushed over
+    the f32 peak."""
+    cols = 9 + (spec.work_out and not spec.work_inc) + 8 + spec.work_out + 1
+    nblk = n_rows_state // spec.block
+    nbytes = 4 * (cols * n_rows_state + 2 * nblk + spec.n_rows * (8 + 16))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_pushed * OPS_PER_ROW[spec.pusher] / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_vs_plain(label, st, spec, fields_seed=1, e_scale=10.0,
+                    b_scale=1e-8, phase=3):
     """Compare the kernel with its plain version on one sorted state and
-    random E/B (E ~ 10 V/m, B ~ 1e-8 T); returns (max_abs_err, ms,
-    plain_ms)."""
+    random E/B (E ~ ``e_scale`` V/m, B ~ ``b_scale`` T); returns
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
     from opal_tpu_torch.ops import fused as F
     from opal_tpu_torch.parallel.migrate import sort_state
 
@@ -115,12 +155,13 @@ def kernel_vs_plain(label, st, spec, fields_seed=1):
     n_loc = spec.n_rows - 2 * F.PAD - 8
     st = sort_state(st, n_loc)
     g = torch.Generator(device="cpu").manual_seed(fields_seed)
-    E = (10.0 * torch.randn(n_loc + 8, 3, generator=g)).to(dev)
-    B = (1e-8 * torch.randn(n_loc + 8, 3, generator=g)).to(dev)
+    E = (e_scale * torch.randn(n_loc + 8, 3, generator=g)).to(dev)
+    B = (b_scale * torch.randn(n_loc + 8, 3, generator=g)).to(dev)
     eb = F.make_eb_rows(E, B)
     anchors = F.block_anchors(spec, st.cell)
+    work = st.work if spec.work_out and not spec.work_inc else None
     args = (spec, anchors, st.cell, st.x, st.y, st.z, st.ux, st.uy, st.uz,
-            st.gamma, st.weight, st.work, eb)
+            st.gamma, st.weight, work, eb)
     ck, mk, ok, ak = F.fused_push_deposit(*args)
     cr, mr, orf, ar = F.fused_push_deposit_reference(*args)
     torch.cuda.synchronize()
@@ -136,13 +177,16 @@ def kernel_vs_plain(label, st, spec, fields_seed=1):
     ms = cuda_ms(lambda: F.fused_push_deposit(*args))
     plain_ms = cuda_ms(lambda: F.fused_push_deposit_reference(*args))
     n_alive = int(st.alive.sum())
-    log(3, f"{label}: rows {st.cell.shape[0]} (alive {n_alive}), block "
-           f"{spec.block}, window {spec.window}, n_rows {spec.n_rows}: push "
-           f"columns, miss and anchors bitwise equal; slab max |err| "
-           f"{slab_err:.3e} (max |slab| {scale:.3e}); misses "
-           f"{int(mk.sum().item())}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-           f"ms (median of 20)")
-    return max(push_err, slab_err), ms, plain_ms
+    n_miss = int(mk.sum().item())
+    bound_ms, bound_by = bound(spec, st.cell.shape[0], n_alive - n_miss)
+    log(phase, f"{label} ({spec.pusher}{', work_inc' if spec.work_inc else ''}"
+               f"): rows {st.cell.shape[0]} (alive {n_alive}), block "
+               f"{spec.block}, window {spec.window}, n_rows {spec.n_rows}: "
+               f"push columns, miss and anchors bitwise equal; slab max "
+               f"|err| {slab_err:.3e} (max |slab| {scale:.3e}); misses "
+               f"{n_miss}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+               f"(median of 20), bound {bound_ms:.4f} ms ({bound_by})")
+    return max(push_err, slab_err), ms, plain_ms, bound_ms, bound_by
 
 
 def small_deck(tmp: Path, nx=128, npc=64, steps=40, outputs=2) -> Path:
@@ -201,18 +245,19 @@ def cli_drive(tmp: Path, steps=2000, outputs=4):
     run.mkdir(parents=True)
     (run / "deck.yaml").write_text(src)
     so, se = io.StringIO(), io.StringIO()
-    F.fused_push_deposit.launches = 0
+    F.fused_push_deposit.launches.update(vay=0, boris=0)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
         rc = cli.main([str(run / "deck.yaml")])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = F.fused_push_deposit.launches
+    launches = dict(F.fused_push_deposit.launches)
     out, err = so.getvalue(), se.getvalue()
     assert rc == 0, (rc, out, err)
     assert "[fused pusher: electron]" in out, out
     assert "buffer-overflow particle losses" not in err, err
-    assert launches > 0
+    assert launches["vay"] > 0 and launches["boris"] == 0, launches
+    launches = launches["vay"]
     totals = []
     for i in range(outputs + 1):
         g = np.loadtxt(run / f"{i}_grid.dat")
@@ -271,7 +316,7 @@ def bench_scale(smi: str):
     counters = sim.zero_counters()
     species = {"electron": st}
     t = 0.0
-    F.fused_push_deposit.launches = 0
+    F.fused_push_deposit.launches.update(vay=0, boris=0)
     walls = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -282,7 +327,7 @@ def bench_scale(smi: str):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     steps = 2 * b["resort"]
-    assert F.fused_push_deposit.launches == steps
+    assert F.fused_push_deposit.launches == {"vay": steps, "boris": 0}
     assert int(counters["electron"]) == 0, int(counters["electron"])
     ke = sim.total_kinetic_energy("electron", species["electron"])
     fe = sim.em_field_energy(E, B)
@@ -295,7 +340,213 @@ def bench_scale(smi: str):
            f"{walls[1]:.3f} s -> {rate:.4e} pushes/s (period 2) on {smi}")
 
 
-def main() -> int:
+#: a hole_boring deck cut to nx 800 and npc 10 (the deck of
+#: tests/test_torch_hole_boring.py, with the port's own auto-sizing):
+#: 200 steps, the pulse's peak reaching the slab near step 150.  Later
+#: the driven slab turns chaotic: a one-ulp change of some electrons'
+#: positions grows past 1e-5 of the current's scale by step 300, so a
+#: longer run could not hold the card to 1e-5
+HB_SMALL = """\
+control:
+ dx: micro / 100
+ nx: 800
+ xmin: -2*micro
+ start: -2.0e-6/c
+ end: -0.1e-6/c
+ current_deposition: true
+ n_outputs: 1
+qed:
+ photon_emission: false
+ photon_absorption: false
+electrons:
+ npc: 10
+ ne: density * critical(omega) * step(x,xmin,xmax)
+ ux: sqrt(kT/(m*c^2)) * nrand
+ uy: sqrt(kT/(m*c^2)) * nrand
+ uz: sqrt(kT/(m*c^2)) * nrand
+ output: [x:px]
+ions:
+ name: carbon
+ npc: 10
+ Z: Z
+ A: A
+ ni: density * critical(omega) * step(x,xmin,xmax) / Z
+ ux: sqrt(kT/(A*mp*c^2)) * nrand
+ uy: sqrt(kT/(A*mp*c^2)) * nrand
+ uz: sqrt(kT/(A*mp*c^2)) * nrand
+ output: [x:px]
+laser:
+ Ey: (a0*me*c*omega/e) * gauss_pulse_re(t,x,omega,sigma)
+ Ez: (a0*me*c*omega/e) * gauss_pulse_im(t,x,omega,sigma)
+constants:
+ density: 4.0
+ a0: 10.0
+ omega: 2*pi*c/0.8e-6
+ sigma: pi * 2.0 / sqrt(ln(2.0))
+ kT: 500 * eV
+ Z: 6.0
+ A: 12.0
+ xmin: -0.5 * micro
+ xmax: 1.5 * micro
+"""
+#: examples/hole_boring.yaml as shipped, but for the time span, the
+#: output count and the slab, moved together so that the pulse's peak
+#: reaches the slab within the run (the injected envelope at t = -19
+#: um/c is 1.7e-5 of its peak)
+HB_CLI_EDITS = (
+    ("start: -20.0e-6/c", "start: -19.0e-6/c"),
+    ("end: 10.0e-6/c", "end: -7.0e-6/c"),
+    (" xmin: 0.0 * micro", " xmin: -9.0 * micro"),
+    (" xmax: 5.0 * micro", " xmax: -4.0 * micro"),
+)
+
+
+def hole_boring_kernels():
+    """Phase 6: both kernel forms against their plain versions on the
+    full hole_boring deck's initial states (sorted), under random
+    fields of laser strength (E ~ 1e13 V/m, B ~ 3e4 T).  Returns
+    {pusher: (max_abs_err, ms, plain_ms, bound_ms, bound_by)}."""
+    from opal_tpu_torch.cli import build
+
+    sim, states, _ = build(ROOT / "examples" / "hole_boring.yaml",
+                           device="cuda")
+    out = {}
+    for name, st in states.items():
+        spec = sim._fused_spec(name)
+        assert sim._fused_applicable(name, st)
+        assert (spec.block, spec.window, spec.n_rows, st.x.shape[0]) == (
+            2048, 56, 20_228, 753_664), spec
+        out[spec.pusher] = kernel_vs_plain(
+            f"hole_boring {name} shape", st, spec, fields_seed=2,
+            e_scale=1e13, b_scale=3e4, phase=6,
+        )
+    del sim, states
+    torch.cuda.empty_cache()
+    return out
+
+
+def hb_card_vs_cpu(tmp: Path):
+    """Phase 7: the small hole_boring deck stepped on the card (both
+    kernel forms) and on the CPU (their plain versions), f32 particles
+    and f64 fields: the push columns round alike, the deposits add in
+    another order, so fields and energies agree within 1e-5 of their
+    scale."""
+    from opal_tpu_torch.cli import build
+
+    (tmp / "hb_small").mkdir()
+    deck = tmp / "hb_small" / "deck.yaml"
+    deck.write_text(HB_SMALL)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sim, sp, rp = build(deck, device=dev)
+        assert all(sim._fused_applicable(n, sp[n]) for n in sp)
+        steps = rp["total_steps"]
+        res = sim.run(*sim.init_fields(), sp, rp["tstart"],
+                      sim.zero_counters(), steps)
+        assert all(int(v) == 0 for v in res[6].values()), res[6]
+        out[dev] = (res, sim.em_field_energy(res[0], res[1]), {
+            n: sim.total_kinetic_energy(n, res[4][n]) for n in sp})
+    (rc, fc, kc), (rp_, fp, kp) = out["cuda"], out["cpu"]
+    worst = 0.0
+    for i, name in enumerate(("E", "B", "J", "rho")):
+        a, b = rc[i].cpu(), rp_[i]
+        err = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-300)
+        assert err < 1e-5, (name, err)
+        worst = max(worst, err)
+    assert fp > 0 and abs(fc - fp) <= 1e-5 * abs(fp), (fc, fp)
+    for n in kp:
+        assert abs(kc[n] - kp[n]) <= 1e-5 * abs(kp[n]), (n, kc[n], kp[n])
+    log(7, f"small hole_boring deck (nx 800, npc 10 a species, {steps} "
+           f"steps), card vs CPU: fields within {worst:.2e} of their "
+           f"scale, field energy {fc:.6e} vs {fp:.6e} J, electrons "
+           f"{kc['electron']:.6e} vs {kp['electron']:.6e} J, ions "
+           f"{kc['ion']:.6e} vs {kp['ion']:.6e} J")
+
+
+class _Echo(io.StringIO):
+    """Keeps what is written to it and echoes it to the process's
+    standard output."""
+
+    def write(self, s):
+        sys.__stdout__.write(s)
+        sys.__stdout__.flush()
+        return super().write(s)
+
+
+def hb_cli_drive(tmp: Path, smi: str, outputs=3, profile=None):
+    """Phase 8, this slice's main path: the full-width hole_boring deck
+    through the user's entry point, over ``outputs`` output blocks (with
+    ``profile``, the CLI's ``--profile`` of the last block into that
+    directory).  Returns the launches of each kernel form."""
+    from opal_tpu_torch import cli, constants as const
+    from opal_tpu_torch.config import Config
+    from opal_tpu_torch.ops import fused as F
+
+    src = (ROOT / "examples" / "hole_boring.yaml").read_text()
+    for a, b in HB_CLI_EDITS + (("n_outputs: 30", f"n_outputs: {outputs}"),):
+        assert src.count(a) == 1, a
+        src = src.replace(a, b)
+    run = tmp / "hole_boring"
+    run.mkdir()
+    (run / "deck.yaml").write_text(src)
+    cfg = Config.from_string(src)
+    cfg.with_context("constants")
+    dt = 0.95 * cfg.read_f64("control", "dx") / const.SPEED_OF_LIGHT
+    total = int((cfg.read_f64("control", "end")
+                 - cfg.read_f64("control", "start")) / dt)
+    steps = outputs * (total // outputs)
+    argv = [str(run / "deck.yaml")]
+    if profile is not None:
+        argv += ["--profile", str(profile)]
+
+    # a profiled drive echoes the CLI's progress lines as they come
+    so, se = (_Echo(), _Echo()) if profile else (io.StringIO(), io.StringIO())
+    F.fused_push_deposit.launches.update(vay=0, boris=0)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(F.fused_push_deposit.launches)
+    out, err = so.getvalue(), se.getvalue()
+    assert rc == 0, (rc, out, err)
+    assert "[fused pusher: electron, ion]" in out, out
+    if profile is not None:
+        log(8, [l for l in err.splitlines() if l.startswith("profile:")][0])
+    assert "buffer-overflow particle losses" not in err, err
+    assert launches == {"vay": steps, "boris": steps}, (launches, steps)
+    ions = []
+    for i in range(outputs + 1):
+        g = np.loadtxt(run / f"{i}_grid.dat")
+        assert g.shape == (20_000, 11) and np.isfinite(g).all()
+        e = {k: float(v) for k, v in (l.split() for l in
+             (run / f"{i}_energy.dat").read_text().splitlines())}
+        assert all(math.isfinite(v) for v in e.values()), e
+        assert e["electrons"] > 0 and e["ions"] > 0, e
+        ions.append(e["ions"])
+        for stem in ("electron_x-px", "electron_x-p_perp", "electron_py-pz",
+                     "carbon_x-px", "carbon_x-p_perp", "carbon_py-pz"):
+            assert (run / f"{i}_{stem}.fits").stat().st_size % 2880 == 0
+    assert ions[-1] > ions[0], ions
+    banner = out.splitlines()[0]
+    log(8, f"python -m opal_tpu_torch hole_boring.yaml (nx 20000, npc 100 "
+           f"a species, slab -9..-4 um, {steps} steps, {outputs} outputs): "
+           f"'{banner}' '{out.splitlines()[1]}', launches vay "
+           f"{launches['vay']} boris {launches['boris']}, no losses, "
+           f"outputs finite, ion kinetic energy x{ions[-1] / ions[0]:.4g} "
+           f"({ions[0]:.6e} -> {ions[-1]:.6e} J); {steps / wall:.1f} "
+           f"steps/s over {wall:.1f} s incl. set-up and output dumps, on "
+           f"{smi}")
+    return launches
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--profile", metavar="DIR", type=Path, default=None,
+        help="instead of phases 3-8, run phase 8 over 120 output blocks "
+             "with the CLI's --profile of the last block into DIR")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); the port's smoke run needs an NVIDIA GPU",
@@ -319,6 +570,13 @@ def main() -> int:
               .splitlines() if "registers" in l or "spill" in l]
     _build.library()
     log(2, f"built {lib.name} in {seconds:.1f} s: {' | '.join(report)}")
+    if args.profile is not None:
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+        try:
+            hb_cli_drive(tmp, smi, outputs=120, profile=args.profile)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        return 0
 
     dx = 500.0
     dt = 0.95 * dx / const.SPEED_OF_LIGHT
@@ -343,17 +601,31 @@ def main() -> int:
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         card_vs_cpu(tmp)
-        launches, steps_per_s = cli_drive(tmp)
+        ts_launches, _ = cli_drive(tmp)
         bench_scale(smi)
+        hb = hole_boring_kernels()
+        hb_card_vs_cpu(tmp)
+        hb_launches = hb_cli_drive(tmp, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    err, ms, plain_ms = results["two_stream CLI shape"]
-    err_b = results["bench shape"][0]
-    print(json.dumps({"kernels": [dict(
-        KERNEL, launches=launches, max_abs_err=max(err, err_b), ms=ms,
-        plain_ms=plain_ms,
-    )]}))
+    # each form at the shape of this slice's main path (hole_boring);
+    # the Vay error covers the earlier shapes too
+    err_vay = max(results[k][0] for k in results)
+    kernels = []
+    for pusher, label in (("vay", "lite Vay, electrons"),
+                          ("boris", "lite Boris, ions")):
+        err, ms, plain_ms, bound_ms, bound_by = hb[pusher]
+        kernels.append(dict(
+            name=f"fused_push_deposit[{pusher}] ({label})", **KERNEL,
+            launches=hb_launches[pusher],
+            launches_by_path={"two_stream": ts_launches if pusher == "vay"
+                              else 0, "hole_boring": hb_launches[pusher]},
+            max_abs_err=max(err, err_vay) if pusher == "vay" else err,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None,
+        ))
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -1,14 +1,18 @@
 """Command-line entry point: ``python -m opal_tpu_torch input.yaml``.
 
-The single-device, non-QED electron path of ``opal_tpu/cli.py``: read
-the YAML deck, build the grid and the electron population, then
-alternate output dumps with blocks of simulation steps, printing the
-same banner, progress lines, loss warnings and output files.  The
-fused-kernel block, window, resort and migration cadences and the
-capacities are auto-sized by the same rules, so one deck runs the same
-schedule in both packages.  Decks that need what is not ported (QED,
-lasers and their boundaries, ions, several devices, electrostatic
+The single-device, non-QED path of ``opal_tpu/cli.py``: read the YAML
+deck, build the grid (periodic, or a laser injector on the left and an
+absorbing boundary on the right when the deck has a ``laser`` section)
+and the electron and ion populations, then alternate output dumps with
+blocks of simulation steps, printing the same banner, progress lines,
+loss warnings and output files.  The fused-kernel block, window, resort
+and migration cadences and the capacities are auto-sized by the same
+rules, so one deck runs the same schedule in both packages.  Decks that
+need what is not ported (QED, several devices, electrostatic
 initialization, checkpoints) are refused with exit code 1.
+
+It runs on the CUDA device unless ``--device cpu`` asks for the CPU;
+without a card it exits 1 and never falls back.
 """
 
 from __future__ import annotations
@@ -33,6 +37,10 @@ from .species import SpeciesSpec, initialize
 
 class NotPorted(ValueError):
     """A deck asks for a part of opal_tpu the port does not have yet."""
+
+
+class NoDevice(RuntimeError):
+    """The run asks for a CUDA device and there is none."""
 
 
 def _required_capacity(geom: GridGeometry, npc: int, density) -> int:
@@ -82,14 +90,6 @@ def _refuse_unported(cfg: Config, n_devices: int):
 
     if flag("qed", "photon_emission") or flag("qed", "photon_absorption"):
         raise NotPorted("QED (photon emission/absorption) is not yet ported")
-    if cfg.contains("laser"):
-        raise NotPorted("laser and absorbing boundaries are not yet ported")
-    try:
-        ions = cfg.read_usize("ions", "npc")
-    except ConfigError:
-        ions = 0
-    if ions > 0:
-        raise NotPorted("ion species are not yet ported")
     if n_devices != 1:
         raise NotPorted(
             f"{n_devices}-device runs are not yet ported (one device only)"
@@ -101,9 +101,11 @@ def _refuse_unported(cfg: Config, n_devices: int):
 
 
 def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
-          field_dtype=torch.float64, device=None):
+          field_dtype=torch.float64, device="cuda"):
     """Parse an input file and construct the Simulation plus initial
-    state.  Returns (sim, state-dict, run-parameters)."""
+    state on ``device`` (the CUDA device unless the caller asks for
+    ``"cpu"``; raises :class:`NoDevice` when there is no card).
+    Returns (sim, state-dict, run-parameters)."""
     from .sim import SimOptions, Simulation
 
     input_cfg = Config.from_file(path)
@@ -118,8 +120,8 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
     if n_devices is None:
         n_devices = int(tpu_opt("devices", 0)) or 1
     _refuse_unported(input_cfg, n_devices)
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise NoDevice("no CUDA device (pass --device cpu to run on the CPU)")
 
     nx = input_cfg.read_usize("control", "nx")
     xmin = input_cfg.read_f64("control", "xmin")
@@ -130,7 +132,16 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
     current_deposition = input_cfg.read_bool("control", "current_deposition")
     n_outputs = input_cfg.read_usize("control", "n_outputs")
 
-    geom = GridGeometry(nx=nx, dx=dx, xmin=xmin, n_devices=1)
+    # laser section present -> laser/absorbing boundaries (main.rs:95-101)
+    if input_cfg.contains("laser"):
+        laser_y = input_cfg.func2("laser", "Ey", ("t", "x"))
+        laser_z = input_cfg.func2("laser", "Ez", ("t", "x"))
+        left_bdy, right_bdy = "laser", "absorbing"
+    else:
+        laser_y = laser_z = None
+        left_bdy, right_bdy = "periodic", "periodic"
+    geom = GridGeometry(nx=nx, dx=dx, xmin=xmin, n_devices=1,
+                        left_boundary=left_bdy, right_boundary=right_bdy)
 
     capacity_factor = tpu_opt("capacity_factor", 1.5)
     migration_capacity = int(tpu_opt("migration_capacity", 16384))
@@ -146,8 +157,19 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
     fused_resort_every = _r_opt if r_pinned else 64
     migration_every = int(tpu_opt("migration_every", 0))  # 0 = auto
 
-    epc = input_cfg.read_usize("electrons", "npc")
-    epc_for_w = max(1, epc)
+    # the shared window must fit every fused species' block span: size
+    # it from the smallest npc over electrons and ions; the migration
+    # window from the largest (opal_tpu/cli.py:275-289)
+    npcs = []
+    for sec in ("electrons", "ions"):
+        try:
+            v = input_cfg.read_usize(sec, "npc")
+        except ConfigError:
+            continue
+        if v > 0:
+            npcs.append(v)
+    epc_for_w = max(1, min(npcs)) if npcs else 1
+    npc_max = max(npcs) if npcs else 1
     if fused_pusher and block_explicit <= 0:
         # capacities are block multiples: shrink the block (down to
         # 1024) rather than let the rounding inflate a small run's
@@ -174,41 +196,65 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
     # the work integral accumulates for the whole run: field dtype
     np_work_dtype = np.float64 if field_dtype == torch.float64 else np_dtype
 
-    eospec = input_cfg.read_strings("electrons", "output")
-    especs = SpeciesSpec.electron(eospec)
-    specs = {"electron": especs}
-    if epc > 0:
-        ne = input_cfg.func("electrons", "ne", "x")
-        ux = input_cfg.func3("electrons", "ux", ("x", "urand", "nrand"))
-        uy = input_cfg.func3("electrons", "uy", ("x", "urand", "nrand"))
-        uz = input_cfg.func3("electrons", "uz", ("x", "urand", "nrand"))
-        cap = _round_up(int(_required_capacity(geom, epc, ne) * capacity_factor))
+    def init_species(sp, sec, npc, dens, seed_):
+        """One species at its per-device capacity, sampled with
+        ``seed_``; returns (state, capacity)."""
+        u = [input_cfg.func3(sec, f, ("x", "urand", "nrand"))
+             for f in ("ux", "uy", "uz")]
+        cap = _round_up(
+            int(_required_capacity(geom, npc, dens) * capacity_factor))
         if fused_pusher and cap >= fused_block:
             # capacity % block == 0; big decks round to 4 blocks
             mult = fused_block * (4 if cap >= 64 * fused_block else 1)
             cap = _round_up(cap, mult)
-        state = initialize(
-            especs, geom, epc, ne, ux, uy, uz, dt, cap, seed=seed,
-            dtype=np_dtype, work_dtype=np_work_dtype, device=device,
+        return initialize(
+            sp, geom, npc, dens, *u, dt, cap, seed=seed_, dtype=np_dtype,
+            work_dtype=np_work_dtype, device=device,
+        ), cap
+
+    epc = input_cfg.read_usize("electrons", "npc")
+    especs = SpeciesSpec.electron(input_cfg.read_strings("electrons", "output"))
+    specs = {"electron": especs}
+    states, capacities = {}, {}
+    if epc > 0:
+        states["electron"], capacities["electron"] = init_species(
+            especs, "electrons", epc, input_cfg.func("electrons", "ne", "x"),
+            seed,
         )
     else:
-        cap = 8
-        state = initialize(
-            especs, geom, 0, lambda x: x * 0, None, None, None, dt, cap,
+        capacities["electron"] = 8
+        states["electron"] = initialize(
+            especs, geom, 0, lambda x: x * 0, None, None, None, dt, 8,
             seed=seed, dtype=np_dtype, work_dtype=np_work_dtype,
             device=device,
         )
-    states = {"electron": state}
-    capacities = {"electron": cap}
+    ipc = input_cfg.read_usize("ions", "npc")
+    if ipc > 0:
+        ispecs = SpeciesSpec.ion(
+            input_cfg.read_string("ions", "name"),
+            input_cfg.read_f64("ions", "Z"), input_cfg.read_f64("ions", "A"),
+            input_cfg.read_strings("ions", "output"),
+        )
+        specs["ion"] = ispecs
+        states["ion"], capacities["ion"] = init_species(
+            ispecs, "ions", ipc, input_cfg.func("ions", "ni", "x"), seed + 1,
+        )
 
     # ---- fused window / cadence sizing (needs the initial momenta) ---
     # periodic deposition decks are the instability class: floor the
-    # velocity-spread estimate at 0.1 (opal_tpu/cli.py:490-531)
-    v_spread = 0.1 if current_deposition else 0.05
-    alive = state.alive.cpu().numpy()
-    vx = (state.ux.cpu().numpy() / state.gamma.cpu().numpy())[alive]
-    if alive.any():
-        v_spread = max(v_spread, float(vx.max() - vx.min()))
+    # velocity-spread estimate at 0.1 (opal_tpu/cli.py:490-531); a laser
+    # deck heats its particles to v ~ c whatever their initial momenta,
+    # so it is sized for the CFL worst case
+    v_spread = 0.1 if left_bdy == "periodic" and current_deposition else 0.05
+    v_peak = 0.05
+    for st in states.values():
+        alive = st.alive.cpu().numpy()
+        if alive.any():
+            vx = (st.ux.cpu().numpy() / st.gamma.cpu().numpy())[alive]
+            v_spread = max(v_spread, float(vx.max() - vx.min()))
+            v_peak = max(v_peak, float(np.abs(vx).max()))
+    if left_bdy == "laser":
+        v_spread = 1.9
     auto_w, fused_resort_every = fused_auto_sizing(
         span_gap, w_max, fused_resort_every, v_spread,
         r_pinned=r_pinned or not fused_pusher,
@@ -216,23 +262,26 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
     fused_window = int(tpu_opt("fused_window", auto_w))
     fused_window = max(8, min(fused_window, w_max))
     # deferred migration: the exchange may wait until 8x the initial
-    # peak |vx| would carry a leaver past the 2-cell deposit reach
+    # peak |vx| would carry a leaver past the 2-cell deposit reach;
+    # laser decks heat to ~c and keep the per-step exchange
     max_drift = 0.95
     if migration_every == 0:
-        v_peak = 0.05
-        if alive.any():
-            v_peak = max(v_peak, float(np.abs(vx).max()))
-        if fused_pusher:
+        if left_bdy != "laser" and fused_pusher:
             max_drift = min(0.95, 8.0 * v_peak * 0.95)
             migration_every = max(
                 1, min(fused_resort_every, int(1.8 / max_drift))
             )
         else:
             migration_every = 1
-    auto_mw = _round_up(max(1, epc) * (fused_resort_every + 3), 8)
+    # the edge-exchange window covers the leaver front over a resort
+    # period at the largest npc
+    auto_mw = _round_up(npc_max * (fused_resort_every + 3), 8)
     migration_window = int(tpu_opt("migration_window", max(4096, auto_mw)))
-    # misfit fallback: capacity // 16 on periodic deposition decks
-    _mis_div = 16 if current_deposition else 64
+    # misfit fallback: capacity // 16 on laser decks and on periodic
+    # deposition decks
+    _mis_div = 16 if (
+        left_bdy == "laser" or (left_bdy == "periodic" and current_deposition)
+    ) else 64
     auto_misfit = _round_up(max(1024, sum(capacities.values()) // _mis_div))
     fused_misfit_capacity = int(tpu_opt("fused_misfit_capacity", auto_misfit))
 
@@ -250,7 +299,8 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
         max_drift_cells_per_step=max_drift,
     )
     sim = Simulation(geom, options, specs, device=device, dtype=dtype,
-                     field_dtype=field_dtype)
+                     field_dtype=field_dtype, laser_y=laser_y,
+                     laser_z=laser_z)
     total_steps = int((tend - tstart) / dt)
     run_params = dict(
         tstart=tstart, tend=tend, n_outputs=n_outputs,
@@ -258,6 +308,43 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
         steps_per_block=int(tpu_opt("steps_per_block", 0)),
     )
     return sim, states, run_params
+
+
+def _profiled(fn, out_dir: Path, device: torch.device):
+    """Run ``fn()`` under ``torch.profiler`` and return its result.
+    Writes the operator table, sorted by device time (CPU time on the
+    CPU), to ``out_dir/profile.txt`` and prints the wall time, the time
+    the device was busy (the union of its kernel and copy intervals) and
+    the idle share to stderr."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    sync()
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        res = fn()
+        sync()
+    wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in
+                   prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy = busy_us * 1e-6
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "profile.txt").write_text(prof.key_averages().table(
+        sort_by="self_device_time_total" if cuda else "self_cpu_time_total",
+        row_limit=40, max_name_column_width=100,
+    ))
+    busy_txt = (f", device busy {busy:.3f} s ({len(spans)} device events, "
+                f"idle {1.0 - busy / wall:.1%})" if cuda else "")
+    print(f"profile: {wall:.3f} s wall{busy_txt}; table in "
+          f"{out_dir / 'profile.txt'}", file=sys.stderr)
+    return res
 
 
 def main(argv=None) -> int:
@@ -275,6 +362,14 @@ def main(argv=None) -> int:
                              "the unfused ops). Default is MIXED "
                              "precision: f32 particles on the fused "
                              "kernel + f64 fields/energy integration")
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                        help="run on the CUDA device (default) or, with "
+                             "the kernels' plain PyTorch versions, on the "
+                             "CPU")
+    parser.add_argument("--profile", metavar="DIR", default=None,
+                        help="profile the last output block with "
+                             "torch.profiler and write its operator table "
+                             "to DIR/profile.txt")
     args = parser.parse_args(argv)
 
     if args.f32 and args.f64:
@@ -289,8 +384,9 @@ def main(argv=None) -> int:
             path, n_devices=args.devices,
             dtype=torch.float64 if args.f64 else torch.float32,
             field_dtype=torch.float32 if args.f32 else torch.float64,
+            device=args.device,
         )
-    except NotPorted as exc:
+    except (NotPorted, NoDevice) as exc:
         print(f"opal_tpu_torch: {exc}", file=sys.stderr)
         return 1
     except (ConfigError, ValueError) as exc:
@@ -353,7 +449,9 @@ def main(argv=None) -> int:
             )
         fe = sim.em_field_energy(E, B)
         ee = sim.total_kinetic_energy("electron", species["electron"])
-        out.write_energies(output_dir, index, fe, ee, 0.0, 0.0)
+        ie = (sim.total_kinetic_energy("ion", species["ion"])
+              if "ion" in species else 0.0)
+        out.write_energies(output_dir, index, fe, ee, ie, 0.0)
 
     for i in range(n_outputs):
         dump(i)
@@ -369,9 +467,14 @@ def main(argv=None) -> int:
             print(f"Output {i: >4} at t = {simulation_time(t)}...")
         sys.stdout.flush()
 
-        E, B, J, rho, species, t, counters = run_span(
-            E, B, J, rho, species, t, counters, steps_bt_output
-        )
+        span = (E, B, J, rho, species, t, counters, steps_bt_output)
+        if args.profile and i == n_outputs - 1:
+            # the last block: the first builds the kernels, and the late
+            # blocks carry the most particle traffic
+            E, B, J, rho, species, t, counters = _profiled(
+                lambda: run_span(*span), Path(args.profile), sim.device)
+        else:
+            E, B, J, rho, species, t, counters = run_span(*span)
         lost = {k: int(v) for k, v in counters.items() if int(v) > 0}
         if lost:
             print(f"warning: buffer-overflow particle losses: {lost}",

@@ -1,20 +1,25 @@
-// Fused field gather + Vay push + charge-conserving deposit for Hopper
-// (sm_90a), the hot loop of the electron PIC step.
+// Fused field gather + push + charge-conserving deposit for Hopper
+// (sm_90a), the hot loop of the PIC step.
 //
 // Replaces: opal_tpu/ops/fused.py::_kernel_block (the Pallas kernel
-// launched by fused_push_deposit), in its lite Vay form with deposit
-// on: electrons, no chi / gamma-half / prev_x outputs, work either
-// accumulated into the f32 column or output as the bare increment
-// (work_in == nullptr).  The plain PyTorch version is
+// launched by fused_push_deposit), in its lite forms with deposit on
+// (no chi / gamma-half / prev_x outputs), as two pushers:
+//   * Vay (electrons, electron.rs:268-330), with the work column either
+//     accumulated into the f32 column or output as the bare increment
+//     (work_in == nullptr);
+//   * Boris (ions, ion.rs:168-214), gamma - 1 kept cancellation-free,
+//     with no work column read or written.
+// The plain PyTorch version is
 // opal_tpu_torch/ops/fused.py::fused_push_deposit_reference.
 //
-// What bounds it on an H100: HBM traffic.  Each row reads about ten
+// What bounds it on an H100: HBM traffic.  Each row reads nine or ten
 // 4-byte columns (cell x y z ux uy uz gamma weight [work]) and writes
-// about ten (the nine updated columns and miss), ~80 B per row per
-// step: at the bench capacity of 10.5M rows that is ~0.85 GB a step
-// against 3.35 TB/s.  The push is ~150 flops a row, far below the f32
-// peak.  The risk is the deposit: a cell-sorted block spans a few
-// cells, so thousands of threads add into the same few tile entries.
+// nine or ten (the eight updated columns, [work] and miss): 72 B per
+// row for Boris, 76-80 B for Vay.  At the bench capacity of 10.5M rows
+// that is ~0.85 GB a step against 3.35 TB/s.  The push is ~150 flops a
+// row, far below the f32 peak.  The risk is the deposit: a cell-sorted
+// block spans a few cells, so thousands of threads add into the same
+// few tile entries.
 //
 // What the design does about it: one read and one write of every
 // column, coalesced (consecutive threads take consecutive rows); the
@@ -23,7 +28,9 @@
 // columns accumulate in a (W+4) x 16 shared tile with shared-memory
 // atomics and are flushed to the (n_rows, 16) slab with one global
 // atomic per non-zero entry.  The per-block window minimum for the next
-// step is reduced with warp shuffles and shared memory.
+// step is reduced with warp shuffles and shared memory.  The pusher and
+// the work leg are template parameters, so each form carries no branch
+// or column it does not use.
 //
 // One CTA serves one logical block of `block` rows (blocks run in no
 // order, so the slab is zeroed by the caller, not by block 0 as on the
@@ -65,6 +72,11 @@ struct Consts {
   float charge, alpha, c, kwork, dt, talpha, kx, inv_dt, inv_dx;
 };
 
+// kBoris: the Boris push (ions) instead of Vay (electrons).  kWork: the
+// work column is carried (read from work_in, or from 0 when work_in is
+// null, and written to nwork); without it neither pointer is touched.
+// Two forms are instantiated: Vay with work, Boris without.
+template <bool kBoris, bool kWork>
 __global__ void __launch_bounds__(kThreads)
 fused_push_deposit_kernel(
     const int* __restrict__ anchors, const int* __restrict__ cell,
@@ -107,7 +119,8 @@ fused_push_deposit_kernel(
     const float xv = x[i], yv = y[i], zv = z[i];
     const float uxv = ux[i], uyv = uy[i], uzv = uz[i], gv = gamma[i];
     const float q = weight[i] * k.charge;
-    const float w_in = work_in ? work_in[i] : 0.0f;
+    float w_in = 0.0f;
+    if (kWork && work_in) w_in = work_in[i];
     const bool fit = rel >= 1 && rel <= W - 3 && row >= lo_row && row <= hi_row;
     const bool alive = q != 0.0f;
     const bool upd = fit && alive;
@@ -117,7 +130,7 @@ fused_push_deposit_kernel(
       ncell[i] = row - row_off;
       nx[i] = xv; ny[i] = yv; nz[i] = zv;
       nux[i] = uxv; nuy[i] = uyv; nuz[i] = uzv; ng[i] = gv;
-      nwork[i] = w_in;
+      if (kWork) nwork[i] = w_in;
       continue;
     }
 
@@ -139,33 +152,67 @@ fused_push_deposit_kernel(
     }
     const float Bx = 0.0f + win[rel * 6 + 3];
 
-    // ---- Vay push (electron.rs:268-330) ---------------------------
-    const float ig = 1.0f / gv;
-    const float vx = (k.c * uxv) * ig, vy = (k.c * uyv) * ig,
-                vz = (k.c * uzv) * ig;
-    const float uhx = uxv + k.alpha * (Ex + (vy * Bz - vz * By));
-    const float uhy = uyv + k.alpha * (Ey + (vz * Bx - vx * Bz));
-    const float uhz = uzv + k.alpha * (Ez + (vx * By - vy * Bx));
-    const float gh = sqrtf(((1.0f + uhx * uhx) + uhy * uhy) + uhz * uhz);
-    const float wk =
-        w_in + ((k.kwork * ((uhx * Ex + uhy * Ey) + uhz * Ez)) * k.dt) / gh;
-    const float upx = uhx + k.alpha * Ex;
-    const float upy = uhy + k.alpha * Ey;
-    const float upz = uhz + k.alpha * Ez;
-    const float gp2 = ((1.0f + upx * upx) + upy * upy) + upz * upz;
-    const float tvx = k.talpha * Bx, tvy = k.talpha * By, tvz = k.talpha * Bz;
-    const float ustar = (upx * tvx + upy * tvy) + upz * tvz;
-    const float t2 = (tvx * tvx + tvy * tvy) + tvz * tvz;
-    const float sig = gp2 - t2;
-    const float gn = sqrtf(0.5f * sig +
-                           sqrtf(((0.25f * sig) * sig + t2) + ustar * ustar));
-    const float ign = 1.0f / gn;
-    const float itx = tvx * ign, ity = tvy * ign, itz = tvz * ign;
-    const float s = 1.0f / (((1.0f + itx * itx) + ity * ity) + itz * itz);
-    const float udt = (upx * itx + upy * ity) + upz * itz;
-    const float unx = s * ((upx + udt * itx) + (upy * itz - upz * ity));
-    const float uny = s * ((upy + udt * ity) + (upz * itx - upx * itz));
-    const float unz = s * ((upz + udt * itz) + (upx * ity - upy * itx));
+    float unx, uny, unz, gn, ign, vty, vtz, wk = w_in;
+    if constexpr (kBoris) {
+      // ---- Boris push (ion.rs:168-214), gamma - 1 cancellation-free -
+      const float cBx = k.c * Bx, cBy = k.c * By, cBz = k.c * Bz;
+      const float umx = uxv + k.alpha * Ex;
+      const float umy = uyv + k.alpha * Ey;
+      const float umz = uzv + k.alpha * Ez;
+      const float um2 = (umx * umx + umy * umy) + umz * umz;
+      const float gam = 1.0f + um2 / (1.0f + sqrtf(1.0f + um2));
+      const float tb = k.alpha / gam;
+      const float upx = umx + tb * (umy * cBz - umz * cBy);
+      const float upy = umy + tb * (umz * cBx - umx * cBz);
+      const float upz = umz + tb * (umx * cBy - umy * cBx);
+      const float cB2 = (cBx * cBx + cBy * cBy) + cBz * cBz;
+      const float tp = (2.0f * tb) / (1.0f + (tb * tb) * cB2);
+      const float uplx = umx + tp * (upy * cBz - upz * cBy);
+      const float uply = umy + tp * (upz * cBx - upx * cBz);
+      const float uplz = umz + tp * (upx * cBy - upy * cBx);
+      unx = uplx + k.alpha * Ex;
+      uny = uply + k.alpha * Ey;
+      unz = uplz + k.alpha * Ez;
+      const float un2 = (unx * unx + uny * uny) + unz * unz;
+      gn = 1.0f + un2 / (1.0f + sqrtf(1.0f + un2));
+      ign = 1.0f / gn;
+      // transverse positions advance with the NEW velocity
+      // (ion.rs:208-209)
+      vty = (k.c * uny) * ign;
+      vtz = (k.c * unz) * ign;
+    } else {
+      // ---- Vay push (electron.rs:268-330) -------------------------
+      const float ig = 1.0f / gv;
+      const float vx = (k.c * uxv) * ig, vy = (k.c * uyv) * ig,
+                  vz = (k.c * uzv) * ig;
+      const float uhx = uxv + k.alpha * (Ex + (vy * Bz - vz * By));
+      const float uhy = uyv + k.alpha * (Ey + (vz * Bx - vx * Bz));
+      const float uhz = uzv + k.alpha * (Ez + (vx * By - vy * Bx));
+      if (kWork) {
+        const float gh = sqrtf(((1.0f + uhx * uhx) + uhy * uhy) + uhz * uhz);
+        wk = w_in + ((k.kwork * ((uhx * Ex + uhy * Ey) + uhz * Ez)) * k.dt) / gh;
+      }
+      const float upx = uhx + k.alpha * Ex;
+      const float upy = uhy + k.alpha * Ey;
+      const float upz = uhz + k.alpha * Ez;
+      const float gp2 = ((1.0f + upx * upx) + upy * upy) + upz * upz;
+      const float tvx = k.talpha * Bx, tvy = k.talpha * By, tvz = k.talpha * Bz;
+      const float ustar = (upx * tvx + upy * tvy) + upz * tvz;
+      const float t2 = (tvx * tvx + tvy * tvy) + tvz * tvz;
+      const float sig = gp2 - t2;
+      gn = sqrtf(0.5f * sig + sqrtf(((0.25f * sig) * sig + t2) + ustar * ustar));
+      ign = 1.0f / gn;
+      const float itx = tvx * ign, ity = tvy * ign, itz = tvz * ign;
+      const float s = 1.0f / (((1.0f + itx * itx) + ity * ity) + itz * itz);
+      const float udt = (upx * itx + upy * ity) + upz * itz;
+      unx = s * ((upx + udt * itx) + (upy * itz - upz * ity));
+      uny = s * ((upy + udt * ity) + (upz * itx - upx * itz));
+      unz = s * ((upz + udt * itz) + (upx * ity - upy * itx));
+      // transverse positions advance with the OLD velocity
+      // (electron.rs:315-316)
+      vty = vy;
+      vtz = vz;
+    }
 
     // ---- x advance; the cell moves by the sign of floor(xn) ---------
     float xn = xv + (k.kx * unx) * ign;
@@ -176,10 +223,10 @@ fused_push_deposit_kernel(
 
     ncell[i] = celln - row_off;
     nx[i] = xn;
-    ny[i] = yv + vy * k.dt;
-    nz[i] = zv + vz * k.dt;
+    ny[i] = yv + vty * k.dt;
+    nz[i] = zv + vtz * k.dt;
     nux[i] = unx; nuy[i] = uny; nuz[i] = unz; ng[i] = gn;
-    nwork[i] = wk;
+    if (kWork) nwork[i] = wk;
     min_fit = min(min_fit, celln);
 
     // ---- deposit: 15 unshifted taps at tile row celln - base + 2 ----
@@ -235,8 +282,40 @@ fused_push_deposit_kernel(
   }
 }
 
+struct Args {
+  const int* anchors; const int* cell; const float* x; const float* y;
+  const float* z; const float* ux; const float* uy; const float* uz;
+  const float* gamma; const float* weight; const float* work_in;
+  const float* eb; int* ncell; float* nx; float* ny; float* nz;
+  float* nux; float* nuy; float* nuz; float* ng; float* nwork;
+  float* miss; int* anchors_next; float* out;
+};
+
+template <bool kBoris, bool kWork>
+int launch(const Args& a, long long nblk, int block, int window,
+           int n_rows, int row_off, int pad, Consts k, cudaStream_t stream) {
+  auto kernel = fused_push_deposit_kernel<kBoris, kWork>;
+  const size_t smem = sizeof(float) * ((size_t)window * 6 +
+                                       (size_t)(window + 4) * kCols);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(unsigned)nblk, kThreads, smem, stream>>>(
+      a.anchors, a.cell, a.x, a.y, a.z, a.ux, a.uy, a.uz, a.gamma,
+      a.weight, a.work_in, a.eb, a.ncell, a.nx, a.ny, a.nz, a.nux, a.nuy,
+      a.nuz, a.ng, a.nwork, a.miss, a.anchors_next, a.out, block, window,
+      n_rows, row_off, pad, k);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// boris: 0 Vay, 1 Boris.  work_out: carry the work column (nwork must
+// then be non-null; work_in null outputs the bare increment).  Only
+// the two forms the PIC step runs are built: Vay with the work column
+// (electrons) and Boris without it (ions).
 extern "C" int opal_fused_push_deposit(
     const int* anchors, const int* cell, const float* x, const float* y,
     const float* z, const float* ux, const float* uy, const float* uz,
@@ -244,25 +323,22 @@ extern "C" int opal_fused_push_deposit(
     const float* eb, int* ncell, float* nx, float* ny, float* nz,
     float* nux, float* nuy, float* nuz, float* ng, float* nwork, float* miss,
     int* anchors_next, float* out, long long n, int block, int window,
-    int n_rows, int row_off, int pad, float charge, float alpha, float c,
-    float kwork, float dt, float talpha, float kx, float inv_dt,
-    float inv_dx, void* stream) {
+    int n_rows, int row_off, int pad, int boris, int work_out, float charge,
+    float alpha, float c, float kwork, float dt, float talpha, float kx,
+    float inv_dt, float inv_dx, void* stream) {
   if (block <= 0 || n % block != 0) return (int)cudaErrorInvalidValue;
+  if (work_out != !boris || (work_out && nwork == nullptr))
+    return (int)cudaErrorInvalidValue;
   const long long nblk = n / block;
   if (nblk == 0) return 0;
-  const size_t smem = sizeof(float) * ((size_t)window * 6 +
-                                       (size_t)(window + 4) * kCols);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_push_deposit_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  Consts k{charge, alpha, c, kwork, dt, talpha, kx, inv_dt, inv_dx};
-  fused_push_deposit_kernel<<<(unsigned)nblk, kThreads, smem,
-                              (cudaStream_t)stream>>>(
-      anchors, cell, x, y, z, ux, uy, uz, gamma, weight, work_in, eb, ncell,
-      nx, ny, nz, nux, nuy, nuz, ng, nwork, miss, anchors_next, out, block,
-      window, n_rows, row_off, pad, k);
-  return (int)cudaGetLastError();
+  const Args a{anchors, cell, x, y, z, ux, uy, uz, gamma, weight, work_in,
+               eb, ncell, nx, ny, nz, nux, nuy, nuz, ng, nwork, miss,
+               anchors_next, out};
+  const Consts k{charge, alpha, c, kwork, dt, talpha, kx, inv_dt, inv_dx};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (boris)
+    return launch<true, false>(a, nblk, block, window, n_rows, row_off, pad,
+                               k, s);
+  return launch<false, true>(a, nblk, block, window, n_rows, row_off, pad, k,
+                             s);
 }

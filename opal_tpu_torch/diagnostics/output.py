@@ -49,7 +49,11 @@ def particle_quantity(
     u = np.stack([st["ux"], st["uy"], st["uz"]], axis=1)[alive]
     gamma = st["gamma"][alive]
 
-    p = u * const.ELECTRON_MASS_MEV
+    if spec.kind == "ion":
+        p_unit = (spec.mass / const.ELECTRON_MASS) * const.ELECTRON_MASS_MEV
+    else:
+        p_unit = const.ELECTRON_MASS_MEV
+    p = u * p_unit
     pmag = np.sqrt(np.sum(p * p, axis=-1))
 
     if name == "x":
@@ -60,6 +64,10 @@ def particle_quantity(
     if name == "r":
         return np.hypot(st["y"][alive], st["z"][alive])
     if name == "energy":
+        if spec.kind == "ion":
+            # gamma - 1 cancellation-free, times the ion's rest energy
+            u2 = np.sum(u * u, axis=-1)
+            return u2 / (1.0 + np.sqrt(1.0 + u2)) * p_unit
         return gamma * const.ELECTRON_MASS_MEV
     if name == "px":
         return p[:, 0]

@@ -5,11 +5,16 @@ boundary zones, laid out left to right:
 
 ``[ left zone | interior (nx cells) | right zone | dead padding ]``
 
-(see ``opal_tpu/grid.py`` for the zone sizes, which follow the
-reference's ``src/grid/yee.rs:239-242``).  Each device owns ``n_loc``
-consecutive cells and exchanges ``HALO`` = 4 edge cells with its ring
-neighbours.  The port runs one device, so the periodic grid is one slab
-whose halo wraps onto itself; only the periodic boundary is ported.
+* left zone: 4 cells when the left boundary is a laser injector
+  (reference ``LASER_BDY_SIZE``, ``src/grid/yee.rs:240``), else empty
+  (periodic);
+* right zone: 200 cells for an absorbing boundary, 4 for a conducting
+  mirror (``yee.rs:241-242``), else empty.
+
+Each device owns ``n_loc`` consecutive cells and exchanges ``HALO`` = 4
+edge cells with its ring neighbours.  The port runs one device: a
+periodic grid is one slab whose halo wraps onto itself, a non-periodic
+one a slab with zero halos.
 """
 
 from __future__ import annotations
@@ -102,15 +107,70 @@ def interior_mask(geom: GridGeometry, axis_index: int, device=None):
     return (g >= geom.interior_start) & (g < geom.interior_end)
 
 
-def apply_boundaries(E, B, geom: GridGeometry, axis_index, t, dt):
-    """Load boundary conditions on the owned slab
-    (``opal_tpu/grid.py:172-234``).  The periodic case loads nothing;
-    the laser, absorbing and conducting boundaries are not ported."""
-    if geom.left_boundary != "periodic":
-        raise NotImplementedError(
-            f"{geom.left_boundary}/{geom.right_boundary} boundaries are not "
-            "ported; only periodic grids run"
+def apply_boundaries(E, B, geom: GridGeometry, axis_index, t, dt,
+                     laser_y=None, laser_z=None):
+    """Load boundary conditions on the owned slab (reference:
+    ``yee.rs:454-495``; ``opal_tpu/grid.py:172-234``), as masked
+    global-index operations, in the reference's order: laser injection,
+    then absorbing damping or the conducting mirror.
+
+    ``E``/``B`` are owned-cell tensors of shape (n_loc, 3); ``t`` the
+    simulation time, a host float; ``laser_y``/``laser_z`` host
+    callables ``(t, x) -> float`` (default: no laser field).  The laser
+    term is one scalar a step, evaluated on the host in f64.
+    """
+    g = global_cells(geom, axis_index, E.device)
+
+    if geom.left_boundary == "laser":
+        # inject at extended cell 2 = x_min - 2 dx (yee.rs:456-462)
+        x_inj = geom.xmin - 2.0 * geom.dx
+        r = const.SPEED_OF_LIGHT * dt / geom.dx
+        inj_mask = (g == 2).to(E.dtype)
+        E = E.clone()
+        for comp, laser in ((1, laser_y), (2, laser_z)):
+            if laser is not None:
+                E[:, comp] += inj_mask * (2.0 * r * float(laser(t, x_inj)))
+
+    if geom.right_boundary == "absorbing":
+        # damping ramp over the absorbing zone except its first cell,
+        # then a hard zero on the last two cells (yee.rs:464-479)
+        g_abs0 = geom.interior_end  # first absorbing cell
+        g_last = geom.n_ext - 1
+        sigma_max = 10.0 / geom.right_pad
+        frac = (g - g_abs0).to(torch.float64) / max(g_last - g_abs0, 1)
+        factor = torch.where(
+            (g > g_abs0) & (g <= g_last), 1.0 - sigma_max * frac, 1.0
         )
+        zero = torch.where(g >= g_last - 1, 0.0, 1.0).to(torch.float64)
+        scale = (factor * zero)[:, None].to(E.dtype)
+        E = E * scale
+        B = B * scale
+
+    if geom.right_boundary == "conducting":
+        # mirror about the surface at the left edge of cell g_c0
+        # (yee.rs:480-494): tangential E and normal B are odd (zero at
+        # the surface), normal E and tangential B take the
+        # zero-gradient image
+        g_c0 = geom.interior_end
+        local = torch.arange(geom.n_loc, device=E.device)
+        i = g - g_c0  # mirror-zone offset; valid where 0 <= i < 4
+        in_zone = (i >= 0) & (i < 4)
+        src_clamp = torch.clamp(local - 2 * i, 0, geom.n_loc - 1)
+        src_zgrad = torch.clamp(local + 1 - 2 * i, 0, geom.n_loc - 1)
+        surf = in_zone & (i == 0)
+        deep = in_zone & (i > 0)
+        Ex = torch.where(surf, 0.0, torch.where(deep, -E[src_clamp, 0],
+                                                E[:, 0]))
+        Ey = torch.where(deep, E[src_zgrad, 1], E[:, 1])
+        Ez = torch.where(deep, E[src_zgrad, 2], E[:, 2])
+        Bx = torch.where(deep, B[src_zgrad, 0], B[:, 0])
+        By = torch.where(surf, 0.0, torch.where(deep, -B[src_clamp, 1],
+                                                B[:, 1]))
+        Bz = torch.where(surf, 0.0, torch.where(deep, -B[src_clamp, 2],
+                                                B[:, 2]))
+        E = torch.stack([Ex, Ey, Ez], dim=-1)
+        B = torch.stack([Bx, By, Bz], dim=-1)
+
     return E, B
 
 

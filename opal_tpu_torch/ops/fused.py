@@ -1,14 +1,15 @@
-"""Fused gather + Vay push + deposit: the PIC hot loop of the port.
+"""Fused gather + push + deposit: the PIC hot loop of the port.
 
 One pass per block of ``block`` particles does what three passes
-(``ops.interp.fields_at`` -> ``ops.pusher.vay_push`` ->
+(``ops.interp.fields_at`` -> ``ops.pusher.vay_push``/``boris_push`` ->
 ``ops.deposit.deposit``) do: the particle columns are read once, the
 block's field window and its deposit tile stay in fast memory.  It is
 the port of ``opal_tpu/ops/fused.py``'s Pallas kernel (``_kernel_block``
-launched by ``fused_push_deposit``), in its lite Vay form: electrons,
-deposit on, no chi/gamma-half/prev_x outputs.  The CUDA kernel is
-``csrc/fused_push_deposit.cu``; :func:`fused_push_deposit_reference` is
-the same function in plain PyTorch ops.
+launched by ``fused_push_deposit``) in its lite forms (deposit on, no
+chi/gamma-half/prev_x outputs): the Vay push for electrons, with the
+work column, and the Boris push for ions, without it.  The CUDA kernel
+is ``csrc/fused_push_deposit.cu``; :func:`fused_push_deposit_reference`
+is the same function in plain PyTorch ops.
 
 Shape contract (as in the JAX kernel)
 -------------------------------------
@@ -61,7 +62,7 @@ COLS = (
 
 class FusedSpec(NamedTuple):
     """Static configuration of one fused-kernel instantiation (the lite
-    Vay electron form of ``opal_tpu.ops.fused.FusedSpec``)."""
+    forms of ``opal_tpu.ops.fused.FusedSpec``)."""
 
     block: int          # particles per block (BS)
     window: int         # field cells visible per block (W)
@@ -70,8 +71,11 @@ class FusedSpec(NamedTuple):
     dt: float
     charge: float       # species charge: macrocharge = weight * charge
     mass: float
+    pusher: str = "vay"  # "vay" (electrons) or "boris" (ions)
     # field-table row = particle cell + row_off (HALO + PAD)
     row_off: int = 0
+    # carry and integrate the work column (electrons); ions have none
+    work_out: bool = True
     # output the per-step work INCREMENT (seeded at 0) for a caller that
     # accumulates work in a wider dtype, instead of accumulating into
     # the f32 work column passed in
@@ -147,34 +151,70 @@ def fused_push_deposit_reference(spec: FusedSpec, anchors, cell, x, y, z,
     Bx = zero + eb_rows[torch.clamp(row, 0, n_rows - 1), 3]
     Ex, Ey, Ez, Bx, By, Bz = (f * fitf for f in (Ex, Ey, Ez, Bx, By, Bz))
 
-    # ---- Vay push (electron.rs:268-330), lite form with work --------
     C = k["c"]
     alpha = k["alpha"]
-    ig = 1.0 / gamma
-    vx, vy, vz = C * ux * ig, C * uy * ig, C * uz * ig
-    uhx = ux + alpha * (Ex + (vy * Bz - vz * By))
-    uhy = uy + alpha * (Ey + (vz * Bx - vx * Bz))
-    uhz = uz + alpha * (Ez + (vx * By - vy * Bx))
-    gh = torch.sqrt(1.0 + uhx * uhx + uhy * uhy + uhz * uhz)
-    work_in = torch.zeros_like(ux) if spec.work_inc else work
-    wk = work_in + k["kwork"] * (uhx * Ex + uhy * Ey + uhz * Ez) * k["dt"] / gh
-    upx = uhx + alpha * Ex
-    upy = uhy + alpha * Ey
-    upz = uhz + alpha * Ez
-    gp2 = 1.0 + upx * upx + upy * upy + upz * upz
-    ta = k["talpha"]
-    tvx, tvy, tvz = ta * Bx, ta * By, ta * Bz
-    ustar = upx * tvx + upy * tvy + upz * tvz
-    t2 = tvx * tvx + tvy * tvy + tvz * tvz
-    sig = gp2 - t2
-    gn = torch.sqrt(0.5 * sig + torch.sqrt(0.25 * sig * sig + t2 + ustar * ustar))
-    ign = 1.0 / gn
-    itx, ity, itz = tvx * ign, tvy * ign, tvz * ign
-    s = 1.0 / (1.0 + itx * itx + ity * ity + itz * itz)
-    udt = upx * itx + upy * ity + upz * itz
-    unx = s * (upx + udt * itx + (upy * itz - upz * ity))
-    uny = s * (upy + udt * ity + (upz * itx - upx * itz))
-    unz = s * (upz + udt * itz + (upx * ity - upy * itx))
+    work_in = None
+    if spec.work_out:
+        work_in = torch.zeros_like(ux) if spec.work_inc else work
+    wk = work_in
+    if spec.pusher == "boris":
+        # ---- Boris push (ion.rs:168-214), gamma-1 cancellation-free --
+        cBx, cBy, cBz = C * Bx, C * By, C * Bz
+        umx = ux + alpha * Ex
+        umy = uy + alpha * Ey
+        umz = uz + alpha * Ez
+        um2 = umx * umx + umy * umy + umz * umz
+        gam = 1.0 + um2 / (1.0 + torch.sqrt(1.0 + um2))
+        # a true division: ``float / tensor`` is a reciprocal and a
+        # product in PyTorch, two roundings where the kernel has one
+        tb = torch.full_like(gam, alpha) / gam
+        upx = umx + tb * (umy * cBz - umz * cBy)
+        upy = umy + tb * (umz * cBx - umx * cBz)
+        upz = umz + tb * (umx * cBy - umy * cBx)
+        cB2 = cBx * cBx + cBy * cBy + cBz * cBz
+        tp = 2.0 * tb / (1.0 + tb * tb * cB2)
+        uplx = umx + tp * (upy * cBz - upz * cBy)
+        uply = umy + tp * (upz * cBx - upx * cBz)
+        uplz = umz + tp * (upx * cBy - upy * cBx)
+        unx = uplx + alpha * Ex
+        uny = uply + alpha * Ey
+        unz = uplz + alpha * Ez
+        un2 = unx * unx + uny * uny + unz * unz
+        gn = 1.0 + un2 / (1.0 + torch.sqrt(1.0 + un2))
+        ign = 1.0 / gn
+        # transverse positions advance with the NEW velocity
+        vty, vtz = C * uny * ign, C * unz * ign
+    else:
+        # ---- Vay push (electron.rs:268-330) --------------------------
+        ig = 1.0 / gamma
+        vx, vy, vz = C * ux * ig, C * uy * ig, C * uz * ig
+        uhx = ux + alpha * (Ex + (vy * Bz - vz * By))
+        uhy = uy + alpha * (Ey + (vz * Bx - vx * Bz))
+        uhz = uz + alpha * (Ez + (vx * By - vy * Bx))
+        if spec.work_out:
+            gh = torch.sqrt(1.0 + uhx * uhx + uhy * uhy + uhz * uhz)
+            wk = work_in + k["kwork"] * (
+                uhx * Ex + uhy * Ey + uhz * Ez) * k["dt"] / gh
+        upx = uhx + alpha * Ex
+        upy = uhy + alpha * Ey
+        upz = uhz + alpha * Ez
+        gp2 = 1.0 + upx * upx + upy * upy + upz * upz
+        ta = k["talpha"]
+        tvx, tvy, tvz = ta * Bx, ta * By, ta * Bz
+        ustar = upx * tvx + upy * tvy + upz * tvz
+        t2 = tvx * tvx + tvy * tvy + tvz * tvz
+        sig = gp2 - t2
+        gn = torch.sqrt(
+            0.5 * sig + torch.sqrt(0.25 * sig * sig + t2 + ustar * ustar))
+        ign = 1.0 / gn
+        itx, ity, itz = tvx * ign, tvy * ign, tvz * ign
+        s = 1.0 / (1.0 + itx * itx + ity * ity + itz * itz)
+        udt = upx * itx + upy * ity + upz * itz
+        unx = s * (upx + udt * itx + (upy * itz - upz * ity))
+        uny = s * (upy + udt * ity + (upz * itx - upx * itz))
+        unz = s * (upz + udt * itz + (upx * ity - upy * itx))
+        # transverse positions advance with the OLD velocity
+        vty, vtz = vy, vz
 
     # ---- x advance and the +-1 cell shift (sign of floor) -----------
     xn = x + k["kx"] * unx * ign
@@ -186,14 +226,16 @@ def fused_push_deposit_reference(spec: FusedSpec, anchors, cell, x, y, z,
     cols = dict(
         cell=(torch.where(upd, celln, row) - spec.row_off).to(torch.int32),
         x=torch.where(upd, xn, x),
-        y=torch.where(upd, y + vy * k["dt"], y),
-        z=torch.where(upd, z + vz * k["dt"], z),
+        y=torch.where(upd, y + vty * k["dt"], y),
+        z=torch.where(upd, z + vtz * k["dt"], z),
         ux=torch.where(upd, unx, ux),
         uy=torch.where(upd, uny, uy),
         uz=torch.where(upd, unz, uz),
         gamma=torch.where(upd, gn, gamma),
     )
-    cols["winc" if spec.work_inc else "work"] = torch.where(upd, wk, work_in)
+    if spec.work_out:
+        cols["winc" if spec.work_inc else "work"] = torch.where(
+            upd, wk, work_in)
 
     # ---- next window bases: per-block minimum of the post-push fit
     # rows, or of the alive rows' pre-push cells when none fit --------
@@ -234,11 +276,18 @@ def _check_args(spec: FusedSpec, anchors, cols: dict, work, eb_rows):
         raise ValueError(f"capacity {n} is not a multiple of block {spec.block}")
     if spec.window + 4 > spec.n_rows:
         raise ValueError("window + 4 must not exceed the field table rows")
+    if (spec.pusher, spec.work_out) not in (("vay", True), ("boris", False)):
+        raise ValueError(
+            f"no kernel for pusher {spec.pusher!r} with work_out="
+            f"{spec.work_out}: electrons (vay) carry the work column, ions "
+            "(boris) do not"
+        )
     want = dict(cols, anchors=anchors, eb_rows=eb_rows)
-    if not spec.work_inc:
+    if spec.work_out and not spec.work_inc:
         want["work"] = work
     elif work is not None:
-        raise ValueError("work_inc kernels take no work column")
+        raise ValueError("work_inc and work_out=False kernels take no work "
+                         "column")
     for name, t in want.items():
         if t is None:
             raise ValueError(f"{name} is required")
@@ -264,11 +313,11 @@ def fused_push_deposit(spec: FusedSpec, anchors, cell, x, y, z, ux, uy, uz,
     CPU tensors go through :func:`fused_push_deposit_reference`; CUDA
     tensors launch the CUDA kernel (``csrc/fused_push_deposit.cu``) on
     the current stream, or raise.  ``work`` is the f32 work column, or
-    ``None`` with ``spec.work_inc``.
+    ``None`` with ``spec.work_inc`` or without ``spec.work_out``.
 
     Returns ``(cols, miss, out_slab, anchors_next)``: ``cols`` the
-    updated columns (cell x y z ux uy uz gamma, and ``work`` or
-    ``winc``), ``miss`` an f32 0/1 mask of alive rows outside their
+    updated columns (cell x y z ux uy uz gamma, and with ``work_out``
+    ``work`` or ``winc``), ``miss`` an f32 0/1 mask of alive rows outside their
     window, ``out_slab`` the (n_rows, 16) unshifted deposit
     accumulator, and ``anchors_next`` the window bases for the next
     step.
@@ -289,7 +338,8 @@ def fused_push_deposit(spec: FusedSpec, anchors, cell, x, y, z, ux, uy, uz,
     out_cols = {name: torch.empty_like(t) for name, t in cols_in.items()
                 if name != "weight"}
     wname = "winc" if spec.work_inc else "work"
-    out_cols[wname] = torch.empty_like(x)
+    if spec.work_out:
+        out_cols[wname] = torch.empty_like(x)
     miss = torch.empty_like(x)
     anchors_next = torch.empty_like(anchors)
     out = torch.zeros((spec.n_rows, 16), dtype=F32, device=x.device)
@@ -300,24 +350,26 @@ def fused_push_deposit(spec: FusedSpec, anchors, cell, x, y, z, ux, uy, uz,
         rc = lib.opal_fused_push_deposit(
             ptr(anchors), ptr(cell), ptr(x), ptr(y), ptr(z), ptr(ux),
             ptr(uy), ptr(uz), ptr(gamma), ptr(weight_),
-            ptr(None if spec.work_inc else work), ptr(eb_rows),
-            *(ptr(out_cols[c]) for c in
+            ptr(work), ptr(eb_rows),
+            *(ptr(out_cols.get(c)) for c in
               ("cell", "x", "y", "z", "ux", "uy", "uz", "gamma", wname)),
             ptr(miss), ptr(anchors_next), ptr(out),
             n, spec.block, spec.window, spec.n_rows, spec.row_off, PAD,
+            int(spec.pusher == "boris"), int(spec.work_out),
             *(k[c] for c in ("charge", "alpha", "c", "kwork", "dt",
                              "talpha", "kx", "inv_dt", "inv_dx")),
             ctypes.c_void_p(stream),
         )
     if rc != 0:
         raise RuntimeError(f"fused_push_deposit kernel failed: cudaError {rc}")
-    fused_push_deposit.launches += 1
+    fused_push_deposit.launches[spec.pusher] += 1
     return out_cols, miss, out, anchors_next
 
 
-#: kernel launches since the count was last reset (chip_smoke.py reads
-#: it to show the main path ran through the kernel)
-fused_push_deposit.launches = 0
+#: kernel launches of each form (by pusher) since the counts were last
+#: reset (chip_smoke.py reads them to show the main path ran through the
+#: kernel)
+fused_push_deposit.launches = {"vay": 0, "boris": 0}
 
 
 def make_eb_rows(E_slab, B_slab):

@@ -1,9 +1,10 @@
-"""Relativistic electron push, vectorized over SoA particle columns.
+"""Relativistic particle pushes, vectorized over SoA particle columns.
 
 The Vay leapfrog push of ``src/particle/electron.rs:268-330`` (as in
 ``opal_tpu/ops/pusher.py``), including the quantum parameter and the
-work integral.  The optical-depth decrement against the photon
-emission rate needs the QED rate tables, which are not ported: callers
+work integral, and the Boris push of ``ion.rs:168-214`` for ions.  The
+optical-depth decrement against the photon emission rate needs the QED
+rate tables, which are not ported: callers
 pass ``tau=None`` and the decrement is skipped, which is what the
 reference's non-emission runs amount to (tau is never consumed there).
 
@@ -115,6 +116,42 @@ def vay_push(cell, x, y, z, u, gamma, tau, work, E, B, dx, dt):
     cell, x_new, prev_x = _cell_fixup(cell, x_new, prev_x)
     return PushResult(cell, x_new, prev_x, y_new, z_new, u_new, gamma_new,
                       chi, None, work)
+
+
+def boris_push(cell, x, y, z, u, charge, mass, E, B, dx, dt):
+    """Boris push for a species of per-row ``charge`` and ``mass``, (N,)
+    tensors (``ion.rs:168-214``, ``opal_tpu/ops/pusher.py:160-207``).
+
+    Returns updated (cell, x, prev_x, y, z, u, gamma_m1).  The Lorentz
+    factor is kept as gamma - 1 in the cancellation-free form
+    u^2 / (1 + sqrt(1 + u^2)), which non-relativistic ions need.  The
+    quantum parameter opal_tpu also returns is discarded by its ion
+    callers and not computed here."""
+    c = const.SPEED_OF_LIGHT
+    cB = c * B
+    alpha = charge * dt / (2.0 * mass * c)
+
+    u_minus = u + alpha[:, None] * E
+    um2 = _dot(u_minus, u_minus)
+    gamma = 1.0 + um2 / (1.0 + torch.sqrt(1.0 + um2))
+    t = alpha / gamma
+    u_prime = u_minus + t[:, None] * _cross(u_minus, cB)
+    t_prime = 2.0 * t / (1.0 + t * t * _dot(cB, cB))
+    u_plus = u_minus + t_prime[:, None] * _cross(u_prime, cB)
+
+    u_new = u_plus + alpha[:, None] * E
+    un2 = _dot(u_new, u_new)
+    gamma_m1 = un2 / (1.0 + torch.sqrt(1.0 + un2))
+
+    prev_x = x
+    v = c * u_new / (1.0 + gamma_m1[:, None])
+    x_new = x + v[:, 0] * dt / dx
+    # transverse positions advance with the *new* velocity (ion.rs:208-209)
+    y_new = y + v[:, 1] * dt
+    z_new = z + v[:, 2] * dt
+
+    cell, x_new, prev_x = _cell_fixup(cell, x_new, prev_x)
+    return cell, x_new, prev_x, y_new, z_new, u_new, gamma_m1
 
 
 def electron_chi(ux, uy, uz, gamma, E, B):

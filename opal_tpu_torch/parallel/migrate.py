@@ -1,8 +1,10 @@
-"""The maintenance sort and the edge migration of a cell-sorted species.
+"""The maintenance sort and the migration of the species at one device.
 
 Ports of ``opal_tpu/parallel/migrate.py``'s ``sort_state``
-(``:494-569``) and ``migrate_edges`` (``:679-903``) at one device.  The
-JAX versions move the state as one packed float matrix; here every
+(``:494-569``) and ``migrate_edges`` (``:679-903``) for cell-sorted
+species, and of ``opal_tpu/sim.py``'s ``_wrap_kill`` for the others, at
+one device.  The JAX versions move the state as one packed float
+matrix; here every
 column moves at its own dtype (cells stay integers, and the
 field-dtype ``work`` column of mixed-precision runs is never rounded
 to the particle dtype, which the packed matrix does).
@@ -97,6 +99,9 @@ def migrate_edges(state: ParticleState, geom: GridGeometry,
     windows, sends beyond ``send_capacity`` and arrivals without a free
     slot are counted in the returned overflow, never silently dropped.
 
+    On a non-periodic grid rows in the windows whose cell left the
+    interior are deleted instead (see :func:`_edges_core`).
+
     Returns ``(state, overflow)`` with ``overflow`` a 0-d int64 tensor.
     """
     n = state.alive.shape[0]
@@ -119,11 +124,14 @@ def migrate_edges(state: ParticleState, geom: GridGeometry,
 
 def _edges_core(W: dict, geom: GridGeometry, tot_l, tot_r, K: int, cap: int):
     """The edge exchange on the (2K,) head+tail window columns ``W``
-    (``opal_tpu/parallel/migrate.py:739-862`` at one periodic device).
+    (``opal_tpu/parallel/migrate.py:739-862`` at one device).  On a
+    non-periodic grid every window row whose cell lies outside the
+    interior (a boundary zone or beyond) is deleted, as the reference
+    drops leavers with no neighbour (``mod.rs:309-329``).
     Returns ``(W_new, overflow)``."""
-    if geom.n_devices != 1 or geom.left_boundary != "periodic":
+    if geom.n_devices != 1:
         raise NotImplementedError(
-            "only the single-device periodic edge migration is ported"
+            "only the single-device edge migration is ported"
         )
     n_loc = geom.n_loc
     alive_w, cell_w = W["alive"], W["cell"]
@@ -132,9 +140,18 @@ def _edges_core(W: dict, geom: GridGeometry, tot_l, tot_r, K: int, cap: int):
 
     go_left = alive_w & (cell_w < 0)
     go_right = alive_w & (cell_w >= n_loc)
-    gone = go_left | go_right
+    # out-of-slab rows the windows caught, before the deletion filter:
+    # tot_l/tot_r count exactly these over the whole state
+    missed = (tot_l + tot_r) - torch.sum(go_left | go_right)
+    if geom.left_boundary != "periodic":
+        out = (cell_w < geom.interior_start) | (cell_w >= geom.interior_end)
+        deleted = alive_w & out
+        go_left = go_left & ~out
+        go_right = go_right & ~out
+        gone = go_left | go_right | deleted
+    else:
+        gone = go_left | go_right
     free_after = ~alive_w | gone
-    missed = (tot_l + tot_r) - torch.sum(gone)
 
     # (4, 2K) running counts, scanned along the contiguous dimension
     cum = torch.cumsum(
@@ -168,8 +185,9 @@ def _edges_core(W: dict, geom: GridGeometry, tot_l, tot_r, K: int, cap: int):
     n_arr_r = torch.clamp(n_left, max=cap)
     from_left, from_right = send_right, send_left
 
-    # retire leavers: zero the row (alive False, weight 0, momentum 0,
-    # cell 0) except gamma, which stays 1 so no 0/0 reaches a division
+    # retire leavers and deleted rows: zero the row (alive False, weight
+    # 0, momentum 0, cell 0) except gamma, which stays 1 so no 0/0
+    # reaches a division
     W = {
         k: _put(v, gt, torch.full((), 1 if k == "gamma" else 0,
                                   dtype=v.dtype, device=dev))
@@ -196,3 +214,29 @@ def _edges_core(W: dict, geom: GridGeometry, tot_l, tot_r, K: int, cap: int):
     W = {k: _put(v, dest_r, from_right[k]) for k, v in W.items()}
     ins_overflow = vl.sum() + vr.sum() - ok_l.sum() - ok_r.sum()
     return W, overflow + ins_overflow
+
+
+def wrap_kill(state: ParticleState, geom: GridGeometry):
+    """Migration of an unsorted species at one device
+    (``opal_tpu/sim.py::Simulation._wrap_kill``): boundary crossings wrap
+    in place on a periodic grid; on a non-periodic grid a row whose cell
+    left the interior is deleted (alive False, weight, momentum and cell
+    0), as the reference drops leavers at the global edge
+    (``mod.rs:309-329``).  No rows move.
+
+    Returns ``(state, overflow)``; nothing can overflow, so it is 0."""
+    n_loc = geom.n_loc
+    zero = torch.zeros((), dtype=torch.int64, device=state.cell.device)
+    if geom.left_boundary == "periodic":
+        cell = (
+            state.cell
+            + torch.where(state.cell < 0, n_loc, 0)
+            - torch.where(state.cell >= n_loc, n_loc, 0)
+        ).to(state.cell.dtype)
+        return dataclasses.replace(state, cell=cell), zero
+    out = state.alive & (
+        (state.cell < geom.interior_start) | (state.cell >= geom.interior_end)
+    )
+    cols = {k: torch.where(out, 0, getattr(state, k)).to(getattr(state, k).dtype)
+            for k in ("weight", "ux", "uy", "uz", "cell")}
+    return dataclasses.replace(state, alive=state.alive & ~out, **cols), zero

@@ -1,15 +1,20 @@
-"""The particle-in-cell simulation core: the non-QED electron step.
+"""The particle-in-cell simulation core: the non-QED step of electrons
+and ions.
 
 One step, in the reference's hot-loop order (``src/main.rs:238-267``)
 and ``opal_tpu/sim.py``'s (``:1020-1247``), on one device:
 
-1. refresh the halo fields (a local wrap on the periodic grid);
-2. push each species: the fused CUDA kernel (gather + Vay push +
-   deposit) plus the compacted unfused fallback for rows outside their
-   block window, or the unfused ops for species the kernel cannot take;
-3. migrate leavers when the exchange runs every step;
+1. refresh the halo fields (a local wrap on the periodic grid, zeros at
+   non-periodic edges);
+2. push each species: the fused CUDA kernel (gather + Vay push for
+   electrons or Boris push for ions + deposit) plus the compacted
+   unfused fallback for rows outside their block window, or the unfused
+   ops for species the kernel cannot take;
+3. migrate leavers when the exchange runs every step (on a non-periodic
+   grid, rows that leave the interior are deleted);
 4. deposit the unfused species and fold the halo currents;
-5. the Yee field advance.
+5. load the boundaries (laser injection, absorbing ramp, conducting
+   mirror) and the Yee field advance.
 
 ``run`` is an eager Python loop over the same static phase schedule as
 ``opal_tpu``: a maintenance sort opens every R-step period and a
@@ -31,16 +36,16 @@ from .ops import fused as F
 from .ops import maxwell
 from .ops.deposit import deposit
 from .ops.interp import fields_at
-from .ops.pusher import electron_chi, vay_push
+from .ops.pusher import boris_push, electron_chi, vay_push
 from .parallel import halo
-from .parallel.migrate import migrate_edges, sort_state
+from .parallel.migrate import migrate_edges, sort_state, wrap_kill
 from .species import ParticleState, SpeciesSpec, kinetic_energy_weights
 
 
 @dataclasses.dataclass(frozen=True)
 class SimOptions:
     """Static switches of the step (the fields of
-    ``opal_tpu.sim.SimOptions`` that the non-QED electron path reads)."""
+    ``opal_tpu.sim.SimOptions`` that the non-QED path reads)."""
 
     dt: float
     current_deposition: bool = True
@@ -50,8 +55,8 @@ class SimOptions:
     # CFL default 0.95 is always safe); slow decks may defer migration
     # until drift * M reaches the 2-cell deposit/gather reach
     max_drift_cells_per_step: float = 0.95
-    # the fused CUDA kernel for electrons (f32 state, capacity a
-    # multiple of fused_block); alive rows outside their block window
+    # the fused CUDA kernel for electrons and ions (f32 state, capacity
+    # a multiple of fused_block); alive rows outside their block window
     # go through a compacted unfused fallback of fused_misfit_capacity
     # rows per step, and any excess is counted as a loss
     fused_pusher: bool = False
@@ -91,26 +96,29 @@ class Simulation:
         geom: GridGeometry,
         options: SimOptions,
         species: dict[str, SpeciesSpec],
-        device="cpu",
+        device="cuda",
         dtype=torch.float64,
         field_dtype=None,
+        laser_y=None,
+        laser_z=None,
     ):
         """``dtype`` is the particle-state precision; ``field_dtype``
         (default: same) the grid-field precision.  Mixed precision (f32
         particles, f64 fields) keeps the fused f32 kernel while the Yee
-        integration, current accumulation and energy sums run in f64."""
-        if geom.n_devices != 1 or geom.left_boundary != "periodic":
-            raise NotImplementedError(
-                "only single-device periodic grids are ported"
-            )
+        integration, current accumulation and energy sums run in f64.
+        ``laser_y``/``laser_z`` are the laser boundary's fields, host
+        callables ``(t, x) -> float`` (``grid.apply_boundaries``)."""
+        if geom.n_devices != 1:
+            raise NotImplementedError("only single-device grids are ported")
         for name, spec in species.items():
-            if spec.kind != "electron":
+            if spec.kind not in ("electron", "ion"):
                 raise NotImplementedError(
                     f"species {name!r} of kind {spec.kind!r} is not ported"
                 )
         self.geom = geom
         self.options = options
         self.specs = dict(species)
+        self.laser_y, self.laser_z = laser_y, laser_z
         self.device = torch.device(device)
         self.dtype = dtype
         self.field_dtype = field_dtype if field_dtype is not None else dtype
@@ -137,31 +145,53 @@ class Simulation:
     def _fused_spec(self, name) -> F.FusedSpec:
         opt, geom = self.options, self.geom
         spec = self.specs[name]
+        electron = spec.kind == "electron"
         return F.FusedSpec(
             block=opt.fused_block, window=opt.fused_window,
             n_rows=self._n_rows, dx=geom.dx, dt=opt.dt,
-            charge=spec.charge, mass=spec.mass, row_off=HALO + F.PAD,
+            charge=spec.charge, mass=spec.mass,
+            pusher="vay" if electron else "boris", row_off=HALO + F.PAD,
+            # only electrons carry the work integral
+            work_out=electron,
             # mixed precision: the work column is field-dtype and the
             # kernel outputs bare increments accumulated here in f64
-            work_inc=self.field_dtype != self.dtype,
+            work_inc=electron and self.field_dtype != self.dtype,
         )
 
     def _velocity(self, st: ParticleState):
         return const.SPEED_OF_LIGHT * st.u / st.gamma[:, None]
 
-    def _push_species(self, name, st: ParticleState, E_slab, B_slab):
-        """The unfused electron push: field gather + Vay push."""
+    def _push_rows(self, name, cell, x, y, z, u, gamma, work, E_slab,
+                   B_slab):
+        """The unfused push of some rows: field gather, then the Vay
+        push for electrons or the Boris push for ions.  Returns the
+        updated columns by name (with ``prev_x``; electrons also ``chi``
+        and ``work``)."""
         geom, opt = self.geom, self.options
-        Ep, Bp = fields_at(E_slab, B_slab, st.cell + HALO, st.x)
-        res = vay_push(
-            st.cell, st.x, st.y, st.z, st.u, st.gamma, None, st.work,
-            Ep.to(st.x.dtype), Bp.to(st.x.dtype), geom.dx, opt.dt,
-        )
-        return dataclasses.replace(
-            st, cell=res.cell, x=res.x, prev_x=res.prev_x, y=res.y,
-            z=res.z, ux=res.u[:, 0], uy=res.u[:, 1], uz=res.u[:, 2],
-            gamma=res.gamma, chi=res.chi, work=res.work,
-        )
+        spec = self.specs[name]
+        Ep, Bp = fields_at(E_slab, B_slab, cell + HALO, x)
+        Ep, Bp = Ep.to(x.dtype), Bp.to(x.dtype)
+        if spec.kind == "electron":
+            res = vay_push(cell, x, y, z, u, gamma, None, work, Ep, Bp,
+                           geom.dx, opt.dt)
+            cell, x, prev_x, y, z, u, gamma = res[:7]
+            extra = dict(chi=res.chi, work=res.work)
+        else:
+            cell, x, prev_x, y, z, u, gamma_m1 = boris_push(
+                cell, x, y, z, u, torch.full_like(x, spec.charge),
+                torch.full_like(x, spec.mass), Ep, Bp, geom.dx, opt.dt,
+            )
+            gamma = 1.0 + gamma_m1
+            extra = {}
+        return dict(cell=cell, x=x, prev_x=prev_x, y=y, z=z, ux=u[:, 0],
+                    uy=u[:, 1], uz=u[:, 2], gamma=gamma, **extra)
+
+    def _push_species(self, name, st: ParticleState, E_slab, B_slab):
+        """The unfused push of a whole species."""
+        return dataclasses.replace(st, **self._push_rows(
+            name, st.cell, st.x, st.y, st.z, st.u, st.gamma, st.work,
+            E_slab, B_slab,
+        ))
 
     def _fused_push_deposit(self, name, st: ParticleState, E_slab, B_slab,
                             anchors):
@@ -180,16 +210,16 @@ class Simulation:
         cols, miss, out_slab, anchors_next = F.fused_push_deposit(
             fspec, anchors, st.cell, st.x, st.y, st.z,
             st.ux, st.uy, st.uz, st.gamma, st.weight,
-            None if fspec.work_inc else st.work, eb,
+            st.work if fspec.work_out and not fspec.work_inc else None, eb,
         )
         upd = {k: cols[k] for k in
                ("cell", "x", "y", "z", "ux", "uy", "uz", "gamma")}
         # the lite kernel leaves prev_x and chi unchanged: nothing reads
         # prev_x between steps and chi is refreshed at output time
-        upd["work"] = (
-            st.work + cols["winc"].to(st.work.dtype) if fspec.work_inc
-            else cols["work"]
-        )
+        if fspec.work_inc:
+            upd["work"] = st.work + cols["winc"].to(st.work.dtype)
+        elif fspec.work_out:
+            upd["work"] = cols["work"]
 
         n = st.cell.shape[0]
         mtab, losses = F.misfit_compact(miss, opt.fused_misfit_capacity)
@@ -198,28 +228,22 @@ class Simulation:
         n_mis = int((mtab < n).sum())
         if n_mis:
             idx = mtab[:n_mis]
-            m_cell, m_x = st.cell[idx], st.x[idx]
+            m_cell = st.cell[idx]
             m_q = st.weight[idx].to(torch.float32) * spec.charge
-            Ep, Bp = fields_at(E_slab, B_slab, m_cell + HALO, m_x)
-            res = vay_push(
-                m_cell, m_x, st.y[idx], st.z[idx],
+            fb = self._push_rows(
+                name, m_cell, st.x[idx], st.y[idx], st.z[idx],
                 torch.stack([st.ux[idx], st.uy[idx], st.uz[idx]], dim=1),
-                st.gamma[idx],
-                None, st.work[idx], Ep.to(st.x.dtype), Bp.to(st.x.dtype),
-                geom.dx, opt.dt,
+                st.gamma[idx], None if st.work is None else st.work[idx],
+                E_slab, B_slab,
             )
-            fb = dict(
-                cell=res.cell, x=res.x, y=res.y, z=res.z, ux=res.u[:, 0],
-                uy=res.u[:, 1], uz=res.u[:, 2], gamma=res.gamma,
-                work=res.work,
-            )
-            for k, v in fb.items():
-                upd[k][idx] = v.to(upd[k].dtype)
+            for k, v in upd.items():
+                v[idx] = fb[k].to(v.dtype)
             if opt.current_deposition:
-                vel = const.SPEED_OF_LIGHT * res.u / res.gamma[:, None]
+                u_fb = torch.stack([fb["ux"], fb["uy"], fb["uz"]], dim=1)
+                vel = const.SPEED_OF_LIGHT * u_fb / fb["gamma"][:, None]
                 out_slab = F.deposit_into_slab(
-                    out_slab, res.cell + fspec.row_off, res.x, res.prev_x,
-                    m_q, vel, geom.dx, opt.dt,
+                    out_slab, fb["cell"] + fspec.row_off, fb["x"],
+                    fb["prev_x"], m_q, vel, geom.dx, opt.dt,
                 )
                 # deposit-reach violations drop taps: counted as losses
                 viol = (m_q != 0.0) & (
@@ -258,26 +282,13 @@ class Simulation:
         R = max(1, opt.fused_resort_every)
         return M, R
 
-    def _wrap(self, st: ParticleState):
-        """Single-device migration of an unsorted species on the
-        periodic grid: boundary crossings wrap in place."""
-        n_loc = self.geom.n_loc
-        cell = (
-            st.cell
-            + torch.where(st.cell < 0, n_loc, 0)
-            - torch.where(st.cell >= n_loc, n_loc, 0)
-        ).to(st.cell.dtype)
-        return dataclasses.replace(st, cell=cell), torch.zeros(
-            (), dtype=torch.int64, device=self.device
-        )
-
     def _migrate(self, name, st):
         opt = self.options
         if self._fused_applicable(name, st):
             return migrate_edges(
                 st, self.geom, opt.migration_capacity, opt.migration_window
             )
-        return self._wrap(st)
+        return wrap_kill(st, self.geom)
 
     def _sort_phase(self, c: Carry) -> Carry:
         """Maintenance sort of every fused species + fresh block
@@ -347,7 +358,8 @@ class Simulation:
                 )
         J, rho = halo.fold_currents(J_slab, rho_slab, geom)
         E_own, B_own = apply_boundaries(
-            E_slab[HALO:-HALO], B_slab[HALO:-HALO], geom, 0, c.t, opt.dt
+            E_slab[HALO:-HALO], B_slab[HALO:-HALO], geom, 0, c.t, opt.dt,
+            self.laser_y, self.laser_z,
         )
         E_slab = torch.cat([E_slab[:HALO], E_own, E_slab[-HALO:]])
         B_slab = torch.cat([B_slab[:HALO], B_own, B_slab[-HALO:]])

@@ -4,7 +4,7 @@ As in ``opal_tpu/species.py``, a species is a set of per-field columns
 with a fixed capacity and an ``alive`` mask (the reference's
 ``Population<T>``, ``src/particle/mod.rs:141-376``), here as a
 dataclass of torch tensors.  Momentum ``u`` is p/(mc); ``gamma`` the
-Lorentz factor.  Only electrons are ported: the ion and photon columns
+Lorentz factor.  Electrons and ions are ported; the photon columns
 keep their names, for parity with ``opal_tpu``, and stay ``None``.
 """
 
@@ -80,6 +80,14 @@ class SpeciesSpec:
             tuple(output),
         )
 
+    @staticmethod
+    def ion(name, charge_state, mass_number, output=()) -> "SpeciesSpec":
+        """An ion of charge Z e and mass A m_p (``ion.rs:236-241``)."""
+        return SpeciesSpec(
+            name, "ion", charge_state * const.ELEMENTARY_CHARGE,
+            mass_number * const.PROTON_MASS, tuple(output),
+        )
+
 
 def dead_default(fname: str, is_photon: bool) -> float:
     """Dead-slot fill value for one column: tau columns are +inf so dead
@@ -107,10 +115,11 @@ def _empty_fields(spec: SpeciesSpec, n: int, dtype, work_dtype=None):
                       "gamma", "chi")
         },
     )
-    fields["tau"] = np.full(n, np.inf, dtype)
-    # the work integral accumulates every step for the whole run: under
-    # mixed precision it lives in the field dtype (f64)
-    fields["work"] = np.zeros(n, work_dtype or dtype)
+    if spec.kind == "electron":
+        fields["tau"] = np.full(n, np.inf, dtype)
+        # the work integral accumulates every step for the whole run:
+        # under mixed precision it lives in the field dtype (f64)
+        fields["work"] = np.zeros(n, work_dtype or dtype)
     return fields
 
 
@@ -127,7 +136,7 @@ def initialize(
     seed: int = 0,
     dtype=np.float64,
     work_dtype=None,
-    device="cpu",
+    device="cuda",
 ) -> ParticleState:
     """Sample the initial distribution (``mod.rs:172-203``) host-side
     with numpy, draw for draw as ``opal_tpu.species.initialize``, and
@@ -135,11 +144,12 @@ def initialize(
 
     Per interior cell: ``nreal = density(x_centre) * dx`` real particles
     shared equally by ``npc`` macroparticles; positions uniform in the
-    cell; momenta from ``u*(x, urand, nrand)``; optical depths ~ Exp(1).
+    cell; momenta from ``u*(x, urand, nrand)``; electron optical depths
+    ~ Exp(1) (ions draw none and carry no tau or work column).
     The arrays have shape (n_devices * capacity_per_device,) with each
     device's particles in its own contiguous block.
     """
-    if spec.kind != "electron":
+    if spec.kind not in ("electron", "ion"):
         raise NotImplementedError(f"{spec.kind} species are not ported")
     rng = np.random.default_rng(seed)
     fields = _empty_fields(
@@ -207,7 +217,8 @@ def initialize(
         fields["uz"][slots] = u[:, 2]
         fields["gamma"][slots] = gamma
         fields["alive"][slots] = True
-        fields["tau"][slots] = rng.exponential(size=n)
+        if spec.kind == "electron":
+            fields["tau"][slots] = rng.exponential(size=n)
 
     return ParticleState(**{
         k: None if v is None else torch.from_numpy(v).to(device)
@@ -216,10 +227,16 @@ def initialize(
 
 
 def kinetic_energy_weights(spec: SpeciesSpec, state: ParticleState):
-    """Per-electron kinetic energy in joules (macroparticle), in the
-    cancellation-free form u^2 / (gamma + 1) of gamma - 1
-    (``electron.rs:122-126``)."""
+    """Per-particle kinetic energy in joules (macroparticle), with
+    gamma - 1 in a cancellation-free form: u^2 / (gamma + 1) for
+    electrons (``electron.rs:122-126``), u^2 / (1 + sqrt(1 + u^2)) times
+    the mass ratio for ions (``ion.rs:128-134``)."""
     to_joules = 1.0e6 * const.ELECTRON_MASS_MEV * const.ELEMENTARY_CHARGE
     u2 = state.ux * state.ux + state.uy * state.uy + state.uz * state.uz
-    ke = state.weight * u2 / (state.gamma + 1.0) * to_joules
+    if spec.kind == "ion":
+        gamma_m1 = u2 / (1.0 + torch.sqrt(1.0 + u2))
+        ke = state.weight * gamma_m1 * (spec.mass / const.ELECTRON_MASS) \
+            * to_joules
+    else:
+        ke = state.weight * u2 / (state.gamma + 1.0) * to_joules
     return torch.where(state.alive, ke, 0.0)

@@ -21,6 +21,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import opal_tpu.cli as jcli
 import opal_tpu_torch.cli as tcli
@@ -53,7 +54,7 @@ def test_two_stream_outputs_match(tmp_path, capsys):
     tdeck = _mini_deck(tmp_path / "torch")
     assert jcli.main([str(jdeck), "--devices", "1"]) == 0
     jout = capsys.readouterr()
-    assert tcli.main([str(tdeck)]) == 0
+    assert tcli.main([str(tdeck), "--device", "cpu"]) == 0
     tout = capsys.readouterr()
     for o in (jout, tout):
         assert "[fused pusher: electron]" in o.out
@@ -91,14 +92,52 @@ def test_two_stream_outputs_match(tmp_path, capsys):
 
 @pytest.mark.parametrize("deck,args,what", [
     ("colliding_beams.yaml", [], "QED"),
-    ("hole_boring.yaml", [], "laser"),
+    ("two_stream.yaml", ["initialise_fields"], "electrostatic"),
     ("two_stream.yaml", ["--devices", "2"], "2-device"),
 ])
-def test_refuses_unported_decks(deck, args, what, capsys):
-    assert tcli.main([str(EXAMPLES / deck), *args]) == 1
+def test_refuses_unported_decks(deck, args, what, tmp_path, capsys):
+    path = EXAMPLES / deck
+    if args == ["initialise_fields"]:
+        # the electrostatic field set-up, asked for by the deck
+        path = tmp_path / deck
+        path.write_text(
+            (EXAMPLES / deck).read_text().replace(
+                "control:\n", "control:\n initialise_fields: true\n", 1)
+        )
+        args = []
+    assert tcli.main([str(path), *args, "--device", "cpu"]) == 1
     err = capsys.readouterr().err
     assert err.startswith("opal_tpu_torch: ") and "not yet ported" in err
     assert what in err
+
+
+def test_no_card_exits_without_running(tmp_path, capsys):
+    """Without ``--device cpu`` the CLI runs on the CUDA device; with no
+    card it exits 1 and names the missing device, writing no output."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    deck = _mini_deck(tmp_path / "run")
+    assert tcli.main([str(deck)]) == 1
+    err = capsys.readouterr().err
+    assert err.startswith("opal_tpu_torch: no CUDA device")
+    assert "--device cpu" in err
+    assert not list(deck.parent.glob("*_energy.dat"))
+
+
+def test_profile_writes_table_and_keeps_outputs(tmp_path, capsys):
+    """``--profile DIR`` profiles the last output block: it writes the
+    operator table and changes no output."""
+    plain, prof = _mini_deck(tmp_path / "plain"), _mini_deck(tmp_path / "prof")
+    assert tcli.main([str(plain), "--device", "cpu"]) == 0
+    capsys.readouterr()
+    assert tcli.main([str(prof), "--device", "cpu",
+                      "--profile", str(tmp_path / "trace")]) == 0
+    err = capsys.readouterr().err
+    assert "profile: " in err and "s wall" in err
+    assert "aten::" in (tmp_path / "trace" / "profile.txt").read_text()
+    for name in ("2_energy.dat", "2_grid.dat"):
+        assert (prof.parent / name).read_text() == \
+            (plain.parent / name).read_text(), name
 
 
 def test_port_imports_no_jax():

@@ -1,7 +1,8 @@
 """The fused gather + push + deposit: opal_tpu's Pallas kernel (run in
 interpret mode, as opal_tpu's own tests run it on the CPU) against the
-port's plain PyTorch version, at f32 in the lite Vay form, with the
-work increment on and off.  Also the host helpers around the kernel.
+port's plain PyTorch version, at f32 in its lite forms: Vay (electrons)
+with the work increment on and off, and Boris (carbon ions, Z 6, A 12)
+with no work column.  Also the host helpers around the kernel.
 
 Tolerances: cells, miss flags and next-step anchors must be equal.
 The float columns agree within 1e-6 of each column's largest magnitude
@@ -63,22 +64,51 @@ def _inputs(seed=0):
     return st, E, B
 
 
-def _specs(window, work_inc):
+#: the forms of the kernel: (pusher, work_inc, species charge and mass,
+#: field scale).  The ion fields are 1000x the electron ones, so that
+#: the Boris rotation turns a carbon ion's momentum as far as the Vay
+#: push turns an electron's.
+FORMS = {
+    "vay": ("vay", False, const.ELECTRON_CHARGE, const.ELECTRON_MASS, 1.0),
+    "vay_work_inc": ("vay", True, const.ELECTRON_CHARGE,
+                     const.ELECTRON_MASS, 1.0),
+    "boris": ("boris", False, 6.0 * const.ELEMENTARY_CHARGE,
+              12.0 * const.PROTON_MASS, 1e3),
+}
+
+
+def _specs(window, form):
+    pusher, work_inc, charge, mass, _ = FORMS[form]
+    work_out = pusher == "vay"
     kw = dict(block=BS, window=window, n_rows=N_ROWS, dx=DX, dt=DT,
-              charge=const.ELECTRON_CHARGE, mass=const.ELECTRON_MASS,
-              row_off=HALO + TF.PAD, work_inc=work_inc)
-    return JF.FusedSpec(pusher="vay", lite=True, work_out=True, **kw), \
-        TF.FusedSpec(**kw)
+              charge=charge, mass=mass, pusher=pusher, row_off=HALO + TF.PAD,
+              work_out=work_out, work_inc=work_inc)
+    return JF.FusedSpec(lite=True, **kw), TF.FusedSpec(**kw)
+
+
+#: (window, form) cases; the Vay ids keep the (window, work_inc) names
+#: they had before the Boris form was added
+CASES = [
+    pytest.param(16, "vay_work_inc", id="16-True"),
+    pytest.param(40, "vay", id="40-False"),
+    pytest.param(24, "boris", id="24-boris"),
+]
+
+
+def _work_name(spec):
+    return () if not spec.work_out else ("winc",) if spec.work_inc \
+        else ("work",)
 
 
 def _t(a, device="cpu"):
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-@pytest.mark.parametrize("window,work_inc", [(16, True), (40, False)])
-def test_kernel_matches_pallas(window, work_inc):
+@pytest.mark.parametrize("window,form", CASES)
+def test_kernel_matches_pallas(window, form):
     st, E, B = _inputs()
-    jspec, tspec = _specs(window, work_inc)
+    E, B = E * FORMS[form][4], B * FORMS[form][4]
+    jspec, tspec = _specs(window, form)
     eb_j = JF.make_eb_rows(jnp.asarray(E), jnp.asarray(B))
     eb_t = TF.make_eb_rows(_t(E), _t(B))
     np.testing.assert_array_equal(eb_t.numpy(), np.asarray(eb_j))
@@ -87,7 +117,7 @@ def test_kernel_matches_pallas(window, work_inc):
     np.testing.assert_array_equal(anch_t.numpy(), np.asarray(anch_j))
 
     args = [st[c] for c in COLS] + [st["weight"]]
-    work = None if work_inc else st["work"]
+    work = st["work"] if _work_name(tspec) == ("work",) else None
     cj, mj, oj, aj = JF.fused_push_deposit(
         jspec, anch_j, *map(jnp.asarray, args),
         None if work is None else jnp.asarray(work), eb_j, interpret=True,
@@ -103,7 +133,8 @@ def test_kernel_matches_pallas(window, work_inc):
                                   err_msg="anchors_next")
     np.testing.assert_array_equal(ct["cell"].numpy(), np.asarray(cj["cell"]))
     assert (np.asarray(cj["cell"]) != st["cell"]).any()  # cells shift
-    for name in COLS[1:] + ("winc" if work_inc else "work",):
+    assert ct.keys() == cj.keys()
+    for name in COLS[1:] + _work_name(tspec):
         want = np.asarray(cj[name])
         np.testing.assert_allclose(ct[name].numpy(), want, rtol=0,
                                    atol=1e-6 * np.abs(want).max(),
@@ -161,8 +192,8 @@ def test_misfit_compact(capacity):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("window,work_inc", [(16, True), (40, False)])
-def test_cuda_kernel_matches_plain(window, work_inc):
+@pytest.mark.parametrize("window,form", CASES)
+def test_cuda_kernel_matches_plain(window, form):
     """On a card: the CUDA kernel (built without FMA contraction)
     reproduces the plain PyTorch version's push columns, miss flags and
     anchors bit for bit; the slab within 1e-5 of its largest entry
@@ -170,16 +201,18 @@ def test_cuda_kernel_matches_plain(window, work_inc):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     st, E, B = _inputs()
-    _, spec = _specs(window, work_inc)
+    E, B = E * FORMS[form][4], B * FORMS[form][4]
+    _, spec = _specs(window, form)
     dev = "cuda"
     eb = TF.make_eb_rows(_t(E, dev), _t(B, dev))
     cell = _t(st["cell"], dev)
     anch = TF.block_anchors(spec, cell)
     args = [_t(st[c], dev) for c in COLS[1:]] + [_t(st["weight"], dev)]
-    work = None if work_inc else _t(st["work"], dev)
-    before = TF.fused_push_deposit.launches
+    work = _t(st["work"], dev) if _work_name(spec) == ("work",) else None
+    before = dict(TF.fused_push_deposit.launches)
     ck, mk, ok, ak = TF.fused_push_deposit(spec, anch, cell, *args, work, eb)
-    assert TF.fused_push_deposit.launches == before + 1
+    before[spec.pusher] += 1
+    assert TF.fused_push_deposit.launches == before
     cr, mr, orf, ar = TF.fused_push_deposit_reference(
         spec, anch, cell, *args, work, eb
     )

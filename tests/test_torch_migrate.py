@@ -42,7 +42,7 @@ def _host_state(seed=0):
         ux=lambda x, u, nr: 0.2 * np.sign(u - 0.5) + 0.05 * nr,
         uy=lambda x, u, nr: 0.05 * nr,
         uz=lambda x, u, nr: 0.01 * nr,
-        dt=DT, capacity_per_device=CAP, seed=seed,
+        dt=DT, capacity_per_device=CAP, seed=seed, device="cpu",
     )
     return to_numpy(st)
 

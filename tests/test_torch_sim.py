@@ -70,7 +70,7 @@ def test_initialize_draws_identically():
                                                 n_devices=1), np.float32)
     tst = to_numpy(_init(initialize, SpeciesSpec.electron(),
                          GridGeometry(nx=NX, dx=DX, xmin=0.0, n_devices=1),
-                         np.float32))
+                         np.float32, device="cpu"))
     for k, v in tst.items():
         np.testing.assert_array_equal(v, np.asarray(getattr(jst, k)),
                                       err_msg=k)
@@ -111,7 +111,8 @@ def test_fused_mixed_precision_matches_opal_tpu():
 
     tsim = Simulation(GridGeometry(nx=NX, dx=DX, xmin=0.0, n_devices=1),
                       SimOptions(**kw), {"electron": SpeciesSpec.electron()},
-                      dtype=torch.float32, field_dtype=torch.float64)
+                      device="cpu", dtype=torch.float32,
+                      field_dtype=torch.float64)
     tout = tsim.run(*fields_from_numpy(E, B, J, rho),
                     {"electron": state_from_numpy(host)}, 0.0,
                     tsim.zero_counters(), nsteps)
