@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile DIR   # phases 1, 2 and a profiled phase 8
+    python3 chip_smoke.py --profile DIR --profile-deck colliding_beams
+                                          # ... and a profiled phase 11
 
 Builds the port's CUDA kernel from ``opal_tpu_torch/csrc`` and drives
 the port on the card, phase by phase, each printing one line or more:
@@ -29,14 +31,38 @@ the port on the card, phase by phase, each printing one line or more:
 7. a small hole_boring deck (nx 800, npc 10, 200 steps, both species)
    stepped on the card and on the CPU, whose fields and energies must
    agree;
-8. hole_boring CLI drive (this slice's main path):
+8. hole_boring CLI drive (the hole_boring main path):
    ``opal_tpu_torch.cli.main`` on ``examples/hole_boring.yaml`` at its
    full width (nx 20,000, npc 100 a species), with the slab moved to
-   -9..-4 um and the run cut to t = -19..-7 um/c (12,630 steps over 3
+   -9..-4 um and the run cut to t = -17..-8 um/c (9471 steps over 3
    outputs), so that the pulse's peak reaches the slab: the launches of
-   each kernel form, the losses, the outputs and the ions' heating.
+   each kernel form, the losses, the outputs and the ions' heating;
+9. colliding_beams kernels vs plain: the full Vay form without the
+   deposit (the QED main path's, also with the work increment), full
+   Vay with it, lite Vay and lite Boris without it, on the deck's
+   ``--f32`` sorted initial beam (75,776 rows, block 2048, window 56,
+   n_rows 4228) under random laser-strength fields: push columns,
+   prev_x, gh, chi, miss and anchors bitwise, no slab without the
+   deposit;
+10. a small emission deck (the QED burst deck of the JAX tests at one
+    device) stepped at ``--f32`` on the card and on the CPU with the
+    same host-made draws: photon counts and energies must agree;
+11. colliding_beams CLI drive (the QED main path):
+    ``opal_tpu_torch.cli.main`` on ``examples/colliding_beams.yaml
+    --f32`` at full width (nx 4000, 50,000 electrons, 3155 steps over
+    5 outputs): one launch of the full Vay form without the deposit a
+    step, no loss, finite outputs, the photon FITS files, the photons'
+    energy rising;
+12. the mixed-precision colliding_beams deck (the unfused push with
+    f64 arithmetic) over its whole window through ``Simulation.run``:
+    the radiated-energy ledger closes below 1e-5.
 
-Phases 1-8 take about five minutes.  Any failed check raises, so the
+Kernel times (``ms``) are device time: 20 calls queued behind a
+device-side spin run back to back between two CUDA events.  The
+wrapper's whole call (``call_ms``) and the plain version's
+(``plain_ms``) are timed by CUDA events around each call, host launch
+included.  Phases 1-12 take about ten
+minutes.  Any failed check raises, so the
 script exits non-zero without the final line.  Before the last line it
 prints one JSON object describing each kernel form of the paths, and
 ``nvidia-smi``'s name and power limit; the last line is
@@ -72,8 +98,10 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 #: f32 operations a pushed row costs, counted from the kernel source:
 #: the 4-tap gather ~114, the push (Vay ~113, Boris ~81), the x/y/z
-#: advance ~10, the deposit's weights, fluxes and 15 adds ~143
-OPS_PER_ROW = {"vay": 380, "boris": 348}
+#: advance ~10; the full form's gamma at the half step and chi ~30; the
+#: deposit's weights, fluxes and 15 adds ~143
+OPS_PUSH = {"vay": 237, "boris": 205}
+OPS_FULL, OPS_DEPOSIT = 30, 143
 # bench.py's non-QED defaults (bench.py:145-498)
 BENCH = dict(particles=8 * 2**20, nx=1024, block=8192, window=12,
              resort=320, migrate=160, misfit=256, drift_cells=0.0095,
@@ -82,6 +110,21 @@ BENCH = dict(particles=8 * 2**20, nx=1024, block=8192, window=12,
 
 def log(phase, msg):
     print(f"[phase {phase}] {msg}", flush=True)
+
+
+def reset_launches():
+    """Set every kernel form's launch count to 0."""
+    from opal_tpu_torch.ops import fused as F
+
+    F.fused_push_deposit.launches.update(dict.fromkeys(F.FORMS, 0))
+
+
+def launched() -> dict:
+    """The kernel forms launched since the last reset, with their
+    counts."""
+    from opal_tpu_torch.ops import fused as F
+
+    return {k: v for k, v in F.fused_push_deposit.launches.items() if v}
 
 
 def nvidia_smi() -> str:
@@ -109,6 +152,32 @@ def cuda_ms(fn, reps=20):
     return statistics.median(times)
 
 
+def device_ms(fn, reps=20, spin_cycles=200_000_000):
+    """Mean device milliseconds of one call of ``fn()``, after one
+    warm-up: the device's own time for the work the call enqueues,
+    without the host's launch and allocations (which :func:`cuda_ms`
+    includes, and which set the call's time at small shapes).  The
+    device first spins for ``spin_cycles`` clock cycles (~0.1 s) while
+    the host enqueues ``reps`` calls behind it, so that they then run
+    back to back between two CUDA events; the spin must outlast the
+    enqueue, or the host's gaps would be timed too."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(spin_cycles)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    ev[2].synchronize()
+    spin_ms = ev[0].elapsed_time(ev[1])
+    assert enqueue_ms < spin_ms, (enqueue_ms, spin_ms)
+    return ev[1].elapsed_time(ev[2]) / reps
+
+
 def two_stream_state(geom, npc, cap, dt, device, seed=0):
     """The bench/two_stream electron population: density 20 m^-1 per
     cell width, counter-streaming at +-2.5e-24 kg m/s with 0.1% spread."""
@@ -131,23 +200,35 @@ def bound(spec, n_rows_state, n_pushed):
     """(bound_ms, bound_by): the least time the card could take for one
     launch: each input column read once and each output written once
     (4 B a value: 9 inputs, the work column when it is read, the 8
-    updated columns, the work output and ``miss``; the anchors both
-    ways, the field table read, the deposit slab written) over the HBM
+    updated columns, the work output and ``miss``, and prev_x gh chi in
+    the full form; the anchors both ways, the field table read, the
+    deposit slab written unless the deposit is skipped) over the HBM
     rate, against the f32 operations of the rows that were pushed over
     the f32 peak."""
-    cols = 9 + (spec.work_out and not spec.work_inc) + 8 + spec.work_out + 1
+    cols = (9 + (spec.work_out and not spec.work_inc) + 8 + spec.work_out
+            + 1 + 3 * (not spec.lite))
     nblk = n_rows_state // spec.block
-    nbytes = 4 * (cols * n_rows_state + 2 * nblk + spec.n_rows * (8 + 16))
+    slab = 0 if spec.dep_skip else 16
+    nbytes = 4 * (cols * n_rows_state + 2 * nblk + spec.n_rows * (8 + slab))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_pushed * OPS_PER_ROW[spec.pusher] / F32_OPS_PER_S * 1e3
+    ops = (OPS_PUSH[spec.pusher] + OPS_FULL * (not spec.lite)
+           + OPS_DEPOSIT * (not spec.dep_skip))
+    t_ops = n_pushed * ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def kernel_vs_plain(label, st, spec, fields_seed=1, e_scale=10.0,
                     b_scale=1e-8, phase=3):
     """Compare the kernel with its plain version on one sorted state and
-    random E/B (E ~ ``e_scale`` V/m, B ~ ``b_scale`` T); returns
-    (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+    random E/B (E ~ ``e_scale`` V/m, B ~ ``b_scale`` T): the push columns
+    (with prev_x, gh and chi in the full form), ``miss`` and the next
+    anchors bitwise, the slab within 1e-5 of its scale; without the
+    deposit, no slab at all (the kernel is handed a null pointer, so a
+    write would fault).  Returns (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by, call_ms): ``ms`` the device time of the wrapper's call
+    (the kernel, and with the deposit the slab's zero fill), ``call_ms``
+    and ``plain_ms`` the wrapper's and the plain version's calls timed as
+    a whole with CUDA events, host launch included."""
     from opal_tpu_torch.ops import fused as F
     from opal_tpu_torch.parallel.migrate import sort_state
 
@@ -171,22 +252,31 @@ def kernel_vs_plain(label, st, spec, fields_seed=1, e_scale=10.0,
     push_err = max((ck[c].double() - cr[c].double()).abs().max().item()
                    for c in cr)
     assert bitwise, f"push columns differ from the plain version ({push_err})"
-    slab_err = (ok - orf).abs().max().item()
-    scale = orf.abs().max().item()
-    assert scale > 0 and slab_err <= 1e-5 * scale, (slab_err, scale)
-    ms = cuda_ms(lambda: F.fused_push_deposit(*args))
+    if spec.dep_skip:
+        assert ok is None and orf is None
+        slab_err, slab_txt = 0.0, "no slab (deposit skipped)"
+    else:
+        slab_err = (ok - orf).abs().max().item()
+        scale = orf.abs().max().item()
+        assert scale > 0 and slab_err <= 1e-5 * scale, (slab_err, scale)
+        slab_txt = f"slab max |err| {slab_err:.3e} (max |slab| {scale:.3e})"
+    ms = device_ms(lambda: F.fused_push_deposit(*args))
+    call_ms = cuda_ms(lambda: F.fused_push_deposit(*args))
     plain_ms = cuda_ms(lambda: F.fused_push_deposit_reference(*args))
     n_alive = int(st.alive.sum())
     n_miss = int(mk.sum().item())
     bound_ms, bound_by = bound(spec, st.cell.shape[0], n_alive - n_miss)
-    log(phase, f"{label} ({spec.pusher}{', work_inc' if spec.work_inc else ''}"
+    cols = "push columns" + ("" if spec.lite else ", prev_x, gh, chi")
+    log(phase, f"{label} ({F.form_name(spec)}"
+               f"{', work_inc' if spec.work_inc else ''}"
                f"): rows {st.cell.shape[0]} (alive {n_alive}), block "
                f"{spec.block}, window {spec.window}, n_rows {spec.n_rows}: "
-               f"push columns, miss and anchors bitwise equal; slab max "
-               f"|err| {slab_err:.3e} (max |slab| {scale:.3e}); misses "
-               f"{n_miss}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-               f"(median of 20), bound {bound_ms:.4f} ms ({bound_by})")
-    return max(push_err, slab_err), ms, plain_ms, bound_ms, bound_by
+               f"{cols}, miss and anchors bitwise equal; {slab_txt}; misses "
+               f"{n_miss}; kernel {ms:.4f} ms of device time (20 calls back "
+               f"to back), the wrapper's call {call_ms:.4f} ms, plain "
+               f"{plain_ms:.4f} ms (medians of 20), bound {bound_ms:.4f} "
+               f"ms ({bound_by})")
+    return max(push_err, slab_err), ms, plain_ms, bound_ms, bound_by, call_ms
 
 
 def small_deck(tmp: Path, nx=128, npc=64, steps=40, outputs=2) -> Path:
@@ -235,7 +325,6 @@ def cli_drive(tmp: Path, steps=2000, outputs=4):
     """The main path through the user's entry point; returns (launches,
     steps/s)."""
     from opal_tpu_torch import cli, constants as const
-    from opal_tpu_torch.ops import fused as F
 
     dt = 0.95 * 500.0 / const.SPEED_OF_LIGHT
     src = (ROOT / "examples" / "two_stream.yaml").read_text()
@@ -245,18 +334,18 @@ def cli_drive(tmp: Path, steps=2000, outputs=4):
     run.mkdir(parents=True)
     (run / "deck.yaml").write_text(src)
     so, se = io.StringIO(), io.StringIO()
-    F.fused_push_deposit.launches.update(vay=0, boris=0)
+    reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
         rc = cli.main([str(run / "deck.yaml")])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(F.fused_push_deposit.launches)
+    launches = launched()
     out, err = so.getvalue(), se.getvalue()
     assert rc == 0, (rc, out, err)
     assert "[fused pusher: electron]" in out, out
     assert "buffer-overflow particle losses" not in err, err
-    assert launches["vay"] > 0 and launches["boris"] == 0, launches
+    assert list(launches) == ["vay"], launches
     launches = launches["vay"]
     totals = []
     for i in range(outputs + 1):
@@ -283,7 +372,6 @@ def bench_scale(smi: str):
     and migration on, 2 sort periods."""
     from opal_tpu_torch import constants as const
     from opal_tpu_torch.grid import GridGeometry
-    from opal_tpu_torch.ops import fused as F
     from opal_tpu_torch.sim import SimOptions, Simulation
     from opal_tpu_torch.species import SpeciesSpec
 
@@ -316,7 +404,7 @@ def bench_scale(smi: str):
     counters = sim.zero_counters()
     species = {"electron": st}
     t = 0.0
-    F.fused_push_deposit.launches.update(vay=0, boris=0)
+    reset_launches()
     walls = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -327,7 +415,7 @@ def bench_scale(smi: str):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     steps = 2 * b["resort"]
-    assert F.fused_push_deposit.launches == {"vay": steps, "boris": 0}
+    assert launched() == {"vay": steps}, launched()
     assert int(counters["electron"]) == 0, int(counters["electron"])
     ke = sim.total_kinetic_energy("electron", species["electron"])
     fe = sim.em_field_energy(E, B)
@@ -391,11 +479,11 @@ constants:
 """
 #: examples/hole_boring.yaml as shipped, but for the time span, the
 #: output count and the slab, moved together so that the pulse's peak
-#: reaches the slab within the run (the injected envelope at t = -19
-#: um/c is 1.7e-5 of its peak)
+#: reaches the slab within the run (the injected envelope at t = -17
+#: um/c is 1.3e-3 of its peak, which meets the slab's front at -9 um/c)
 HB_CLI_EDITS = (
-    ("start: -20.0e-6/c", "start: -19.0e-6/c"),
-    ("end: 10.0e-6/c", "end: -7.0e-6/c"),
+    ("start: -20.0e-6/c", "start: -17.0e-6/c"),
+    ("end: 10.0e-6/c", "end: -8.0e-6/c"),
     (" xmin: 0.0 * micro", " xmin: -9.0 * micro"),
     (" xmax: 5.0 * micro", " xmax: -4.0 * micro"),
 )
@@ -480,7 +568,6 @@ def hb_cli_drive(tmp: Path, smi: str, outputs=3, profile=None):
     directory).  Returns the launches of each kernel form."""
     from opal_tpu_torch import cli, constants as const
     from opal_tpu_torch.config import Config
-    from opal_tpu_torch.ops import fused as F
 
     src = (ROOT / "examples" / "hole_boring.yaml").read_text()
     for a, b in HB_CLI_EDITS + (("n_outputs: 30", f"n_outputs: {outputs}"),):
@@ -501,13 +588,13 @@ def hb_cli_drive(tmp: Path, smi: str, outputs=3, profile=None):
 
     # a profiled drive echoes the CLI's progress lines as they come
     so, se = (_Echo(), _Echo()) if profile else (io.StringIO(), io.StringIO())
-    F.fused_push_deposit.launches.update(vay=0, boris=0)
+    reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
         rc = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(F.fused_push_deposit.launches)
+    launches = launched()
     out, err = so.getvalue(), se.getvalue()
     assert rc == 0, (rc, out, err)
     assert "[fused pusher: electron, ion]" in out, out
@@ -540,12 +627,302 @@ def hb_cli_drive(tmp: Path, smi: str, outputs=3, profile=None):
     return launches
 
 
+#: tests/test_qed_burst.py's deck (a colliding-beams crossing inside an
+#: nx 800 box, 1200 electrons, 526 steps) at one device, with blocks of
+#: 512 rows so that the kernel serves its 2048-row electron buffer
+QED_SMALL = """\
+control:
+ dx: 0.01*micro
+ nx: 800
+ xmin: -1*micro
+ start: -2.0e-6/c
+ end: 3.0e-6/c
+ current_deposition: false
+ n_outputs: 2
+qed:
+ photon_emission: true
+ photon_absorption: false
+electrons:
+ npc: 12
+ ne: S * a0 * critical(omega) * step(x,xmin,xmax)
+ ux: -1000.0 * (1.0 + 0.01 * nrand)
+ uy: 0.0
+ uz: 0.0
+ output: [energy]
+ions:
+ npc: 0
+photons:
+ npc: 0
+ output: [energy, x:energy]
+laser:
+ Ey: >
+  (a0*m*c*omega/e)
+  *sin(omega*(t-x/c))
+  *exp(-ln(2.0)*(omega*(t-x/c))^2/(2.0*pi^2*ncycles^2))
+ Ez: 0.0
+constants:
+ S: 1.0e-6
+ a0: 20.0
+ omega: 2*pi*c/0.8e-6
+ ncycles: 4.0
+ xmin: 4.0 * micro
+ xmax: 5.0 * micro
+tpu:
+ photon_capacity: 32768
+ fused_block: 512
+"""
+#: the laser's peak field at a0 20 and 0.8 um (a0 m c omega / e), V/m,
+#: and its magnetic field, T
+CB_E, CB_B = 8.0e13, 2.7e5
+
+
+def colliding_beams_kernels():
+    """Phase 9: the forms of this slice against their plain versions on
+    the colliding_beams ``--f32`` initial beam (50,000 electrons in
+    75,776 rows, sorted), under random fields of laser strength: the
+    main path's full Vay form without the deposit (also with the work
+    increment of a mixed-precision deck run with ``tpu: fused_pusher:
+    1``), and the forms no shipped deck reaches: full Vay with the
+    deposit, lite Vay without it, and lite Boris without it (carbon's
+    charge and mass on the same rows).  Returns {form: (max_abs_err, ms,
+    plain_ms, bound_ms, bound_by)}."""
+    from opal_tpu_torch import constants as const
+    from opal_tpu_torch.cli import build
+
+    sim, states, _ = build(ROOT / "examples" / "colliding_beams.yaml",
+                           dtype=torch.float32, field_dtype=torch.float32,
+                           device="cuda")
+    st = states["electron"]
+    spec = sim._fused_spec("electron")
+    assert sim._fused_applicable("electron", st)
+    assert (spec.block, spec.window, spec.n_rows, st.x.shape[0], spec.lite,
+            spec.dep_skip, spec.work_inc) == (
+                2048, 56, 4228, 75_776, False, True, False), spec
+    ion = dict(pusher="boris", work_out=False, lite=True,
+               charge=6.0 * const.ELEMENTARY_CHARGE,
+               mass=12.0 * const.PROTON_MASS)
+    forms = {
+        "vay_full_dep_skip": spec,
+        "vay_full_dep_skip+work_inc": spec._replace(work_inc=True),
+        "vay_full": spec._replace(dep_skip=False),
+        "vay_dep_skip": spec._replace(lite=True),
+        "boris_dep_skip": spec._replace(**ion),
+    }
+    out = {label: kernel_vs_plain(f"colliding_beams {label}", st, sp,
+                                  fields_seed=3, e_scale=CB_E,
+                                  b_scale=CB_B, phase=9)
+           for label, sp in forms.items()}
+    del sim, states
+    torch.cuda.empty_cache()
+    return out
+
+
+def _energy_file(path):
+    return {k: float(v) for k, v in
+            (l.split() for l in path.read_text().splitlines())}
+
+
+def qed_card_vs_cpu(tmp: Path):
+    """Phase 10: the small emission deck at ``--f32`` stepped on the card
+    (the full Vay form without the deposit) and on the CPU (its plain
+    version) with the same host-made draws.  The push columns round
+    alike, but the emission rate's exp and log may differ by an ulp
+    between the two, so an electron may cross its optical depth a step
+    earlier or later; each electron keeps its own draws (the sampler's
+    rows are the buffer rows here), so that moves only its own photon.
+    Photon counts agree within 1%, the field, electron and photon
+    energies within 1e-3 of their scale."""
+    from opal_tpu_torch.cli import build
+    from opal_tpu_torch.interactions import emission_widths
+
+    (tmp / "qed_small").mkdir()
+    deck = tmp / "qed_small" / "deck.yaml"
+    deck.write_text(QED_SMALL)
+    out, draws = {}, None
+    for dev in ("cuda", "cpu"):
+        sim, sp, rp = build(deck, dtype=torch.float32,
+                            field_dtype=torch.float32, device=dev)
+        assert sim._fused_applicable("electron", sp["electron"])
+        steps = rp["total_steps"]
+        if draws is None:
+            m, mi = emission_widths(sim.options, sp["electron"].x.shape[0])
+            rng = np.random.default_rng(7)
+            draws = [dict(r1=rng.random(m, np.float32),
+                          r2=rng.random(m, np.float32),
+                          r3=rng.random(m, np.float32),
+                          tau=rng.exponential(size=m).astype(np.float32),
+                          tau_abs=rng.exponential(size=mi).astype(np.float32),
+                          tau_st=rng.exponential(size=mi).astype(np.float32))
+                     for _ in range(steps)]
+        reset_launches()
+        res = sim.run(*sim.init_fields(), sp, rp["tstart"],
+                      sim.zero_counters(), steps, rng=draws.__getitem__)
+        if dev == "cuda":
+            assert launched() == {"vay_full_dep_skip": steps}, launched()
+        lost = {k: int(v) for k, v in res[6].items() if k != "qed_deferred"}
+        assert not any(lost.values()), lost
+        out[dev] = dict(
+            photons=int(res[4]["photon"].alive.sum()),
+            field=sim.em_field_energy(res[0], res[1]),
+            electrons=sim.total_kinetic_energy("electron", res[4]["electron"]),
+            photon_J=sim.total_kinetic_energy("photon", res[4]["photon"]),
+        )
+    c, h = out["cuda"], out["cpu"]
+    assert h["photons"] > 100 and abs(c["photons"] - h["photons"]) <= \
+        0.01 * h["photons"], (c, h)
+    for k in ("field", "electrons", "photon_J"):
+        assert abs(c[k] - h[k]) <= 1e-3 * abs(h[k]), (k, c, h)
+    log(10, f"small emission deck (nx 800, 1200 electrons, {steps} steps, "
+            f"--f32, host-made draws), card vs CPU: photons {c['photons']} "
+            f"vs {h['photons']}; field energy {c['field']:.6e} vs "
+            f"{h['field']:.6e} J, electrons {c['electrons']:.6e} vs "
+            f"{h['electrons']:.6e} J, photons {c['photon_J']:.6e} vs "
+            f"{h['photon_J']:.6e} J (bar 1e-3 relative, counts 1%)")
+
+
+#: the deck cut for a profile of the crossing: the run ends 0.5 um/c
+#: after the pulse's peak meets the beam (2,368 steps), over 48 output
+#: blocks, so the profiled last one (49 steps) holds the peak
+CB_PROFILE_EDITS = (("end: 6.0e-6/c", "end: -1.5e-6/c"),
+                    ("n_outputs: 5", "n_outputs: 48"))
+
+
+def cb_cli_drive(tmp: Path, smi: str, profile=None):
+    """Phase 11, this slice's main path: ``examples/colliding_beams.yaml
+    --f32`` at full width through the user's entry point (with
+    ``profile``, cut to the crossing and the last block profiled into
+    that directory).  Returns the launches of each kernel form."""
+    from opal_tpu_torch import cli
+
+    src = (ROOT / "examples" / "colliding_beams.yaml").read_text()
+    for a, b in CB_PROFILE_EDITS if profile is not None else ():
+        assert src.count(a) == 1, a
+        src = src.replace(a, b)
+    run = tmp / "colliding_beams"
+    run.mkdir()
+    (run / "deck.yaml").write_text(src)
+    argv = [str(run / "deck.yaml"), "--f32"]
+    if profile is not None:
+        argv += ["--profile", str(profile)]
+    so, se = (_Echo(), _Echo()) if profile else (io.StringIO(), io.StringIO())
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launched()
+    out, err = so.getvalue(), se.getvalue()
+    assert rc == 0, (rc, out, err)
+    assert "[fused pusher: electron]" in out, out
+    if profile is not None:
+        log(11, [l for l in err.splitlines() if l.startswith("profile:")][0])
+    assert "buffer-overflow particle losses" not in err, err
+    n_out = int(out.splitlines()[-1].split()[1])
+    steps = launches.get("vay_full_dep_skip", 0)
+    assert launches == {"vay_full_dep_skip": steps} and steps > 0, launches
+    energies = []
+    for i in range(n_out + 1):
+        g = np.loadtxt(run / f"{i}_grid.dat")
+        assert g.shape == (4000, 11) and np.isfinite(g).all()
+        e = _energy_file(run / f"{i}_energy.dat")
+        assert all(math.isfinite(v) for v in e.values()) and e["electrons"] > 0
+        energies.append(e)
+    for stem in ("photon_x", "photon_energy", "photon_energy_energy_log",
+                 "photon_longitude-latitude",
+                 "photon_longitude-latitude_energy", "electron_x-chi",
+                 "electron_x-energy"):
+        f = run / f"{n_out}_{stem}.fits"
+        assert f.stat().st_size % 2880 == 0, f
+    e0, e1 = energies[0], energies[-1]
+    assert e0["photons"] == 0.0 and e1["photons"] > 0.0, (e0, e1)
+    backlog = [l for l in err.splitlines() if "backlog" in l]
+    log(11, f"python -m opal_tpu_torch colliding_beams.yaml --f32 (nx "
+            f"4000, 50,000 electrons in 75,776 rows, {steps} steps, {n_out} "
+            f"outputs): '{out.splitlines()[0]}' '{out.splitlines()[1]}', "
+            f"launches {launches}, no losses, outputs finite, photon FITS "
+            f"written; photons 0 -> {e1['photons']:.6e} J, electrons "
+            f"{e0['electrons']:.6e} -> {e1['electrons']:.6e} J; QED backlog "
+            f"notes {len(backlog)}{': ' + backlog[-1] if backlog else ''}; "
+            f"{steps / wall:.1f} steps/s over {wall:.1f} s incl. set-up and "
+            f"output dumps, on {smi}")
+    return launches
+
+
+def cb_ledger(smi: str, chunk=500):
+    """Phase 12: the raw-float energy ledger of the colliding_beams deck
+    at the default mixed precision (the unfused push with f64
+    arithmetic), as ``tools/ledger_closure.py`` computes it, through
+    ``cli.build`` and ``Simulation.run`` with the CLI's generator over
+    the deck's whole window.  With deposition off the laser still does
+    net work on the electrons (their work column), so the radiated
+    energy is the electron loss plus that work: the closure
+    |electron loss + work - photon gain| / photon gain is held to
+    opal_tpu's bar of 1e-5 (its ``closure_with_work``; the bare
+    |electron loss - photon gain| / photon gain is ~2.4e-5 in opal_tpu
+    at every precision, the laser's ~32 J, and is printed beside it).
+    Returns (closure_with_work, closure)."""
+    from opal_tpu_torch.cli import build
+
+    sim, species, rp = build(ROOT / "examples" / "colliding_beams.yaml",
+                             device="cuda")
+    opt = sim.options
+    assert not opt.fused_pusher and opt.push_f64_compute
+    rng = torch.Generator(device="cuda").manual_seed(opt.seed)
+    E, B, J, rho = sim.init_fields()
+    counters = sim.zero_counters()
+    t = rp["tstart"]
+
+    def energies(sp):
+        e = sp["electron"]
+        return dict(electron=sim.total_kinetic_energy("electron", e),
+                    photon=sim.total_kinetic_energy("photon", sp["photon"]),
+                    work=float(torch.sum(torch.where(
+                        e.alive, e.weight.double() * e.work.double(), 0.0))))
+
+    e0 = energies(species)
+    total = rp["total_steps"]
+    reset_launches()
+    t0 = time.perf_counter()
+    done = 0
+    while done < total:
+        n = min(chunk, total - done)
+        E, B, J, rho, species, t, counters = sim.run(
+            E, B, J, rho, species, t, counters, n, rng=rng)
+        done += n
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert not launched(), launched()
+    e1 = energies(species)
+    lost = {k: int(v) for k, v in counters.items() if k != "qed_deferred"}
+    assert not any(lost.values()), lost
+    e_loss = e0["electron"] - e1["electron"]
+    gain = e1["photon"] - e0["photon"]
+    work = e1["work"] - e0["work"]
+    assert gain > 0, (e0, e1)
+    closure = abs(e_loss - gain) / gain
+    closure_w = abs(e_loss + work - gain) / gain
+    log(12, f"colliding_beams.yaml at mixed precision (unfused, f64 push "
+            f"arithmetic), {total} steps: electron loss {e_loss:.9e} J, "
+            f"laser work on the electrons {work:.9e} J, photon gain "
+            f"{gain:.9e} J; closure with the work {closure_w:.3e} (bar "
+            f"1e-5), without it {closure:.3e}; deferred "
+            f"{int(counters['qed_deferred'])}; {total / wall:.1f} steps/s "
+            f"over {wall:.1f} s, on {smi}")
+    assert closure_w < 1e-5, (closure_w, e_loss, work, gain)
+    return closure_w, closure
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--profile", metavar="DIR", type=Path, default=None,
-        help="instead of phases 3-8, run phase 8 over 120 output blocks "
-             "with the CLI's --profile of the last block into DIR")
+        help="instead of phases 3-12, run the CLI drive of --profile-deck "
+             "with the CLI's --profile of its last block into DIR: phase 8 "
+             "over 120 output blocks, or phase 11 cut to the crossing")
+    parser.add_argument(
+        "--profile-deck", choices=("hole_boring", "colliding_beams"),
+        default="hole_boring")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -573,7 +950,10 @@ def main(argv=None) -> int:
     if args.profile is not None:
         tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
         try:
-            hb_cli_drive(tmp, smi, outputs=120, profile=args.profile)
+            if args.profile_deck == "hole_boring":
+                hb_cli_drive(tmp, smi, outputs=120, profile=args.profile)
+            else:
+                cb_cli_drive(tmp, smi, profile=args.profile)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         return 0
@@ -606,26 +986,49 @@ def main(argv=None) -> int:
         hb = hole_boring_kernels()
         hb_card_vs_cpu(tmp)
         hb_launches = hb_cli_drive(tmp, smi)
+        cb = colliding_beams_kernels()
+        qed_card_vs_cpu(tmp)
+        cb_launches = cb_cli_drive(tmp, smi)
+        cb_ledger(smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # each form at the shape of this slice's main path (hole_boring);
-    # the Vay error covers the earlier shapes too
+    # each form at the shape of the latest main path that runs it; the
+    # lite Vay error covers the earlier shapes too
     err_vay = max(results[k][0] for k in results)
-    kernels = []
-    for pusher, label in (("vay", "lite Vay, electrons"),
-                          ("boris", "lite Boris, ions")):
-        err, ms, plain_ms, bound_ms, bound_by = hb[pusher]
-        kernels.append(dict(
-            name=f"fused_push_deposit[{pusher}] ({label})", **KERNEL,
-            launches=hb_launches[pusher],
-            launches_by_path={"two_stream": ts_launches if pusher == "vay"
-                              else 0, "hole_boring": hb_launches[pusher]},
-            max_abs_err=max(err, err_vay) if pusher == "vay" else err,
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None,
-        ))
-    print(json.dumps({"kernels": kernels}))
+    by_path = {
+        "vay": {"two_stream": ts_launches, "hole_boring": hb_launches["vay"]},
+        "boris": {"hole_boring": hb_launches["boris"]},
+        "vay_full_dep_skip": {
+            "colliding_beams": cb_launches["vay_full_dep_skip"]},
+    }
+    timed = {
+        "vay": (hb["vay"], "lite Vay, electrons, deposit on"),
+        "boris": (hb["boris"], "lite Boris, ions, deposit on"),
+        "vay_full_dep_skip": (cb["vay_full_dep_skip"],
+                              "full Vay, QED electrons, deposit off"),
+        "vay_full": (cb["vay_full"], "full Vay, deposit on"),
+        "vay_dep_skip": (cb["vay_dep_skip"], "lite Vay, deposit off"),
+        "boris_dep_skip": (cb["boris_dep_skip"], "lite Boris, deposit off"),
+    }
+
+    def row(form):
+        (err, ms, plain_ms, bound_ms, bound_by, call_ms), label = timed[form]
+        if form == "vay":
+            err = max(err, err_vay)
+        paths = by_path.get(form, {})
+        return dict(name=f"fused_push_deposit[{form}] ({label})", **KERNEL,
+                    launches=sum(paths.values()), launches_by_path=paths,
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                    call_ms=call_ms)
+
+    # the forms no shipped deck's main path reaches are held against their
+    # plain versions all the same, and listed apart
+    print(json.dumps({
+        "kernels": [row(f) for f in by_path],
+        "forms_off_path": [row(f) for f in timed if f not in by_path],
+    }))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

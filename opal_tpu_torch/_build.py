@@ -85,6 +85,6 @@ def library() -> ctypes.CDLL:
     fn = L.opal_fused_push_deposit
     fn.restype = i32
     fn.argtypes = (
-        [vp] * 24 + [ctypes.c_longlong] + [i32] * 7 + [f32] * 9 + [vp]
+        [vp] * 27 + [ctypes.c_longlong] + [i32] * 9 + [f32] * 10 + [vp]
     )
     return L

@@ -1,15 +1,19 @@
 """Command-line entry point: ``python -m opal_tpu_torch input.yaml``.
 
-The single-device, non-QED path of ``opal_tpu/cli.py``: read the YAML
-deck, build the grid (periodic, or a laser injector on the left and an
+The single-device path of ``opal_tpu/cli.py``: read the YAML deck,
+build the grid (periodic, or a laser injector on the left and an
 absorbing boundary on the right when the deck has a ``laser`` section)
-and the electron and ion populations, then alternate output dumps with
-blocks of simulation steps, printing the same banner, progress lines,
-loss warnings and output files.  The fused-kernel block, window, resort
-and migration cadences and the capacities are auto-sized by the same
-rules, so one deck runs the same schedule in both packages.  Decks that
-need what is not ported (QED, several devices, electrostatic
-initialization, checkpoints) are refused with exit code 1.
+and the electron, ion and (with QED photon emission) photon
+populations, then alternate output dumps with blocks of simulation
+steps, printing the same banner, progress lines, loss warnings, QED
+backlog notes and output files.  The fused-kernel block, window,
+resort and migration cadences and the capacities are auto-sized by the
+same rules, so one deck runs the same schedule in both packages; as
+there, mixed-precision QED decks run the unfused push with f64
+arithmetic, and ``--f32`` (or ``tpu: fused_pusher: 1``) the kernel.
+Decks that need what is not ported (photon absorption, several
+devices, electrostatic initialization, checkpoints) are refused with
+exit code 1.
 
 It runs on the CUDA device unless ``--device cpu`` asks for the CPU;
 without a card it exits 1 and never falls back.
@@ -88,8 +92,8 @@ def _refuse_unported(cfg: Config, n_devices: int):
         except ConfigError:
             return False
 
-    if flag("qed", "photon_emission") or flag("qed", "photon_absorption"):
-        raise NotPorted("QED (photon emission/absorption) is not yet ported")
+    if flag("qed", "photon_absorption"):
+        raise NotPorted("QED photon absorption is not yet ported")
     if n_devices != 1:
         raise NotPorted(
             f"{n_devices}-device runs are not yet ported (one device only)"
@@ -131,6 +135,29 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
     tend = input_cfg.read_f64("control", "end")
     current_deposition = input_cfg.read_bool("control", "current_deposition")
     n_outputs = input_cfg.read_usize("control", "n_outputs")
+    photon_emission = input_cfg.read_bool("qed", "photon_emission")
+
+    # the reference's cargo features (Cargo.toml:24-31) as an optional
+    # `features` section of booleans
+    def feature(name):
+        try:
+            return input_cfg.read_bool("features", name)
+        except ConfigError:
+            return False
+
+    # joules -> MeV (main.rs:81)
+    pe_min = input_cfg.read_opt_f64("qed", "photon_energy_min")
+    qed_opts = dict(
+        photon_emission=photon_emission,
+        radiation_reaction=not feature("no_radiation_reaction"),
+        beaming=not feature("no_beaming"),
+        immobile_photons=feature("immobile_photons"),
+        photon_energy_min=(None if pe_min is None
+                           else 1.0e-6 * pe_min / const.ELEMENTARY_CHARGE),
+        photon_angle_max=input_cfg.read_opt_f64("qed", "photon_angle_max"),
+        max_formation_length=input_cfg.read_opt_f64(
+            "qed", "max_formation_length"),
+    )
 
     # laser section present -> laser/absorbing boundaries (main.rs:95-101)
     if input_cfg.contains("laser"):
@@ -146,12 +173,22 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
     capacity_factor = tpu_opt("capacity_factor", 1.5)
     migration_capacity = int(tpu_opt("migration_capacity", 16384))
     seed = int(tpu_opt("seed", 0))
+    emission_active = int(tpu_opt("emission_active_capacity", -1))
+    emission_insert = int(tpu_opt("emission_insert_capacity", -1))
     # the fused kernel serves f32 particle state; f64 runs use the
-    # unfused ops
-    fused_default = 1 if dtype == torch.float32 else 0
+    # unfused ops, and so do mixed-precision QED decks, with an f64
+    # push: the f32 push's field-phase-correlated energy bias kept their
+    # radiated-energy ledger above 1e-5 (opal_tpu/cli.py:243-259)
+    mixed = dtype == torch.float32 and field_dtype == torch.float64
+    fused_default = int(dtype == torch.float32
+                        and not (photon_emission and mixed))
     fused_pusher = bool(tpu_opt("fused_pusher", fused_default))
+    push_f64_compute = not fused_pusher and photon_emission and mixed
     block_explicit = int(tpu_opt("fused_block", -1))
-    fused_block = block_explicit if block_explicit > 0 else 8192
+    # QED decks keep the block of 2048 that opal_tpu's QED kernel form
+    # fits its VMEM with
+    fused_block = (block_explicit if block_explicit > 0
+                   else 2048 if photon_emission else 8192)
     _r_opt = int(tpu_opt("fused_resort_every", 0))
     r_pinned = _r_opt > 0
     fused_resort_every = _r_opt if r_pinned else 64
@@ -196,11 +233,17 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
     # the work integral accumulates for the whole run: field dtype
     np_work_dtype = np.float64 if field_dtype == torch.float64 else np_dtype
 
-    def init_species(sp, sec, npc, dens, seed_):
-        """One species at its per-device capacity, sampled with
-        ``seed_``; returns (state, capacity)."""
+    def init_species(sp, sec, npc, dens, seed_, cap=None):
+        """One species at its per-device capacity (given, or sized from
+        the population), sampled with ``seed_``; returns (state,
+        capacity)."""
         u = [input_cfg.func3(sec, f, ("x", "urand", "nrand"))
              for f in ("ux", "uy", "uz")]
+        if cap is not None:
+            return initialize(
+                sp, geom, npc, dens, *u, dt, cap, seed=seed_,
+                dtype=np_dtype, device=device,
+            ), cap
         cap = _round_up(
             int(_required_capacity(geom, npc, dens) * capacity_factor))
         if fused_pusher and cap >= fused_block:
@@ -239,6 +282,32 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
         states["ion"], capacities["ion"] = init_species(
             ispecs, "ions", ipc, input_cfg.func("ions", "ni", "x"), seed + 1,
         )
+    if photon_emission:
+        # the photon buffer holds the emitted photons: 4x the electrons'
+        pspecs = SpeciesSpec.photon(input_cfg.read_strings("photons", "output"))
+        specs["photon"] = pspecs
+        pcap = int(tpu_opt("photon_capacity", 0)) or max(
+            4096, 4 * capacities["electron"])
+        pcap = _round_up(pcap)
+        ppc = input_cfg.read_usize("photons", "npc")
+        if ppc > 0:
+            states["photon"], _ = init_species(
+                pspecs, "photons", ppc, input_cfg.func("photons", "nph", "x"),
+                seed + 2, cap=pcap,
+            )
+        else:
+            states["photon"] = initialize(
+                pspecs, geom, 0, lambda x: x * 0, None, None, None, dt, pcap,
+                seed=seed + 2, dtype=np_dtype, device=device,
+            )
+        capacities["photon"] = pcap
+    # emitters sampled a step: capacity / 32 of the electrons, at least
+    # 4096 (opal_tpu/cli.py:475-483)
+    if emission_active < 0:
+        emission_active = (
+            _round_up(max(4096, capacities["electron"] // 32))
+            if photon_emission else 0
+        )
 
     # ---- fused window / cadence sizing (needs the initial momenta) ---
     # periodic deposition decks are the instability class: floor the
@@ -247,7 +316,9 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
     # so it is sized for the CFL worst case
     v_spread = 0.1 if left_bdy == "periodic" and current_deposition else 0.05
     v_peak = 0.05
-    for st in states.values():
+    for name, st in states.items():
+        if specs[name].kind == "photon":
+            continue
         alive = st.alive.cpu().numpy()
         if alive.any():
             vx = (st.ux.cpu().numpy() / st.gamma.cpu().numpy())[alive]
@@ -288,6 +359,11 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
     options = SimOptions(
         dt=dt,
         current_deposition=current_deposition,
+        **qed_opts,
+        emission_active_capacity=emission_active,
+        emission_insert_capacity=emission_insert,
+        push_f64_compute=push_f64_compute,
+        seed=seed,
         migration_capacity=migration_capacity,
         fused_pusher=fused_pusher,
         fused_block=fused_block,
@@ -310,12 +386,17 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
     return sim, states, run_params
 
 
+#: the named ranges of the step that a profile reports on their own
+PROFILE_RANGES = ("tau_decrement", "emit_radiation", "emission_sample")
+
+
 def _profiled(fn, out_dir: Path, device: torch.device):
     """Run ``fn()`` under ``torch.profiler`` and return its result.
     Writes the operator table, sorted by device time (CPU time on the
     CPU), to ``out_dir/profile.txt`` and prints the wall time, the time
     the device was busy (the union of its kernel and copy intervals) and
-    the idle share to stderr."""
+    the idle share to stderr; the table ends with the total time of each
+    of :data:`PROFILE_RANGES` that ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -328,18 +409,29 @@ def _profiled(fn, out_dir: Path, device: torch.device):
         res = fn()
         sync()
     wall = time.perf_counter() - t0
+    # device work only: a named range also shows as a device-side span
+    # from its first kernel to its last, idle gaps included
     spans = sorted((e.time_range.start, e.time_range.end) for e in
-                   prof.events() if e.device_type == DeviceType.CUDA)
+                   prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and e.name not in PROFILE_RANGES)
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:
         busy_us += max(0.0, b - max(a, end))
         end = max(end, b)
     busy = busy_us * 1e-6
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "profile.txt").write_text(prof.key_averages().table(
-        sort_by="self_device_time_total" if cuda else "self_cpu_time_total",
-        row_limit=40, max_name_column_width=100,
-    ))
+    avg = prof.key_averages()
+    sort = "device_time_total" if cuda else "cpu_time_total"
+    # the step's named ranges (their host side): host time, and the
+    # device time of the kernels launched inside
+    lines = [f"{e.key}: host {e.cpu_time_total * 1e-3:.3f} ms, device "
+             f"{e.device_time_total * 1e-3:.3f} ms in {e.count} calls"
+             for e in avg
+             if e.key in PROFILE_RANGES and e.device_type == DeviceType.CPU]
+    (out_dir / "profile.txt").write_text(avg.table(
+        sort_by="self_" + sort, row_limit=40, max_name_column_width=100,
+    ) + "\nranges:\n" + "\n".join(lines) + "\n")
     busy_txt = (f", device busy {busy:.3f} s ({len(spans)} device events, "
                 f"idle {1.0 - busy / wall:.1%})" if cuda else "")
     print(f"profile: {wall:.3f} s wall{busy_txt}; table in "
@@ -402,20 +494,23 @@ def main(argv=None) -> int:
     # so the sort/migrate schedule (which restarts per call) matches
     spb = rp.get("steps_per_block", 0)
     if spb == 0:
-        spb = 200 if (sim.dtype == torch.float64 or not opt.fused_pusher) \
-            else 1000
+        spb = 50 if opt.photon_emission else 200 if (
+            sim.dtype == torch.float64 or not opt.fused_pusher) else 1000
     if spb > 0 and steps_bt_output > spb + spb // 2:
         nchunks = -(-steps_bt_output // spb)
         run_chunk = -(-steps_bt_output // nchunks)
     else:
         run_chunk = steps_bt_output
 
+    # emission draws: one generator on the device, seeded from the deck
+    rng = torch.Generator(device=sim.device).manual_seed(opt.seed)
+
     def run_span(E, B, J, rho, species, t, counters, nsteps):
         done = 0
         while done < nsteps:
             n = min(run_chunk, nsteps - done)
             E, B, J, rho, species, t, counters = sim.run(
-                E, B, J, rho, species, t, counters, n
+                E, B, J, rho, species, t, counters, n, rng=rng
             )
             done += n
         return E, B, J, rho, species, t, counters
@@ -425,6 +520,12 @@ def main(argv=None) -> int:
         if sim.device.type == "cuda" else "cpu"
     )
     print(f"Running 1 task on {kind} ({geom.n_loc} cells/device)...")
+    if not opt.radiation_reaction:
+        print("[radiation reaction disabled, using classical emission rates]")
+    if not opt.beaming:
+        print("[neglecting angular component of photon spectrum]")
+    if opt.immobile_photons:
+        print("[photon push disabled]")
     if opt.fused_pusher:
         fused_on = [n for n in species if sim._fused_applicable(n, species[n])]
         print(f"[fused pusher: {', '.join(fused_on) if fused_on else 'no applicable species (unfused ops)'}]")
@@ -439,6 +540,12 @@ def main(argv=None) -> int:
             species["electron"] = sim.refresh_electron_chi(
                 E, B, species["electron"]
             )
+        if "photon" in species and not opt.immobile_photons:
+            # the step leaves photon chi stale (no absorption pass reads
+            # it): refresh it for the chi outputs
+            species["photon"] = sim.refresh_photon_chi(
+                E, B, species["photon"]
+            )
         E_h, B_h, J_h, rho_h = to_numpy((E, B, J, rho))
         species_h = {k: to_numpy(v) for k, v in species.items()}
         out.write_grid_data(output_dir, index, E_h, B_h, J_h, rho_h, geom)
@@ -449,10 +556,11 @@ def main(argv=None) -> int:
             )
         fe = sim.em_field_energy(E, B)
         ee = sim.total_kinetic_energy("electron", species["electron"])
-        ie = (sim.total_kinetic_energy("ion", species["ion"])
-              if "ion" in species else 0.0)
-        out.write_energies(output_dir, index, fe, ee, ie, 0.0)
+        ie, pe = (sim.total_kinetic_energy(n, species[n])
+                  if n in species else 0.0 for n in ("ion", "photon"))
+        out.write_energies(output_dir, index, fe, ee, ie, pe)
 
+    last_deferred = 0
     for i in range(n_outputs):
         dump(i)
         if i > 0:
@@ -475,10 +583,20 @@ def main(argv=None) -> int:
                 lambda: run_span(*span), Path(args.profile), sim.device)
         else:
             E, B, J, rho, species, t, counters = run_span(*span)
-        lost = {k: int(v) for k, v in counters.items() if int(v) > 0}
+        counts = {k: int(v) for k, v in counters.items()}
+        deferred = counts.pop("qed_deferred", 0)
+        lost = {k: v for k, v in counts.items() if v > 0}
         if lost:
             print(f"warning: buffer-overflow particle losses: {lost}",
                   file=sys.stderr)
+        if deferred > last_deferred:
+            print(
+                f"note: QED active-set backlog: {deferred} particle-steps "
+                "deferred to later steps so far (delays, not losses; raise "
+                "tpu: absorption/emission_active_capacity to shrink)",
+                file=sys.stderr,
+            )
+            last_deferred = deferred
 
     dump(n_outputs)
     print(

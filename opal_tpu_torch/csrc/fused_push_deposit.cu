@@ -2,20 +2,26 @@
 // (sm_90a), the hot loop of the PIC step.
 //
 // Replaces: opal_tpu/ops/fused.py::_kernel_block (the Pallas kernel
-// launched by fused_push_deposit), in its lite forms with deposit on
-// (no chi / gamma-half / prev_x outputs), as two pushers:
+// launched by fused_push_deposit), in the forms the PIC step reaches:
 //   * Vay (electrons, electron.rs:268-330), with the work column either
 //     accumulated into the f32 column or output as the bare increment
-//     (work_in == nullptr);
-//   * Boris (ions, ion.rs:168-214), gamma - 1 kept cancellation-free,
-//     with no work column read or written.
+//     (work_in == nullptr); lite, or full: the QED outputs prev_x,
+//     gamma at the half step and chi as well (fused.py:494-500,
+//     556-564), with gh = 1 and chi = 0 on rows not updated so that
+//     they are inert in the emission rate;
+//   * Boris (ions, ion.rs:168-214), lite, gamma - 1 kept
+//     cancellation-free, with no work column read or written;
+// each with the deposit on, or skipped (dep_skip, fused.py:523-524:
+// decks without current deposition), which then has no shared tile, no
+// flush and no slab pointer at all.
 // The plain PyTorch version is
 // opal_tpu_torch/ops/fused.py::fused_push_deposit_reference.
 //
 // What bounds it on an H100: HBM traffic.  Each row reads nine or ten
 // 4-byte columns (cell x y z ux uy uz gamma weight [work]) and writes
-// nine or ten (the eight updated columns, [work] and miss): 72 B per
-// row for Boris, 76-80 B for Vay.  At the bench capacity of 10.5M rows
+// nine or ten (the eight updated columns, [work] and miss), and three
+// more in the full form (prev_x gh chi): 72 B per row for Boris, 76-80
+// B for lite Vay, 88-92 B for full Vay.  At the bench capacity of 10.5M rows
 // that is ~0.85 GB a step against 3.35 TB/s.  The push is ~150 flops a
 // row, far below the f32 peak.  The risk is the deposit: a cell-sorted
 // block spans a few cells, so thousands of threads add into the same
@@ -29,8 +35,8 @@
 // atomics and are flushed to the (n_rows, 16) slab with one global
 // atomic per non-zero entry.  The per-block window minimum for the next
 // step is reduced with warp shuffles and shared memory.  The pusher and
-// the work leg are template parameters, so each form carries no branch
-// or column it does not use.
+// the work leg, the full outputs and the deposit are template
+// parameters, so each form carries no branch or column it does not use.
 //
 // One CTA serves one logical block of `block` rows (blocks run in no
 // order, so the slab is zeroed by the caller, not by block 0 as on the
@@ -69,14 +75,17 @@ __device__ __forceinline__ float flux(float xi, float xf) {
 }
 
 struct Consts {
-  float charge, alpha, c, kwork, dt, talpha, kx, inv_dt, inv_dx;
+  float charge, alpha, c, kwork, dt, talpha, kx, inv_dt, inv_dx, crit;
 };
 
 // kBoris: the Boris push (ions) instead of Vay (electrons).  kWork: the
 // work column is carried (read from work_in, or from 0 when work_in is
 // null, and written to nwork); without it neither pointer is touched.
-// Two forms are instantiated: Vay with work, Boris without.
-template <bool kBoris, bool kWork>
+// kFull: prev_x, gh and chi are written (Vay only).  kDeposit: the
+// deposit into the (n_rows, 16) slab; without it `out` is not touched.
+// Six forms are instantiated: {lite Vay, full Vay} with work and lite
+// Boris without, each with and without the deposit.
+template <bool kBoris, bool kWork, bool kFull, bool kDeposit>
 __global__ void __launch_bounds__(kThreads)
 fused_push_deposit_kernel(
     const int* __restrict__ anchors, const int* __restrict__ cell,
@@ -89,9 +98,10 @@ fused_push_deposit_kernel(
     float* __restrict__ nz, float* __restrict__ nux,
     float* __restrict__ nuy, float* __restrict__ nuz,
     float* __restrict__ ng, float* __restrict__ nwork,
-    float* __restrict__ miss, int* __restrict__ anchors_next,
-    float* __restrict__ out, int block, int W, int n_rows, int row_off,
-    int pad, Consts k) {
+    float* __restrict__ nprev, float* __restrict__ ngh,
+    float* __restrict__ nchi, float* __restrict__ miss,
+    int* __restrict__ anchors_next, float* __restrict__ out, int block,
+    int W, int n_rows, int row_off, int pad, Consts k) {
   extern __shared__ float smem[];
   float* win = smem;               // W rows x 6 (Ex Ey Ez Bx By Bz)
   float* tile = smem + W * 6;      // (W + 4) rows x 16 deposit columns
@@ -105,7 +115,8 @@ fused_push_deposit_kernel(
     int r = base + i / 6;
     win[i] = (r >= 0 && r < n_rows) ? eb[(int64_t)r * 8 + i % 6] : 0.0f;
   }
-  for (int i = tid; i < (W + 4) * kCols; i += kThreads) tile[i] = 0.0f;
+  if constexpr (kDeposit)
+    for (int i = tid; i < (W + 4) * kCols; i += kThreads) tile[i] = 0.0f;
   __syncthreads();
 
   const int lo_row = pad + 2, hi_row = n_rows - pad - 3;
@@ -131,6 +142,11 @@ fused_push_deposit_kernel(
       nx[i] = xv; ny[i] = yv; nz[i] = zv;
       nux[i] = uxv; nuy[i] = uyv; nuz[i] = uzv; ng[i] = gv;
       if (kWork) nwork[i] = w_in;
+      if (kFull) {
+        nprev[i] = xv;
+        ngh[i] = 1.0f;
+        nchi[i] = 0.0f;
+      }
       continue;
     }
 
@@ -152,7 +168,7 @@ fused_push_deposit_kernel(
     }
     const float Bx = 0.0f + win[rel * 6 + 3];
 
-    float unx, uny, unz, gn, ign, vty, vtz, wk = w_in;
+    float unx, uny, unz, gn, ign, vty, vtz, wk = w_in, gh = 1.0f, chi = 0.0f;
     if constexpr (kBoris) {
       // ---- Boris push (ion.rs:168-214), gamma - 1 cancellation-free -
       const float cBx = k.c * Bx, cBy = k.c * By, cBz = k.c * Bz;
@@ -188,9 +204,18 @@ fused_push_deposit_kernel(
       const float uhx = uxv + k.alpha * (Ex + (vy * Bz - vz * By));
       const float uhy = uyv + k.alpha * (Ey + (vz * Bx - vx * Bz));
       const float uhz = uzv + k.alpha * (Ez + (vx * By - vy * Bx));
-      if (kWork) {
-        const float gh = sqrtf(((1.0f + uhx * uhx) + uhy * uhy) + uhz * uhz);
+      if (kWork || kFull)
+        gh = sqrtf(((1.0f + uhx * uhx) + uhy * uhy) + uhz * uhz);
+      if (kWork)
         wk = w_in + ((k.kwork * ((uhx * Ex + uhy * Ey) + uhz * Ez)) * k.dt) / gh;
+      if (kFull) {
+        // chi from F.u at the half step (fused.py:556-564)
+        const float fx = gh * Ex + k.c * (uhy * Bz - uhz * By);
+        const float fy = gh * Ey + k.c * (uhz * Bx - uhx * Bz);
+        const float fz = gh * Ez + k.c * (uhx * By - uhy * Bx);
+        const float eu = (Ex * uhx + Ey * uhy) + Ez * uhz;
+        const float f2 = ((fx * fx + fy * fy) + fz * fz) - eu * eu;
+        chi = sqrtf(f2 < 0.0f ? 0.0f : f2) / k.crit;
       }
       const float upx = uhx + k.alpha * Ex;
       const float upy = uhy + k.alpha * Ey;
@@ -227,7 +252,13 @@ fused_push_deposit_kernel(
     nz[i] = zv + vtz * k.dt;
     nux[i] = unx; nuy[i] = uny; nuz[i] = unz; ng[i] = gn;
     if (kWork) nwork[i] = wk;
+    if (kFull) {
+      nprev[i] = prevn;
+      ngh[i] = gh;
+      nchi[i] = chi;
+    }
     min_fit = min(min_fit, celln);
+    if constexpr (!kDeposit) continue;
 
     // ---- deposit: 15 unshifted taps at tile row celln - base + 2 ----
     const float qf = q * k.inv_dt;
@@ -274,11 +305,13 @@ fused_push_deposit_kernel(
   }
 
   // ---- flush the tile into the slab (rows base-2 .. base+W+1) ---------
-  for (int i = tid; i < (W + 4) * kCols; i += kThreads) {
-    const float v = tile[i];
-    const int r = base - 2 + i / kCols;
-    if (v != 0.0f && r >= 0 && r < n_rows)
-      atomicAdd(out + (int64_t)r * kCols + i % kCols, v);
+  if constexpr (kDeposit) {
+    for (int i = tid; i < (W + 4) * kCols; i += kThreads) {
+      const float v = tile[i];
+      const int r = base - 2 + i / kCols;
+      if (v != 0.0f && r >= 0 && r < n_rows)
+        atomicAdd(out + (int64_t)r * kCols + i % kCols, v);
+    }
   }
 }
 
@@ -288,15 +321,16 @@ struct Args {
   const float* gamma; const float* weight; const float* work_in;
   const float* eb; int* ncell; float* nx; float* ny; float* nz;
   float* nux; float* nuy; float* nuz; float* ng; float* nwork;
-  float* miss; int* anchors_next; float* out;
+  float* nprev; float* ngh; float* nchi; float* miss; int* anchors_next;
+  float* out;
 };
 
-template <bool kBoris, bool kWork>
+template <bool kBoris, bool kWork, bool kFull, bool kDeposit>
 int launch(const Args& a, long long nblk, int block, int window,
            int n_rows, int row_off, int pad, Consts k, cudaStream_t stream) {
-  auto kernel = fused_push_deposit_kernel<kBoris, kWork>;
-  const size_t smem = sizeof(float) * ((size_t)window * 6 +
-                                       (size_t)(window + 4) * kCols);
+  auto kernel = fused_push_deposit_kernel<kBoris, kWork, kFull, kDeposit>;
+  const size_t smem = sizeof(float) *
+      ((size_t)window * 6 + (kDeposit ? (size_t)(window + 4) * kCols : 0));
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -305,40 +339,53 @@ int launch(const Args& a, long long nblk, int block, int window,
   kernel<<<(unsigned)nblk, kThreads, smem, stream>>>(
       a.anchors, a.cell, a.x, a.y, a.z, a.ux, a.uy, a.uz, a.gamma,
       a.weight, a.work_in, a.eb, a.ncell, a.nx, a.ny, a.nz, a.nux, a.nuy,
-      a.nuz, a.ng, a.nwork, a.miss, a.anchors_next, a.out, block, window,
-      n_rows, row_off, pad, k);
+      a.nuz, a.ng, a.nwork, a.nprev, a.ngh, a.nchi, a.miss, a.anchors_next,
+      a.out, block, window, n_rows, row_off, pad, k);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // boris: 0 Vay, 1 Boris.  work_out: carry the work column (nwork must
-// then be non-null; work_in null outputs the bare increment).  Only
-// the two forms the PIC step runs are built: Vay with the work column
-// (electrons) and Boris without it (ions).
+// then be non-null; work_in null outputs the bare increment).  full:
+// write prev_x, gh and chi (nprev, ngh, nchi non-null).  deposit: add
+// into the slab `out` (non-null); without it `out` must be null.  Only
+// the forms the PIC step runs are built: Vay with the work column, lite
+// or full (electrons), and lite Boris without it (ions), each with and
+// without the deposit; any other combination returns
+// cudaErrorInvalidValue.
 extern "C" int opal_fused_push_deposit(
     const int* anchors, const int* cell, const float* x, const float* y,
     const float* z, const float* ux, const float* uy, const float* uz,
     const float* gamma, const float* weight, const float* work_in,
     const float* eb, int* ncell, float* nx, float* ny, float* nz,
-    float* nux, float* nuy, float* nuz, float* ng, float* nwork, float* miss,
-    int* anchors_next, float* out, long long n, int block, int window,
-    int n_rows, int row_off, int pad, int boris, int work_out, float charge,
+    float* nux, float* nuy, float* nuz, float* ng, float* nwork,
+    float* nprev, float* ngh, float* nchi, float* miss, int* anchors_next,
+    float* out, long long n, int block, int window, int n_rows, int row_off,
+    int pad, int boris, int work_out, int full, int deposit, float charge,
     float alpha, float c, float kwork, float dt, float talpha, float kx,
-    float inv_dt, float inv_dx, void* stream) {
+    float inv_dt, float inv_dx, float crit, void* stream) {
   if (block <= 0 || n % block != 0) return (int)cudaErrorInvalidValue;
   if (work_out != !boris || (work_out && nwork == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (full && (boris || !nprev || !ngh || !nchi))
+    return (int)cudaErrorInvalidValue;
+  if ((out != nullptr) != (deposit != 0)) return (int)cudaErrorInvalidValue;
   const long long nblk = n / block;
   if (nblk == 0) return 0;
   const Args a{anchors, cell, x, y, z, ux, uy, uz, gamma, weight, work_in,
-               eb, ncell, nx, ny, nz, nux, nuy, nuz, ng, nwork, miss,
-               anchors_next, out};
-  const Consts k{charge, alpha, c, kwork, dt, talpha, kx, inv_dt, inv_dx};
+               eb, ncell, nx, ny, nz, nux, nuy, nuz, ng, nwork, nprev, ngh,
+               nchi, miss, anchors_next, out};
+  const Consts k{charge, alpha, c, kwork, dt, talpha, kx, inv_dt, inv_dx,
+                 crit};
   cudaStream_t s = (cudaStream_t)stream;
-  if (boris)
-    return launch<true, false>(a, nblk, block, window, n_rows, row_off, pad,
-                               k, s);
-  return launch<false, true>(a, nblk, block, window, n_rows, row_off, pad, k,
-                             s);
+#define OPAL_LAUNCH(B, F, D) \
+  launch<B, !B, F, D>(a, nblk, block, window, n_rows, row_off, pad, k, s)
+  if (boris) return deposit ? OPAL_LAUNCH(true, false, true)
+                            : OPAL_LAUNCH(true, false, false);
+  if (full) return deposit ? OPAL_LAUNCH(false, true, true)
+                           : OPAL_LAUNCH(false, true, false);
+  return deposit ? OPAL_LAUNCH(false, false, true)
+                 : OPAL_LAUNCH(false, false, false);
+#undef OPAL_LAUNCH
 }

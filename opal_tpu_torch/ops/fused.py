@@ -5,11 +5,13 @@ One pass per block of ``block`` particles does what three passes
 ``ops.deposit.deposit``) do: the particle columns are read once, the
 block's field window and its deposit tile stay in fast memory.  It is
 the port of ``opal_tpu/ops/fused.py``'s Pallas kernel (``_kernel_block``
-launched by ``fused_push_deposit``) in its lite forms (deposit on, no
-chi/gamma-half/prev_x outputs): the Vay push for electrons, with the
-work column, and the Boris push for ions, without it.  The CUDA kernel
-is ``csrc/fused_push_deposit.cu``; :func:`fused_push_deposit_reference`
-is the same function in plain PyTorch ops.
+launched by ``fused_push_deposit``) in the forms the step reaches: the
+Vay push for electrons, with the work column, lite or full (the QED
+outputs chi, gamma at the half step and prev_x as well), and the lite
+Boris push for ions, without it; each with the deposit on or skipped
+(``dep_skip``, decks without current deposition).  The CUDA kernel is
+``csrc/fused_push_deposit.cu``; :func:`fused_push_deposit_reference` is
+the same function in plain PyTorch ops.
 
 Shape contract (as in the JAX kernel)
 -------------------------------------
@@ -61,8 +63,9 @@ COLS = (
 
 
 class FusedSpec(NamedTuple):
-    """Static configuration of one fused-kernel instantiation (the lite
-    forms of ``opal_tpu.ops.fused.FusedSpec``)."""
+    """Static configuration of one fused-kernel instantiation (the
+    fields of ``opal_tpu.ops.fused.FusedSpec`` that the port's forms
+    read)."""
 
     block: int          # particles per block (BS)
     window: int         # field cells visible per block (W)
@@ -80,6 +83,19 @@ class FusedSpec(NamedTuple):
     # accumulates work in a wider dtype, instead of accumulating into
     # the f32 work column passed in
     work_inc: bool = False
+    # skip the chi / gamma-half / prev_x outputs; the full form (Vay
+    # only) writes them for the QED emission pass
+    lite: bool = True
+    # skip the deposit: no slab is read, written or returned
+    dep_skip: bool = False
+
+
+def form_name(spec: FusedSpec) -> str:
+    """The kernel form a spec launches, as the launch counts name it:
+    the pusher, ``_full`` for the full outputs, ``_dep_skip`` without
+    the deposit."""
+    return (spec.pusher + ("" if spec.lite else "_full")
+            + ("_dep_skip" if spec.dep_skip else ""))
 
 
 def _scalars(spec: FusedSpec) -> dict:
@@ -97,6 +113,7 @@ def _scalars(spec: FusedSpec) -> dict:
         kx=C * spec.dt / spec.dx,
         inv_dt=1.0 / spec.dt,
         inv_dx=1.0 / spec.dx,
+        crit=const.CRITICAL_FIELD,
     )
 
 
@@ -115,6 +132,7 @@ def fused_push_deposit_reference(spec: FusedSpec, anchors, cell, x, y, z,
     association, constants rounded to f32 once), so on a card the CUDA
     kernel, built without FMA contraction, reproduces its push columns
     bit for bit; the deposit slab differs only by summation order."""
+    _check_form(spec)
     n = cell.shape[0]
     BS, W, n_rows = spec.block, spec.window, spec.n_rows
     nblk = n // BS
@@ -191,10 +209,22 @@ def fused_push_deposit_reference(spec: FusedSpec, anchors, cell, x, y, z,
         uhx = ux + alpha * (Ex + (vy * Bz - vz * By))
         uhy = uy + alpha * (Ey + (vz * Bx - vx * Bz))
         uhz = uz + alpha * (Ez + (vx * By - vy * Bx))
-        if spec.work_out:
+        if spec.work_out or not spec.lite:
             gh = torch.sqrt(1.0 + uhx * uhx + uhy * uhy + uhz * uhz)
+        if spec.work_out:
             wk = work_in + k["kwork"] * (
                 uhx * Ex + uhy * Ey + uhz * Ez) * k["dt"] / gh
+        if not spec.lite:
+            # chi from F.u at the half step; a true division by the
+            # critical field (``tensor / float`` is a product with the
+            # reciprocal on CUDA)
+            fx = gh * Ex + C * (uhy * Bz - uhz * By)
+            fy = gh * Ey + C * (uhz * Bx - uhx * Bz)
+            fz = gh * Ez + C * (uhx * By - uhy * Bx)
+            eu = Ex * uhx + Ey * uhy + Ez * uhz
+            f2 = fx * fx + fy * fy + fz * fz - eu * eu
+            chi = torch.sqrt(torch.clamp(f2, min=0.0)) / torch.full_like(
+                f2, k["crit"])
         upx = uhx + alpha * Ex
         upy = uhy + alpha * Ey
         upz = uhz + alpha * Ez
@@ -236,6 +266,11 @@ def fused_push_deposit_reference(spec: FusedSpec, anchors, cell, x, y, z,
     if spec.work_out:
         cols["winc" if spec.work_inc else "work"] = torch.where(
             upd, wk, work_in)
+    if not spec.lite:
+        # rows not updated are inert in the emission rate: rate(0) = 0
+        cols.update(prev_x=torch.where(upd, prevn, x),
+                    gh=torch.where(upd, gh, 1.0),
+                    chi=torch.where(upd, chi, 0.0))
 
     # ---- next window bases: per-block minimum of the post-push fit
     # rows, or of the alive rows' pre-push cells when none fit --------
@@ -244,6 +279,8 @@ def fused_push_deposit_reference(spec: FusedSpec, anchors, cell, x, y, z,
     amin_alive = torch.where(alive, row, sent).view(nblk, BS).amin(dim=1)
     amin = torch.where(amin_fit == sent, amin_alive, amin_fit)
     anchors_next = torch.clamp(amin - 1, 2, n_rows - W - 2).to(torch.int32)
+    if spec.dep_skip:
+        return cols, miss.to(F32), None, anchors_next
 
     # ---- charge-conserving deposit of the 16 unshifted tap columns ---
     qd = torch.where(upd, q, 0.0)
@@ -269,6 +306,19 @@ def fused_push_deposit_reference(spec: FusedSpec, anchors, cell, x, y, z,
     return cols, miss.to(F32), out, anchors_next
 
 
+def _check_form(spec: FusedSpec):
+    """Refuse a form the kernel does not build: electrons (vay) carry
+    the work column, lite or full; ions (boris) are lite without it."""
+    ok = (spec.pusher == "vay" and spec.work_out) or (
+        spec.pusher == "boris" and not spec.work_out and spec.lite)
+    if not ok:
+        raise ValueError(
+            f"no kernel for pusher {spec.pusher!r} with work_out="
+            f"{spec.work_out}, lite={spec.lite}: electrons (vay) carry the "
+            "work column, ions (boris) are lite and do not"
+        )
+
+
 def _check_args(spec: FusedSpec, anchors, cols: dict, work, eb_rows):
     dev = eb_rows.device
     n = cols["cell"].shape[0]
@@ -276,12 +326,7 @@ def _check_args(spec: FusedSpec, anchors, cols: dict, work, eb_rows):
         raise ValueError(f"capacity {n} is not a multiple of block {spec.block}")
     if spec.window + 4 > spec.n_rows:
         raise ValueError("window + 4 must not exceed the field table rows")
-    if (spec.pusher, spec.work_out) not in (("vay", True), ("boris", False)):
-        raise ValueError(
-            f"no kernel for pusher {spec.pusher!r} with work_out="
-            f"{spec.work_out}: electrons (vay) carry the work column, ions "
-            "(boris) do not"
-        )
+    _check_form(spec)
     want = dict(cols, anchors=anchors, eb_rows=eb_rows)
     if spec.work_out and not spec.work_inc:
         want["work"] = work
@@ -316,10 +361,11 @@ def fused_push_deposit(spec: FusedSpec, anchors, cell, x, y, z, ux, uy, uz,
     ``None`` with ``spec.work_inc`` or without ``spec.work_out``.
 
     Returns ``(cols, miss, out_slab, anchors_next)``: ``cols`` the
-    updated columns (cell x y z ux uy uz gamma, and with ``work_out``
-    ``work`` or ``winc``), ``miss`` an f32 0/1 mask of alive rows outside their
-    window, ``out_slab`` the (n_rows, 16) unshifted deposit
-    accumulator, and ``anchors_next`` the window bases for the next
+    updated columns (cell x y z ux uy uz gamma, with ``work_out``
+    ``work`` or ``winc``, and unless ``lite`` prev_x gh chi), ``miss`` an
+    f32 0/1 mask of alive rows outside their window, ``out_slab`` the
+    (n_rows, 16) unshifted deposit accumulator (``None`` with
+    ``dep_skip``), and ``anchors_next`` the window bases for the next
     step.
     """
     args = (spec, anchors, cell, x, y, z, ux, uy, uz, gamma, weight_,
@@ -340,9 +386,13 @@ def fused_push_deposit(spec: FusedSpec, anchors, cell, x, y, z, ux, uy, uz,
     wname = "winc" if spec.work_inc else "work"
     if spec.work_out:
         out_cols[wname] = torch.empty_like(x)
+    if not spec.lite:
+        out_cols.update(prev_x=torch.empty_like(x), gh=torch.empty_like(x),
+                        chi=torch.empty_like(x))
     miss = torch.empty_like(x)
     anchors_next = torch.empty_like(anchors)
-    out = torch.zeros((spec.n_rows, 16), dtype=F32, device=x.device)
+    out = (None if spec.dep_skip else
+           torch.zeros((spec.n_rows, 16), dtype=F32, device=x.device))
     ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
     k = _scalars(spec)
     with torch.cuda.device(x.device):
@@ -352,24 +402,30 @@ def fused_push_deposit(spec: FusedSpec, anchors, cell, x, y, z, ux, uy, uz,
             ptr(uy), ptr(uz), ptr(gamma), ptr(weight_),
             ptr(work), ptr(eb_rows),
             *(ptr(out_cols.get(c)) for c in
-              ("cell", "x", "y", "z", "ux", "uy", "uz", "gamma", wname)),
+              ("cell", "x", "y", "z", "ux", "uy", "uz", "gamma", wname,
+               "prev_x", "gh", "chi")),
             ptr(miss), ptr(anchors_next), ptr(out),
             n, spec.block, spec.window, spec.n_rows, spec.row_off, PAD,
             int(spec.pusher == "boris"), int(spec.work_out),
+            int(not spec.lite), int(not spec.dep_skip),
             *(k[c] for c in ("charge", "alpha", "c", "kwork", "dt",
-                             "talpha", "kx", "inv_dt", "inv_dx")),
+                             "talpha", "kx", "inv_dt", "inv_dx", "crit")),
             ctypes.c_void_p(stream),
         )
     if rc != 0:
         raise RuntimeError(f"fused_push_deposit kernel failed: cudaError {rc}")
-    fused_push_deposit.launches[spec.pusher] += 1
+    fused_push_deposit.launches[form_name(spec)] += 1
     return out_cols, miss, out, anchors_next
 
 
-#: kernel launches of each form (by pusher) since the counts were last
-#: reset (chip_smoke.py reads them to show the main path ran through the
+#: the kernel forms the step can reach, by :func:`form_name`
+FORMS = ("vay", "vay_dep_skip", "vay_full", "vay_full_dep_skip", "boris",
+         "boris_dep_skip")
+
+#: kernel launches of each form since the counts were last reset
+#: (chip_smoke.py reads them to show the main path ran through the
 #: kernel)
-fused_push_deposit.launches = {"vay": 0, "boris": 0}
+fused_push_deposit.launches = dict.fromkeys(FORMS, 0)
 
 
 def make_eb_rows(E_slab, B_slab):

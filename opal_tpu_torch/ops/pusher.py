@@ -1,10 +1,10 @@
 """Relativistic particle pushes, vectorized over SoA particle columns.
 
 The Vay leapfrog push of ``src/particle/electron.rs:268-330`` (as in
-``opal_tpu/ops/pusher.py``), including the quantum parameter and the
-work integral, and the Boris push of ``ion.rs:168-214`` for ions.  The
-optical-depth decrement against the photon emission rate needs the QED
-rate tables, which are not ported: callers
+``opal_tpu/ops/pusher.py``), including the quantum parameter, the work
+integral and the optical-depth decrement against the photon emission
+rate; the Boris push of ``ion.rs:168-214`` for ions; and the ballistic
+photon push of ``photon.rs:150-183``.  Callers that run no emission
 pass ``tau=None`` and the decrement is skipped, which is what the
 reference's non-emission runs amount to (tau is never consumed there).
 
@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from .. import constants as const
+from ..qed import emission
 
 
 def _dot(a, b):
@@ -38,9 +39,12 @@ def _cross(a, b):
 
 def _cell_fixup(cell, x, prev_x):
     """Shift the cell index when the fractional offset leaves [0, 1)
-    (``electron.rs:319-329``): by the sign of floor(x), not floor(x)."""
+    (``electron.rs:319-329``): by the sign of floor(x), not floor(x).
+    A NaN offset (a dead photon row of zero momentum in f32) leaves the
+    cell where it is."""
     fl = torch.floor(x)
-    shift = torch.sign(fl).to(cell.dtype)
+    shift = torch.where(fl < 0.0, -1, torch.where(fl > 0.0, 1, 0)).to(
+        cell.dtype)
     return cell + shift, x - fl, prev_x - fl
 
 
@@ -57,19 +61,26 @@ class PushResult(NamedTuple):
     work: torch.Tensor
 
 
-def vay_push(cell, x, y, z, u, gamma, tau, work, E, B, dx, dt):
+def vay_push(cell, x, y, z, u, gamma, tau, work, E, B, dx, dt, *,
+             classical_rates=False, compute_dtype=None):
     """Vay et al. leapfrog push for electrons (electron.rs:268-330).
 
     ``u`` is p/(mc) with shape (N, 3); ``E``, ``B`` the fields at the
-    particle, (N, 3).  Updates momentum, gamma, chi and the work
-    integral.  ``tau`` must be ``None``: the optical-depth decrement
-    against the emission rate is not ported (see the module note).
+    particle, (N, 3).  Updates momentum, gamma, chi, the work integral
+    and, unless ``tau`` is ``None``, the optical depth against the
+    quantum (or, with ``classical_rates``, classical) emission rate.
+
+    ``compute_dtype``: run the push arithmetic in this dtype and round
+    only the stored state back to its own (``tau`` and ``work`` keep
+    theirs), as opal_tpu does for mixed-precision QED decks: the f32
+    chain's field-phase-correlated rounding bias is what kept their
+    radiated-energy ledger above 1e-5 (``opal_tpu/ops/pusher.py:59-157``).
     """
-    if tau is not None:
-        raise NotImplementedError(
-            "the optical-depth decrement (QED emission rate) is not ported; "
-            "pass tau=None"
-        )
+    out_dtype = x.dtype
+    wide = compute_dtype is not None and compute_dtype != out_dtype
+    if wide:
+        x, y, z, u, gamma, E, B = (
+            a.to(compute_dtype) for a in (x, y, z, u, gamma, E, B))
     c = const.SPEED_OF_LIGHT
     v = c * u / gamma[:, None]
 
@@ -86,6 +97,9 @@ def vay_push(cell, x, y, z, u, gamma, tau, work, E, B, dx, dt):
         torch.sqrt(torch.clamp(_dot(F, F) - eu * eu, min=0.0))
         / const.CRITICAL_FIELD
     )
+    if tau is not None:
+        rate = emission.classical_rate if classical_rates else emission.rate
+        tau = (tau - rate(chi, gamma_half) * dt).to(tau.dtype)
 
     # u' = u_i + (q dt / 2 m c) E
     u_prime = u_half + alpha * E
@@ -114,8 +128,12 @@ def vay_push(cell, x, y, z, u, gamma, tau, work, E, B, dx, dt):
     z_new = z + v[:, 2] * dt
 
     cell, x_new, prev_x = _cell_fixup(cell, x_new, prev_x)
+    if wide:
+        x_new, prev_x, y_new, z_new, u_new, gamma_new, chi = (
+            a.to(out_dtype)
+            for a in (x_new, prev_x, y_new, z_new, u_new, gamma_new, chi))
     return PushResult(cell, x_new, prev_x, y_new, z_new, u_new, gamma_new,
-                      chi, None, work)
+                      chi, tau, work)
 
 
 def boris_push(cell, x, y, z, u, charge, mass, E, B, dx, dt):
@@ -168,3 +186,38 @@ def electron_chi(ux, uy, uz, gamma, E, B):
         torch.sqrt(torch.clamp(fx * fx + fy * fy + fz * fz - eu * eu, min=0.0))
         / const.CRITICAL_FIELD
     )
+
+
+def photon_chi(k, E, B):
+    """Instantaneous photon quantum parameter from the local fields
+    (``photon.rs:165-176``); ``k`` in units of m_e c."""
+    c = const.SPEED_OF_LIGHT
+    k0 = torch.sqrt(torch.clamp(_dot(k, k), min=1.0e-300))
+    F = k0[:, None] * E + c * _cross(k, B)
+    ek = _dot(E, k)
+    return (
+        torch.sqrt(torch.clamp(_dot(F, F) - ek * ek, min=0.0))
+        / const.CRITICAL_FIELD
+    )
+
+
+def photon_push(cell, x, y, z, k, E, B, dx, dt):
+    """Ballistic photon push with the chi update (``photon.rs:150-183``).
+
+    ``k`` is the photon momentum in units of m_e c.  Returns the updated
+    (cell, x, prev_x, y, z, chi).  With ``E = B = None`` chi is not
+    updated and comes back ``None``: without an absorption pass nothing
+    reads it while stepping, and it is refreshed at output time
+    (``Simulation.refresh_photon_chi``)."""
+    c = const.SPEED_OF_LIGHT
+    k0 = torch.sqrt(torch.clamp(_dot(k, k), min=1.0e-300))
+    v = c * k / k0[:, None]
+    chi = None if E is None else photon_chi(k, E, B)
+
+    prev_x = x
+    x_new = x + v[:, 0] * dt / dx
+    y_new = y + v[:, 1] * dt
+    z_new = z + v[:, 2] * dt
+
+    cell, x_new, prev_x = _cell_fixup(cell, x_new, prev_x)
+    return cell, x_new, prev_x, y_new, z_new, chi

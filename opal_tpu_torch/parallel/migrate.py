@@ -2,8 +2,9 @@
 
 Ports of ``opal_tpu/parallel/migrate.py``'s ``sort_state``
 (``:494-569``) and ``migrate_edges`` (``:679-903``) for cell-sorted
-species, and of ``opal_tpu/sim.py``'s ``_wrap_kill`` for the others, at
-one device.  The JAX versions move the state as one packed float
+species, of ``opal_tpu/sim.py``'s ``_wrap_kill`` for the others, at
+one device, and of ``insert`` (``:572-``), which places emitted photons
+into dead slots.  The JAX versions move the state as one packed float
 matrix; here every
 column moves at its own dtype (cells stay integers, and the
 field-dtype ``work`` column of mixed-precision runs is never rounded
@@ -240,3 +241,53 @@ def wrap_kill(state: ParticleState, geom: GridGeometry):
     cols = {k: torch.where(out, 0, getattr(state, k)).to(getattr(state, k).dtype)
             for k in ("weight", "ux", "uy", "uz", "cell")}
     return dataclasses.replace(state, alive=state.alive & ~out, **cols), zero
+
+
+def insert(state: ParticleState, buf: ParticleState, valid, width=None,
+           hi=None):
+    """Scatter the ``valid`` rows of ``buf`` into dead slots of
+    ``state`` (``opal_tpu/parallel/migrate.py:572-``).
+
+    The slots are those opal_tpu hands out for an insert of ``width``
+    rows (default ``len(valid)``): while the buffer has a contiguous dead
+    tail of at least ``width`` rows past its high-water mark ``hi`` (one
+    past the last alive row; read from the device when not given), the
+    consecutive rows ``hi, hi+1, ...``; otherwise the first dead slots
+    in ascending order.  Valid rows take them in order.  Returns
+    ``(state, overflow)`` with ``overflow`` the valid rows that found no
+    free slot (0-d int64)."""
+    n = state.alive.shape[0]
+    m = len(valid) if width is None else int(width)
+    k = valid.shape[0]
+    dev = valid.device
+    if k == 0:
+        return state, torch.zeros((), dtype=torch.int64, device=dev)
+    if m < n:
+        if hi is None:
+            rows = torch.arange(n, device=dev)
+            hi = int(torch.max(torch.where(state.alive, rows, -1))) + 1
+        if hi + m <= n:
+            slots = hi + torch.arange(k, device=dev)
+        else:
+            slots = _dead_slots(state.alive, k)
+    else:
+        slots = _dead_slots(state.alive, k)
+    rank = torch.cumsum(valid.long(), dim=0) - 1
+    in_cap = valid & (rank < m)
+    dest = torch.where(in_cap, slots[torch.clamp(rank, 0, k - 1)], n)
+    ok = in_cap & (dest < n)
+    dest = torch.where(ok, dest, n)
+    overflow = valid.sum() - ok.sum()
+    cols = {}
+    for name, a in state.columns().items():
+        b = ok if name == "alive" else getattr(buf, name)
+        cols[name] = _put(a, dest, b.to(a.dtype))
+    return dataclasses.replace(state, **cols), overflow
+
+
+def _dead_slots(alive, k):
+    """The first ``k`` dead rows, ascending; ``len(alive)`` past the
+    dead count (``ops.fused.misfit_compact`` of the dead mask)."""
+    cum = torch.cumsum((~alive).long(), dim=0)
+    q = torch.arange(1, k + 1, device=alive.device)
+    return torch.searchsorted(cum, q)

@@ -1,5 +1,5 @@
-"""The particle-in-cell simulation core: the non-QED step of electrons
-and ions.
+"""The particle-in-cell simulation core: the step of electrons, ions
+and photons, with QED photon emission.
 
 One step, in the reference's hot-loop order (``src/main.rs:238-267``)
 and ``opal_tpu/sim.py``'s (``:1020-1247``), on one device:
@@ -7,19 +7,23 @@ and ``opal_tpu/sim.py``'s (``:1020-1247``), on one device:
 1. refresh the halo fields (a local wrap on the periodic grid, zeros at
    non-periodic edges);
 2. push each species: the fused CUDA kernel (gather + Vay push for
-   electrons or Boris push for ions + deposit) plus the compacted
+   electrons or Boris push for ions [+ deposit]) plus the compacted
    unfused fallback for rows outside their block window, or the unfused
-   ops for species the kernel cannot take;
+   ops for species the kernel cannot take (photons fly ballistically);
+   with emission on, the electrons' optical depths fall by the emission
+   rate at the half-step chi and gamma;
 3. migrate leavers when the exchange runs every step (on a non-periodic
    grid, rows that leave the interior are deleted);
-4. deposit the unfused species and fold the halo currents;
-5. load the boundaries (laser injection, absorbing ramp, conducting
+4. photon emission (``interactions.emit_radiation``);
+5. deposit the unfused species and fold the halo currents;
+6. load the boundaries (laser injection, absorbing ramp, conducting
    mirror) and the Yee field advance.
 
 ``run`` is an eager Python loop over the same static phase schedule as
 ``opal_tpu``: a maintenance sort opens every R-step period and a
 migration phase closes every M-step block.  Loss counters are device
-int64 tensors.
+int64 tensors.  Emission takes its random numbers from the ``rng`` that
+``run`` is given.
 """
 
 from __future__ import annotations
@@ -30,13 +34,17 @@ from typing import NamedTuple
 import torch
 
 from . import constants as const
+from .interactions import emit_radiation
 from .fields import sm_mask, zero_fields
 from .grid import HALO, GridGeometry, apply_boundaries, em_field_energy_local
 from .ops import fused as F
 from .ops import maxwell
 from .ops.deposit import deposit
 from .ops.interp import fields_at
-from .ops.pusher import boris_push, electron_chi, vay_push
+from .ops.pusher import (
+    boris_push, electron_chi, photon_chi, photon_push, vay_push,
+)
+from .qed import emission
 from .parallel import halo
 from .parallel.migrate import migrate_edges, sort_state, wrap_kill
 from .species import ParticleState, SpeciesSpec, kinetic_energy_weights
@@ -45,10 +53,30 @@ from .species import ParticleState, SpeciesSpec, kinetic_energy_weights
 @dataclasses.dataclass(frozen=True)
 class SimOptions:
     """Static switches of the step (the fields of
-    ``opal_tpu.sim.SimOptions`` that the non-QED path reads)."""
+    ``opal_tpu.sim.SimOptions`` that the ported paths read)."""
 
     dt: float
     current_deposition: bool = True
+    # QED photon emission (the reference's cargo features become the
+    # switches below, off = the feature flag set)
+    photon_emission: bool = False
+    radiation_reaction: bool = True  # no_radiation_reaction inverted
+    beaming: bool = True  # no_beaming inverted
+    immobile_photons: bool = False
+    # emission filters (main.rs:81-83): MeV, rad about -x, m
+    photon_energy_min: float | None = None
+    photon_angle_max: float | None = None
+    max_formation_length: float | None = None
+    # emitters sampled per step (0: every electron row); the rest emit
+    # on a later step, counted as deferred
+    emission_active_capacity: int = 0
+    # photons inserted per step (-1: max(16384, active / 8); 0:
+    # unbounded); the emitters beyond are deferred without recoil
+    emission_insert_capacity: int = -1
+    # mixed-precision QED decks: the unfused electron push computes in
+    # the field dtype (f64) and rounds only the stored state
+    push_f64_compute: bool = False
+    seed: int = 0
     # leavers sent per side per exchange; more are counted as losses
     migration_capacity: int = 4096
     # upper bound on any particle's per-step cell drift, in cells (the
@@ -111,10 +139,10 @@ class Simulation:
         if geom.n_devices != 1:
             raise NotImplementedError("only single-device grids are ported")
         for name, spec in species.items():
-            if spec.kind not in ("electron", "ion"):
-                raise NotImplementedError(
-                    f"species {name!r} of kind {spec.kind!r} is not ported"
-                )
+            if spec.kind not in ("electron", "ion", "photon"):
+                raise ValueError(f"species {name!r} of unknown kind {spec.kind!r}")
+        if options.photon_emission and not {"electron", "photon"} <= set(species):
+            raise ValueError("photon emission needs electron and photon species")
         self.geom = geom
         self.options = options
         self.specs = dict(species)
@@ -136,6 +164,7 @@ class Simulation:
         opt = self.options
         return (
             opt.fused_pusher
+            and self.specs[name].kind in ("electron", "ion")
             and st.x.dtype == torch.float32
             and st.x.shape[0] % opt.fused_block == 0
             # window read/write (base-2 .. base+W+2) must fit the table
@@ -156,26 +185,38 @@ class Simulation:
             # mixed precision: the work column is field-dtype and the
             # kernel outputs bare increments accumulated here in f64
             work_inc=electron and self.field_dtype != self.dtype,
+            # chi and gamma at the half step feed the emission rate, so
+            # QED electrons take the full form (opal_tpu/sim.py:502-539)
+            lite=not (electron and opt.photon_emission),
+            dep_skip=not opt.current_deposition,
         )
 
     def _velocity(self, st: ParticleState):
         return const.SPEED_OF_LIGHT * st.u / st.gamma[:, None]
 
     def _push_rows(self, name, cell, x, y, z, u, gamma, work, E_slab,
-                   B_slab):
+                   B_slab, tau=None, f64_compute=False):
         """The unfused push of some rows: field gather, then the Vay
-        push for electrons or the Boris push for ions.  Returns the
-        updated columns by name (with ``prev_x``; electrons also ``chi``
-        and ``work``)."""
+        push for electrons (with the optical-depth decrement when a
+        ``tau`` is given, in the field dtype with ``f64_compute``) or
+        the Boris push for ions.  Returns the updated columns by name
+        (with ``prev_x``; electrons also ``chi``, ``work`` and, with a
+        ``tau``, ``tau``)."""
         geom, opt = self.geom, self.options
         spec = self.specs[name]
         Ep, Bp = fields_at(E_slab, B_slab, cell + HALO, x)
-        Ep, Bp = Ep.to(x.dtype), Bp.to(x.dtype)
+        if not f64_compute:
+            Ep, Bp = Ep.to(x.dtype), Bp.to(x.dtype)
         if spec.kind == "electron":
-            res = vay_push(cell, x, y, z, u, gamma, None, work, Ep, Bp,
-                           geom.dx, opt.dt)
+            res = vay_push(
+                cell, x, y, z, u, gamma, tau, work, Ep, Bp, geom.dx, opt.dt,
+                classical_rates=not opt.radiation_reaction,
+                compute_dtype=self.field_dtype if f64_compute else None,
+            )
             cell, x, prev_x, y, z, u, gamma = res[:7]
             extra = dict(chi=res.chi, work=res.work)
+            if tau is not None:
+                extra["tau"] = res.tau
         else:
             cell, x, prev_x, y, z, u, gamma_m1 = boris_push(
                 cell, x, y, z, u, torch.full_like(x, spec.charge),
@@ -187,10 +228,29 @@ class Simulation:
                     uy=u[:, 1], uz=u[:, 2], gamma=gamma, **extra)
 
     def _push_species(self, name, st: ParticleState, E_slab, B_slab):
-        """The unfused push of a whole species."""
+        """The unfused push of a whole species
+        (``opal_tpu/sim.py:376-442``).  Photons fly ballistically and
+        keep a stale chi, refreshed at output time (nothing reads it
+        while stepping without an absorption pass)."""
+        opt = self.options
+        spec = self.specs[name]
+        if spec.kind == "photon":
+            if opt.immobile_photons:
+                return st
+            cell, x, prev_x, y, z, _ = photon_push(
+                st.cell, st.x, st.y, st.z, st.u, None, None,
+                self.geom.dx, opt.dt,
+            )
+            return dataclasses.replace(st, cell=cell, x=x, prev_x=prev_x,
+                                       y=y, z=z)
+        electron = spec.kind == "electron"
         return dataclasses.replace(st, **self._push_rows(
             name, st.cell, st.x, st.y, st.z, st.u, st.gamma, st.work,
             E_slab, B_slab,
+            tau=st.tau if electron and opt.photon_emission else None,
+            # mixed-precision QED decks: f64 arithmetic, f32 storage
+            f64_compute=(opt.push_f64_compute and electron
+                         and st.x.dtype != self.field_dtype),
         ))
 
     def _fused_push_deposit(self, name, st: ParticleState, E_slab, B_slab,
@@ -202,7 +262,14 @@ class Simulation:
         post-migration deposit: a one-cell leaver deposits into halo
         rows, which the fold adds to the neighbour.
 
-        Returns (state, J_add, rho_add, losses, anchors_next)."""
+        With emission on, the optical depth falls outside the kernel by
+        the rate at the kernel's chi and half-step gamma
+        (``opal_tpu/sim.py:574-593``); rows the kernel did not update
+        carry chi 0 there, so rate 0, and the fallback decrements its
+        own.
+
+        Returns (state, J_add, rho_add, losses, anchors_next); J_add and
+        rho_add are ``None`` without current deposition."""
         opt, geom = self.options, self.geom
         spec = self.specs[name]
         fspec = self._fused_spec(name)
@@ -216,6 +283,18 @@ class Simulation:
                ("cell", "x", "y", "z", "ux", "uy", "uz", "gamma")}
         # the lite kernel leaves prev_x and chi unchanged: nothing reads
         # prev_x between steps and chi is refreshed at output time
+        if not fspec.lite:
+            upd.update(prev_x=cols["prev_x"], chi=cols["chi"])
+        emit_on = (spec.kind == "electron" and opt.photon_emission
+                   and st.tau is not None)
+        if emit_on:
+            rate = (emission.rate if opt.radiation_reaction
+                    else emission.classical_rate)
+            # a profiler range: the CLI's --profile table reads the time
+            # of the decrement's ~90 elementwise launches under it
+            with torch.profiler.record_function("tau_decrement"):
+                upd["tau"] = (st.tau - rate(cols["chi"], cols["gh"])
+                              * opt.dt).to(st.tau.dtype)
         if fspec.work_inc:
             upd["work"] = st.work + cols["winc"].to(st.work.dtype)
         elif fspec.work_out:
@@ -234,7 +313,7 @@ class Simulation:
                 name, m_cell, st.x[idx], st.y[idx], st.z[idx],
                 torch.stack([st.ux[idx], st.uy[idx], st.uz[idx]], dim=1),
                 st.gamma[idx], None if st.work is None else st.work[idx],
-                E_slab, B_slab,
+                E_slab, B_slab, tau=st.tau[idx] if emit_on else None,
             )
             for k, v in upd.items():
                 v[idx] = fb[k].to(v.dtype)
@@ -250,7 +329,9 @@ class Simulation:
                     (m_cell < -(HALO - 2)) | (m_cell > geom.n_loc + HALO - 3)
                 )
                 losses = losses + viol.sum()
-        J_add, rho_add = F.fold_out_slab(out_slab)
+        J_add = rho_add = None
+        if out_slab is not None:
+            J_add, rho_add = F.fold_out_slab(out_slab)
         return (
             dataclasses.replace(st, **upd), J_add, rho_add, losses,
             anchors_next,
@@ -309,7 +390,11 @@ class Simulation:
             counters[name] = counters[name] + ovf
         return c._replace(species=species, counters=counters)
 
-    def _device_step(self, c: Carry, inline_sort, inline_migrate) -> Carry:
+    def _device_step(self, c: Carry, inline_sort, inline_migrate,
+                     rng=None) -> Carry:
+        """One step; ``rng`` gives the emission pass its draws (a
+        ``torch.Generator``, or a dict of opal_tpu's arrays for this
+        step, see ``interactions.emit_radiation``)."""
         geom, opt = self.geom, self.options
         E = c.E
         species, counters, anchors = (
@@ -329,7 +414,8 @@ class Simulation:
                 st, J_add, rho_add, losses, anchors[name] = (
                     self._fused_push_deposit(name, st, E_slab, B_slab, anch)
                 )
-                fused_dep[name] = (J_add, rho_add)
+                if J_add is not None:
+                    fused_dep[name] = (J_add, rho_add)
                 counters[name] = counters[name] + losses
             else:
                 st = self._push_species(name, st, E_slab, B_slab)
@@ -337,6 +423,13 @@ class Simulation:
                 st, ovf = self._migrate(name, st)
                 counters[name] = counters[name] + ovf
             species[name] = st
+
+        if opt.photon_emission:
+            with torch.profiler.record_function("emit_radiation"):
+                species, lost, deferred = emit_radiation(
+                    self, species, c.t, rng)
+            counters["photon"] = counters["photon"] + lost
+            counters["qed_deferred"] = counters["qed_deferred"] + deferred
 
         n_slab = geom.n_loc + 2 * HALO
         J_slab = torch.zeros((n_slab, 3), dtype=E.dtype, device=E.device)
@@ -372,11 +465,27 @@ class Simulation:
         return Carry(E_slab[HALO:-HALO], B_slab[HALO:-HALO], J, rho,
                      species, c.t + opt.dt, counters, anchors)
 
-    def run(self, E, B, J, rho, species, t0, counters, nsteps: int):
+    def run(self, E, B, J, rho, species, t0, counters, nsteps: int,
+            rng=None):
         """Advance ``nsteps`` steps over the static phase schedule;
         returns (E, B, J, rho, species, t, counters) with J/rho from the
-        final step (for output parity)."""
+        final step (for output parity).
+
+        With photon emission on, ``rng`` is required: a
+        ``torch.Generator`` on the simulation's device, or a callable
+        that returns step ``i``'s draws (``i`` counted from 0 in this
+        call) as a dict of arrays, which replays another generator's
+        stream (``interactions.emit_radiation``)."""
         opt = self.options
+        if opt.photon_emission and rng is None:
+            raise ValueError("photon emission needs an rng")
+        replay = callable(rng) and not isinstance(rng, torch.Generator)
+        steps = iter(range(nsteps))
+
+        def draws():
+            i = next(steps)
+            return rng(i) if replay else rng
+
         M, R = self._cadences(species)
         any_fused = any(
             self._fused_applicable(n, species[n]) for n in self.specs
@@ -399,7 +508,8 @@ class Simulation:
             # k steps as M-step blocks, each closed by the exchange
             for lo in range(0, k, Mb):
                 for _ in range(min(Mb, k - lo)):
-                    c = self._device_step(c, inline_sort, inline_migrate)
+                    c = self._device_step(c, inline_sort, inline_migrate,
+                                          draws())
                 if not inline_migrate:
                     c = self._migrate_phase(c)
             return c
@@ -420,10 +530,15 @@ class Simulation:
         return zero_fields(self.geom, self.field_dtype, self.device)
 
     def zero_counters(self):
-        """Per-species loss counters: device int64 scalars."""
+        """Per-species loss counters, and with emission the QED backlog
+        ``qed_deferred`` (work delayed to a later step, not lost): device
+        int64 scalars."""
+        names = list(self.specs)
+        if self.options.photon_emission:
+            names.append("qed_deferred")
         return {
             name: torch.zeros((), dtype=torch.int64, device=self.device)
-            for name in self.specs
+            for name in names
         }
 
     def em_field_energy(self, E, B) -> float:
@@ -437,9 +552,9 @@ class Simulation:
 
     @property
     def electron_chi_is_lazy(self) -> bool:
-        """True when the step leaves electron chi stale: the fused
-        kernel skips the per-step chi diagnostic."""
-        return self.options.fused_pusher
+        """True when the step leaves electron chi stale: the lite fused
+        kernel (non-QED decks) skips the per-step chi diagnostic."""
+        return self.options.fused_pusher and not self.options.photon_emission
 
     def refresh_electron_chi(self, E, B, st: ParticleState) -> ParticleState:
         """Recompute electron chi from the current momenta and fields
@@ -451,4 +566,13 @@ class Simulation:
             st.ux, st.uy, st.uz, st.gamma,
             Ep.to(st.x.dtype), Bp.to(st.x.dtype),
         )
+        return dataclasses.replace(st, chi=chi)
+
+    def refresh_photon_chi(self, E, B, st: ParticleState) -> ParticleState:
+        """Recompute photon chi from the current positions and fields
+        (``photon.rs:165-176``): the step skips the per-step photon field
+        gather, since nothing reads chi without an absorption pass."""
+        E_slab, B_slab = halo.exchange_fields(E, B, self.geom)
+        Ep, Bp = fields_at(E_slab, B_slab, st.cell + HALO, st.x)
+        chi = photon_chi(st.u, Ep.to(st.x.dtype), Bp.to(st.x.dtype))
         return dataclasses.replace(st, chi=chi)

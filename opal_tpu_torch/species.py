@@ -3,9 +3,10 @@
 As in ``opal_tpu/species.py``, a species is a set of per-field columns
 with a fixed capacity and an ``alive`` mask (the reference's
 ``Population<T>``, ``src/particle/mod.rs:141-376``), here as a
-dataclass of torch tensors.  Momentum ``u`` is p/(mc); ``gamma`` the
-Lorentz factor.  Electrons and ions are ported; the photon columns
-keep their names, for parity with ``opal_tpu``, and stay ``None``.
+dataclass of torch tensors.  Momentum ``u`` is p/(mc) for massive
+species and the momentum in units of m_e c for photons; ``gamma`` the
+Lorentz factor, or |k| for photons.  Emission appends photons by
+claiming dead slots (``parallel.migrate.insert``).
 """
 
 from __future__ import annotations
@@ -88,6 +89,10 @@ class SpeciesSpec:
             mass_number * const.PROTON_MASS, tuple(output),
         )
 
+    @staticmethod
+    def photon(output=()) -> "SpeciesSpec":
+        return SpeciesSpec("photon", "photon", 0.0, 0.0, tuple(output))
+
 
 def dead_default(fname: str, is_photon: bool) -> float:
     """Dead-slot fill value for one column: tau columns are +inf so dead
@@ -120,6 +125,14 @@ def _empty_fields(spec: SpeciesSpec, n: int, dtype, work_dtype=None):
         # the work integral accumulates every step for the whole run:
         # under mixed precision it lives in the field dtype (f64)
         fields["work"] = np.zeros(n, work_dtype or dtype)
+    if spec.kind == "photon":
+        fields.update(
+            tau_abs=np.full(n, np.inf, dtype),
+            tau_st=np.full(n, np.inf, dtype),
+            birth_time=np.full(n, -np.inf, dtype),
+            pol=np.zeros((n, 4), dtype),
+            basis=np.zeros((n, 6), dtype),
+        )
     return fields
 
 
@@ -145,12 +158,12 @@ def initialize(
     Per interior cell: ``nreal = density(x_centre) * dx`` real particles
     shared equally by ``npc`` macroparticles; positions uniform in the
     cell; momenta from ``u*(x, urand, nrand)``; electron optical depths
-    ~ Exp(1) (ions draw none and carry no tau or work column).
+    ~ Exp(1) (ions draw none and carry no tau or work column); photons
+    their absorption and stimulated-emission depths, unpolarized with
+    the placeholder basis [k, k].
     The arrays have shape (n_devices * capacity_per_device,) with each
     device's particles in its own contiguous block.
     """
-    if spec.kind not in ("electron", "ion"):
-        raise NotImplementedError(f"{spec.kind} species are not ported")
     rng = np.random.default_rng(seed)
     fields = _empty_fields(
         spec, geom.n_devices * capacity_per_device, dtype, work_dtype
@@ -205,8 +218,15 @@ def initialize(
             start += cnt
         slots = dev * capacity_per_device + slot_in_dev
 
-        gamma = np.sqrt(1.0 + np.sum(u * u, axis=-1))
-        prev_x = xi - const.SPEED_OF_LIGHT * (u[:, 0] / gamma) * dt / geom.dx
+        u2 = np.sum(u * u, axis=-1)
+        if spec.kind == "photon":
+            gamma = np.sqrt(u2)  # |k|
+            vx_over_c = np.where(gamma > 0,
+                                 u[:, 0] / np.maximum(gamma, 1e-300), 0.0)
+        else:
+            gamma = np.sqrt(1.0 + u2)
+            vx_over_c = u[:, 0] / gamma
+        prev_x = xi - const.SPEED_OF_LIGHT * vx_over_c * dt / geom.dx
 
         fields["cell"][slots] = local_cell.astype(np.int32)
         fields["x"][slots] = xi
@@ -219,6 +239,15 @@ def initialize(
         fields["alive"][slots] = True
         if spec.kind == "electron":
             fields["tau"][slots] = rng.exponential(size=n)
+        if spec.kind == "photon":
+            # the reference's draw order (photon.rs:126-133)
+            rng.exponential(size=n)  # tau[0], unused
+            rng.exponential(size=n)  # tau[1], unused
+            fields["tau_abs"][slots] = rng.exponential(size=n)
+            fields["tau_st"][slots] = rng.exponential(size=n)
+            fields["birth_time"][slots] = 0.0
+            fields["basis"][slots, 0:3] = u
+            fields["basis"][slots, 3:6] = u
 
     return ParticleState(**{
         k: None if v is None else torch.from_numpy(v).to(device)
@@ -230,10 +259,13 @@ def kinetic_energy_weights(spec: SpeciesSpec, state: ParticleState):
     """Per-particle kinetic energy in joules (macroparticle), with
     gamma - 1 in a cancellation-free form: u^2 / (gamma + 1) for
     electrons (``electron.rs:122-126``), u^2 / (1 + sqrt(1 + u^2)) times
-    the mass ratio for ions (``ion.rs:128-134``)."""
+    the mass ratio for ions (``ion.rs:128-134``); |k| for photons
+    (``photon.rs:224-226``)."""
     to_joules = 1.0e6 * const.ELECTRON_MASS_MEV * const.ELEMENTARY_CHARGE
     u2 = state.ux * state.ux + state.uy * state.uy + state.uz * state.uz
-    if spec.kind == "ion":
+    if spec.kind == "photon":
+        ke = state.weight * state.gamma * to_joules
+    elif spec.kind == "ion":
         gamma_m1 = u2 / (1.0 + torch.sqrt(1.0 + u2))
         ke = state.weight * gamma_m1 * (spec.mass / const.ELECTRON_MASS) \
             * to_joules

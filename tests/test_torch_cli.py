@@ -91,19 +91,23 @@ def test_two_stream_outputs_match(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("deck,args,what", [
-    ("colliding_beams.yaml", [], "QED"),
+    ("colliding_beams.yaml", ["photon_absorption"], "absorption"),
     ("two_stream.yaml", ["initialise_fields"], "electrostatic"),
     ("two_stream.yaml", ["--devices", "2"], "2-device"),
 ])
 def test_refuses_unported_decks(deck, args, what, tmp_path, capsys):
     path = EXAMPLES / deck
-    if args == ["initialise_fields"]:
+    edits = {
         # the electrostatic field set-up, asked for by the deck
+        "initialise_fields": ("control:\n",
+                              "control:\n initialise_fields: true\n"),
+        "photon_absorption": ("photon_absorption: false",
+                              "photon_absorption: true"),
+    }
+    if args and args[0] in edits:
         path = tmp_path / deck
-        path.write_text(
-            (EXAMPLES / deck).read_text().replace(
-                "control:\n", "control:\n initialise_fields: true\n", 1)
-        )
+        path.write_text((EXAMPLES / deck).read_text().replace(
+            *edits[args[0]], 1))
         args = []
     assert tcli.main([str(path), *args, "--device", "cpu"]) == 1
     err = capsys.readouterr().err
@@ -157,3 +161,193 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 20
+
+
+@pytest.mark.parametrize("precision", ["mixed", "f32"])
+def test_colliding_beams_sizing_matches_opal_tpu(precision):
+    """``examples/colliding_beams.yaml`` as shipped, built by both CLIs:
+    at the default mixed precision the unfused push with f64 arithmetic,
+    at ``--f32`` the kernel's full Vay form without the deposit; the same
+    block, window, cadences, emission capacity and photon buffer, and
+    the same initial beam."""
+    import jax.numpy as jnp
+
+    deck = EXAMPLES / "colliding_beams.yaml"
+    f32 = precision == "f32"
+    jsim, jsp, jrp = jcli.build(
+        deck, n_devices=1, dtype=jnp.float32,
+        field_dtype=jnp.float32 if f32 else jnp.float64)
+    tsim, tsp, trp = tcli.build(
+        deck, dtype=torch.float32,
+        field_dtype=torch.float32 if f32 else torch.float64, device="cpu")
+    names = ("fused_pusher", "push_f64_compute", "fused_block",
+             "fused_window", "fused_resort_every", "migration_every",
+             "fused_misfit_capacity", "migration_window",
+             "emission_active_capacity", "emission_insert_capacity",
+             "photon_angle_max", "photon_energy_min", "radiation_reaction",
+             "beaming", "current_deposition", "dt")
+    got = {k: getattr(tsim.options, k) for k in names}
+    assert got == {k: getattr(jsim.options, k) for k in names}
+    assert (got["fused_pusher"], got["push_f64_compute"]) == (f32, not f32)
+    # without the kernel the cadence is not traded for window width
+    assert (got["fused_block"], got["fused_window"], got["fused_resort_every"],
+            got["migration_every"], got["emission_active_capacity"]) == (
+                (2048, 56, 16, 1, 4096) if f32 else (2048, 144, 64, 1, 4096))
+    # only the kernel rounds the capacity up to whole blocks
+    cap = 75_776 if f32 else 75_000
+    assert trp["capacities"] == jrp["capacities"] == {
+        "electron": cap, "photon": 4 * cap}
+    assert trp["total_steps"] == jrp["total_steps"] == 3157
+    assert tsim._n_rows == 4228
+    assert int(tsp["electron"].alive.sum()) == 50_000
+    assert not tsp["photon"].alive.any()
+    np.testing.assert_array_equal(tsp["electron"].ux.numpy(),
+                                  np.asarray(jsp["electron"].ux))
+    np.testing.assert_array_equal(tsp["electron"].tau.numpy(),
+                                  np.asarray(jsp["electron"].tau))
+    spec = tsim._fused_spec("electron")
+    assert (spec.lite, spec.dep_skip) == (False, True)
+    assert tsim._fused_applicable("electron", tsp["electron"]) == f32
+    assert not tsim.electron_chi_is_lazy
+
+
+def test_photon_outputs_match_writer():
+    """The deck's photon outputs (``energy:(log;energy)`` and
+    ``longitude:latitude:(energy)``, plus ``x`` and ``energy``) written by
+    both packages' writers from one photon state: the same files and
+    headers, the images within 1e-6 of their largest bin (opal_tpu bins
+    with its native host library, the port with the numpy fallback,
+    which add in another order)."""
+    import tempfile
+
+    from opal_tpu.diagnostics import output as jout
+    from opal_tpu.grid import GridGeometry as JGeom
+    from opal_tpu.species import ParticleState as JState
+    from opal_tpu.species import SpeciesSpec as JSpec
+    from opal_tpu_torch.diagnostics import output as tout
+    from opal_tpu_torch.grid import GridGeometry
+    from opal_tpu_torch.species import SpeciesSpec
+
+    rng = np.random.default_rng(9)
+    n = 4000
+    alive = rng.random(n) < 0.7
+    k = np.stack([-10 ** rng.uniform(0, 3, n), rng.normal(0, 5, n),
+                  rng.normal(0, 5, n)], axis=1)
+    cols = dict(
+        cell=rng.integers(0, 400, n).astype(np.int32), x=rng.random(n),
+        prev_x=rng.random(n), y=np.zeros(n), z=np.zeros(n),
+        weight=np.where(alive, 10 ** rng.uniform(4, 6, n), 0.0),
+        ux=k[:, 0], uy=k[:, 1], uz=k[:, 2],
+        gamma=np.sqrt((k ** 2).sum(1)), chi=rng.random(n) * 1e-3,
+        tau=None, tau_abs=rng.random(n), tau_st=rng.random(n), work=None,
+        birth_time=np.zeros(n), alive=alive, pol=np.zeros((n, 4)),
+        basis=np.zeros((n, 6)),
+    )
+    outs = ["x", "energy", "energy:(log;energy)", "longitude:latitude",
+            "longitude:latitude:(energy)"]
+    gkw = dict(nx=400, dx=1e-8, xmin=-1e-6, n_devices=1)
+    with tempfile.TemporaryDirectory() as d:
+        jd, td = Path(d) / "j", Path(d) / "t"
+        jd.mkdir(), td.mkdir()
+        jout.write_particle_outputs(jd, 3, JSpec.photon(outs), JState(**cols),
+                                    JGeom(**gkw), n)
+        tout.write_particle_outputs(
+            td, 3, SpeciesSpec.photon(outs),
+            {k: v for k, v in cols.items() if v is not None},
+            GridGeometry(**gkw), n)
+        names = sorted(p.name for p in jd.iterdir())
+        assert names == sorted(p.name for p in td.iterdir())
+        assert "3_photon_energy_energy_log.fits" in names
+        assert "3_photon_longitude-latitude_energy.fits" in names
+        for name in names:
+            im_j, h_j = read_image(jd / name)
+            im_t, h_t = read_image(td / name)
+            assert h_t == pytest.approx(h_j, rel=1e-12), name
+            np.testing.assert_allclose(im_t, im_j, rtol=0,
+                                       atol=1e-6 * np.abs(im_j).max(),
+                                       err_msg=name)
+
+
+QED_MINI = """\
+control:
+ dx: 0.01*micro
+ nx: 400
+ xmin: -1*micro
+ start: -1.5e-6/c
+ end: -0.55e-6/c
+ current_deposition: false
+ n_outputs: 2
+
+qed:
+ photon_emission: true
+ photon_absorption: false
+ photon_energy_min: 1.0e-3 * MeV
+ max_formation_length: 1.0 * micro
+
+electrons:
+ npc: 12
+ ne: 1.0e-6 * 20.0 * critical(omega) * step(x,0.2*micro,0.7*micro)
+ ux: -1000.0 * (1.0 + 0.01 * nrand)
+ uy: 0.0
+ uz: 0.0
+ output: [x, chi, x:chi, energy, x:energy]
+
+ions:
+ npc: 0
+
+photons:
+ npc: 0
+ output: [x, energy, energy:(log;energy), longitude:latitude,
+  longitude:latitude:(energy), chi]
+
+laser:
+ Ey: >
+  (20.0*m*c*omega/e)
+  *sin(omega*(t-x/c))
+  *exp(-ln(2.0)*(omega*(t-x/c))^2/(2.0*pi^2*4.0^2))
+ Ez: 0.0
+
+constants:
+ omega: 2*pi*c/0.8e-6
+
+features:
+ no_beaming: true
+ immobile_photons: {immobile}
+
+tpu:
+ emission_active_capacity: 8
+"""
+
+
+@pytest.mark.parametrize("immobile", ["false", "true"])
+def test_qed_cli_writes_photon_outputs(immobile, tmp_path, capsys):
+    """A small emission deck (100 steps, 2 outputs) through the port's
+    CLI on the CPU at the default mixed precision: the feature banners,
+    the QED backlog note (8 emitters a step), no loss warning, the
+    photon files of the deck, and energies that balance: what the
+    electrons lose, the photons carry, within 5% (the laser's work on the
+    beam does not cancel before the pulse has crossed it)."""
+    path = tmp_path / "deck.yaml"
+    path.write_text(QED_MINI.format(immobile=immobile))
+    assert tcli.main([str(path), "--device", "cpu"]) == 0
+    o = capsys.readouterr()
+    lines = o.out.splitlines()
+    assert lines[0] == "Running 1 task on cpu (604 cells/device)..."
+    assert "[neglecting angular component of photon spectrum]" in lines
+    assert ("[photon push disabled]" in lines) == (immobile == "true")
+    assert not any(l.startswith("[fused pusher") for l in lines)
+    assert "warning" not in o.err
+    assert "note: QED active-set backlog:" in o.err
+    stems = ("photon_x", "photon_energy", "photon_energy_energy_log",
+             "photon_longitude-latitude", "photon_longitude-latitude_energy",
+             "photon_chi", "electron_x-chi", "electron_x-energy")
+    for stem in stems:
+        img, hdr = read_image(tmp_path / f"2_{stem}.fits")
+        assert np.isfinite(img).all() and hdr["TOTAL"] > 0, stem
+    e0 = {k: float(v) for k, v in (l.split() for l in
+          (tmp_path / "0_energy.dat").read_text().splitlines())}
+    e2 = {k: float(v) for k, v in (l.split() for l in
+          (tmp_path / "2_energy.dat").read_text().splitlines())}
+    assert e0["photons"] == 0.0 and e2["photons"] > 0.0
+    loss = e0["electrons"] - e2["electrons"]
+    assert abs(loss - e2["photons"]) < 0.05 * e2["photons"]

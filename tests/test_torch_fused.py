@@ -1,17 +1,21 @@
 """The fused gather + push + deposit: opal_tpu's Pallas kernel (run in
 interpret mode, as opal_tpu's own tests run it on the CPU) against the
-port's plain PyTorch version, at f32 in its lite forms: Vay (electrons)
-with the work increment on and off, and Boris (carbon ions, Z 6, A 12)
-with no work column.  Also the host helpers around the kernel.
+port's plain PyTorch version, at f32 in every form the step reaches:
+lite Vay (electrons) with the work increment on and off, full Vay (the
+QED outputs prev_x, gh and chi as well) and lite Boris (carbon ions, Z
+6, A 12, no work column), each with the deposit on and skipped
+(``dep_skip``).  Also the host helpers around the kernel.
 
 Tolerances: cells, miss flags and next-step anchors must be equal.
-The float columns agree within 1e-6 of each column's largest magnitude
+The float columns (prev_x, gh and chi too) agree within 1e-6 of each
+column's largest magnitude
 (~8 f32 ulps): both evaluate the same f32 operation sequence, but XLA's
 CPU backend contracts multiply-adds into FMAs and the port's CPU ops do
 not, which moves results by a few ulps of the operands' magnitude, also
 on components that cancel toward zero.  The deposit slab sums particles
 in another order (a one-hot matmul against a scatter-add): within 1e-5
-of its largest entry.
+of its largest entry.  Without the deposit the Pallas kernel returns a
+zero slab and the port none.
 
 The CUDA kernel against the plain version needs a card and is marked
 ``cuda``; it skips here.
@@ -68,22 +72,29 @@ def _inputs(seed=0):
 #: field scale).  The ion fields are 1000x the electron ones, so that
 #: the Boris rotation turns a carbon ion's momentum as far as the Vay
 #: push turns an electron's.
+_ELECTRON = (const.ELECTRON_CHARGE, const.ELECTRON_MASS, 1.0)
+_CARBON = (6.0 * const.ELEMENTARY_CHARGE, 12.0 * const.PROTON_MASS, 1e3)
+#: the forms of the kernel: (pusher, work_inc, lite, dep_skip, species
+#: charge and mass, field scale)
 FORMS = {
-    "vay": ("vay", False, const.ELECTRON_CHARGE, const.ELECTRON_MASS, 1.0),
-    "vay_work_inc": ("vay", True, const.ELECTRON_CHARGE,
-                     const.ELECTRON_MASS, 1.0),
-    "boris": ("boris", False, 6.0 * const.ELEMENTARY_CHARGE,
-              12.0 * const.PROTON_MASS, 1e3),
+    "vay": ("vay", False, True, False, *_ELECTRON),
+    "vay_work_inc": ("vay", True, True, False, *_ELECTRON),
+    "boris": ("boris", False, True, False, *_CARBON),
+    "vay_dep_skip": ("vay", False, True, True, *_ELECTRON),
+    "vay_full": ("vay", False, False, False, *_ELECTRON),
+    "vay_full_work_inc_dep_skip": ("vay", True, False, True, *_ELECTRON),
+    "boris_dep_skip": ("boris", False, True, True, *_CARBON),
 }
 
 
 def _specs(window, form):
-    pusher, work_inc, charge, mass, _ = FORMS[form]
+    pusher, work_inc, lite, dep_skip, charge, mass, _ = FORMS[form]
     work_out = pusher == "vay"
     kw = dict(block=BS, window=window, n_rows=N_ROWS, dx=DX, dt=DT,
               charge=charge, mass=mass, pusher=pusher, row_off=HALO + TF.PAD,
-              work_out=work_out, work_inc=work_inc)
-    return JF.FusedSpec(lite=True, **kw), TF.FusedSpec(**kw)
+              work_out=work_out, work_inc=work_inc, lite=lite,
+              dep_skip=dep_skip)
+    return JF.FusedSpec(**kw), TF.FusedSpec(**kw)
 
 
 #: (window, form) cases; the Vay ids keep the (window, work_inc) names
@@ -92,12 +103,19 @@ CASES = [
     pytest.param(16, "vay_work_inc", id="16-True"),
     pytest.param(40, "vay", id="40-False"),
     pytest.param(24, "boris", id="24-boris"),
+    pytest.param(16, "vay_dep_skip", id="16-vay-dep_skip"),
+    pytest.param(16, "vay_full", id="16-vay-full"),
+    pytest.param(16, "vay_full_work_inc_dep_skip",
+                 id="16-vay-full-work_inc-dep_skip"),
+    pytest.param(16, "boris_dep_skip", id="16-boris-dep_skip"),
 ]
+FULL = ("prev_x", "gh", "chi")
 
 
 def _work_name(spec):
-    return () if not spec.work_out else ("winc",) if spec.work_inc \
+    work = () if not spec.work_out else ("winc",) if spec.work_inc \
         else ("work",)
+    return work + (() if spec.lite else FULL)
 
 
 def _t(a, device="cpu"):
@@ -107,7 +125,7 @@ def _t(a, device="cpu"):
 @pytest.mark.parametrize("window,form", CASES)
 def test_kernel_matches_pallas(window, form):
     st, E, B = _inputs()
-    E, B = E * FORMS[form][4], B * FORMS[form][4]
+    E, B = E * FORMS[form][-1], B * FORMS[form][-1]
     jspec, tspec = _specs(window, form)
     eb_j = JF.make_eb_rows(jnp.asarray(E), jnp.asarray(B))
     eb_t = TF.make_eb_rows(_t(E), _t(B))
@@ -117,7 +135,7 @@ def test_kernel_matches_pallas(window, form):
     np.testing.assert_array_equal(anch_t.numpy(), np.asarray(anch_j))
 
     args = [st[c] for c in COLS] + [st["weight"]]
-    work = st["work"] if _work_name(tspec) == ("work",) else None
+    work = st["work"] if "work" in _work_name(tspec) else None
     cj, mj, oj, aj = JF.fused_push_deposit(
         jspec, anch_j, *map(jnp.asarray, args),
         None if work is None else jnp.asarray(work), eb_j, interpret=True,
@@ -139,7 +157,17 @@ def test_kernel_matches_pallas(window, form):
         np.testing.assert_allclose(ct[name].numpy(), want, rtol=0,
                                    atol=1e-6 * np.abs(want).max(),
                                    err_msg=name)
+    if not tspec.lite:
+        # rows not updated: gh 1 and chi 0, inert in the emission rate
+        upd = (np.asarray(cj["cell"]) != st["cell"]) | (
+            np.asarray(cj["x"]) != st["x"])
+        assert (ct["chi"].numpy()[upd] > 0).all()
+        assert (ct["chi"].numpy()[mj > 0] == 0).all()
+        assert (ct["gh"].numpy()[mj > 0] == 1).all()
     oj = np.asarray(oj)
+    if tspec.dep_skip:
+        assert ot is None and not oj.any()
+        return
     assert np.abs(oj).max() > 0
     np.testing.assert_allclose(ot.numpy(), oj, rtol=0,
                                atol=1e-5 * np.abs(oj).max(), err_msg="out")
@@ -195,23 +223,24 @@ def test_misfit_compact(capacity):
 @pytest.mark.parametrize("window,form", CASES)
 def test_cuda_kernel_matches_plain(window, form):
     """On a card: the CUDA kernel (built without FMA contraction)
-    reproduces the plain PyTorch version's push columns, miss flags and
-    anchors bit for bit; the slab within 1e-5 of its largest entry
-    (float atomics add in no fixed order)."""
+    reproduces the plain PyTorch version's push columns (with prev_x, gh
+    and chi in the full forms), miss flags and anchors bit for bit; the
+    slab within 1e-5 of its largest entry (float atomics add in no fixed
+    order), and the forms without the deposit return none."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     st, E, B = _inputs()
-    E, B = E * FORMS[form][4], B * FORMS[form][4]
+    E, B = E * FORMS[form][-1], B * FORMS[form][-1]
     _, spec = _specs(window, form)
     dev = "cuda"
     eb = TF.make_eb_rows(_t(E, dev), _t(B, dev))
     cell = _t(st["cell"], dev)
     anch = TF.block_anchors(spec, cell)
     args = [_t(st[c], dev) for c in COLS[1:]] + [_t(st["weight"], dev)]
-    work = _t(st["work"], dev) if _work_name(spec) == ("work",) else None
+    work = _t(st["work"], dev) if "work" in _work_name(spec) else None
     before = dict(TF.fused_push_deposit.launches)
     ck, mk, ok, ak = TF.fused_push_deposit(spec, anch, cell, *args, work, eb)
-    before[spec.pusher] += 1
+    before[TF.form_name(spec)] += 1
     assert TF.fused_push_deposit.launches == before
     cr, mr, orf, ar = TF.fused_push_deposit_reference(
         spec, anch, cell, *args, work, eb
@@ -220,5 +249,8 @@ def test_cuda_kernel_matches_plain(window, form):
     assert torch.equal(mk, mr) and torch.equal(ak, ar)
     for name in cr:
         assert torch.equal(ck[name], cr[name]), name
+    if spec.dep_skip:
+        assert ok is None and orf is None
+        return
     scale = orf.abs().max().item()
     assert (ok - orf).abs().max().item() <= 1e-5 * scale
