@@ -55,14 +55,30 @@ the port on the card, phase by phase, each printing one line or more:
     energy rising;
 12. the mixed-precision colliding_beams deck (the unfused push with
     f64 arithmetic) over its whole window through ``Simulation.run``:
-    the radiated-energy ledger closes below 1e-5.
+    the radiated-energy ledger closes below 1e-5;
+13. packed kernels vs plain: kernel B2 (the packed layout's forms) in
+    all four forms against its plain version at the bench shape, the Vay
+    form at the two_stream CLI shape, and the hole_boring shape
+    (electrons through Vay, ions through Boris): hot matrix, aux matrix
+    and anchors bitwise, with B1's full Vay time on the same rows beside
+    it;
+14. the small two_stream deck of phase 3 and the small hole_boring deck
+    of phase 7 with ``tpu: packed_fused: 1``, card vs CPU within 1e-5 of
+    their scale, through the packed Vay and Boris forms;
+15. the bench twin, ``python -m opal_tpu_torch.bench`` at its defaults
+    with and without ``--packed`` (and ``--packed --no-deposition`` at 64
+    steps a block): one JSON line each with no loss, one launch of the
+    layout's form a step;
+16. the two_stream CLI drive of phase 4 with ``tpu: packed_fused: 1``:
+    every step through the packed Vay form, no loss, energy drift below
+    1e-3.
 
 Kernel times (``ms``) are device time: 20 calls queued behind a
 device-side spin run back to back between two CUDA events.  The
 wrapper's whole call (``call_ms``) and the plain version's
 (``plain_ms``) are timed by CUDA events around each call, host launch
-included.  Phases 1-12 take about ten
-minutes.  Any failed check raises, so the
+included.  Phases 1-16 take about ten to
+fourteen minutes.  Any failed check raises, so the
 script exits non-zero without the final line.  Before the last line it
 prints one JSON object describing each kernel form of the paths, and
 ``nvidia-smi``'s name and power limit; the last line is
@@ -93,6 +109,8 @@ KERNEL = dict(
     source="opal_tpu_torch/csrc/fused_push_deposit.cu",
     replaces="opal_tpu/ops/fused.py:727",
 )
+#: kernel B2, the packed layout's forms of the same source
+KERNEL_PACKED = dict(KERNEL, replaces="opal_tpu/ops/fused.py:1041")
 #: the H100 SXM's HBM rate and f32 (non-tensor-core) peak, at 700 W
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -196,22 +214,24 @@ def two_stream_state(geom, npc, cap, dt, device, seed=0):
     )
 
 
-def bound(spec, n_rows_state, n_pushed):
+def bound(spec, n_rows_state, n_pushed, packed=False):
     """(bound_ms, bound_by): the least time the card could take for one
     launch: each input column read once and each output written once
     (4 B a value: 9 inputs, the work column when it is read, the 8
     updated columns, the work output and ``miss``, and prev_x gh chi in
-    the full form; the anchors both ways, the field table read, the
-    deposit slab written unless the deposit is skipped) over the HBM
-    rate, against the f32 operations of the rows that were pushed over
-    the f32 peak."""
-    cols = (9 + (spec.work_out and not spec.work_inc) + 8 + spec.work_out
-            + 1 + 3 * (not spec.lite))
+    the full form; the packed layout always 23: the 9 columns of H read
+    and written, the weight, the 4 of A; the anchors both ways, the field
+    table read, the deposit slab written unless the deposit is skipped)
+    over the HBM rate, against the f32 operations of the rows that were
+    pushed over the f32 peak."""
+    cols = 23 if packed else (
+        9 + (spec.work_out and not spec.work_inc) + 8 + spec.work_out
+        + 1 + 3 * (not spec.lite))
     nblk = n_rows_state // spec.block
     slab = 0 if spec.dep_skip else 16
     nbytes = 4 * (cols * n_rows_state + 2 * nblk + spec.n_rows * (8 + slab))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    ops = (OPS_PUSH[spec.pusher] + OPS_FULL * (not spec.lite)
+    ops = (OPS_PUSH[spec.pusher] + OPS_FULL * (packed or not spec.lite)
            + OPS_DEPOSIT * (not spec.dep_skip))
     t_ops = n_pushed * ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -279,7 +299,12 @@ def kernel_vs_plain(label, st, spec, fields_seed=1, e_scale=10.0,
     return max(push_err, slab_err), ms, plain_ms, bound_ms, bound_by, call_ms
 
 
-def small_deck(tmp: Path, nx=128, npc=64, steps=40, outputs=2) -> Path:
+#: the deck option that carries the fused species in the packed layout
+PACKED_DECK = "\ntpu:\n packed_fused: 1\n"
+
+
+def small_deck(tmp: Path, nx=128, npc=64, steps=40, outputs=2,
+               packed=False) -> Path:
     from opal_tpu_torch import constants as const
 
     dt = 0.95 * 500.0 / const.SPEED_OF_LIGHT
@@ -288,23 +313,31 @@ def small_deck(tmp: Path, nx=128, npc=64, steps=40, outputs=2) -> Path:
     src = src.replace("end: 0.1", f"end: {(steps + 0.5) * dt!r}")
     src = src.replace("n_outputs: 20", f"n_outputs: {outputs}")
     tmp.mkdir(parents=True, exist_ok=True)
-    (tmp / "deck.yaml").write_text(src)
+    (tmp / "deck.yaml").write_text(src + (PACKED_DECK if packed else ""))
     return tmp / "deck.yaml"
 
 
-def card_vs_cpu(tmp: Path):
+def card_vs_cpu(tmp: Path, packed=False):
     """A small deck stepped on the card (kernel) and on the CPU (plain
     version): f32 particles, f64 fields; the CUDA and CPU float ops round
     alike but the deposit adds in another order, so fields and energies
-    agree to within 1e-5 of their scale."""
+    agree to within 1e-5 of their scale.  With ``packed`` the deck sets
+    ``tpu: packed_fused: 1`` and every step launches the packed Vay
+    form (phase 14)."""
     from opal_tpu_torch.cli import build
 
-    deck = small_deck(tmp / "small")
+    deck = small_deck(tmp / ("small_packed" if packed else "small"),
+                      packed=packed)
     out = {}
     for dev in ("cuda", "cpu"):
         sim, sp, _ = build(deck, device=dev)
         assert sim._fused_applicable("electron", sp["electron"])
+        assert sim._packed_applicable("electron", sp["electron"]) == packed
+        reset_launches()
         res = sim.run(*sim.init_fields(), sp, 0.0, sim.zero_counters(), 40)
+        if dev == "cuda":
+            form = "vay_packed" if packed else "vay"
+            assert launched() == {form: 40}, launched()
         assert int(res[6]["electron"]) == 0
         out[dev] = (res, sim.em_field_energy(res[0], res[1]),
                     sim.total_kinetic_energy("electron", res[4]["electron"]))
@@ -316,13 +349,16 @@ def card_vs_cpu(tmp: Path):
         assert err < 1e-5, (name, err)
         worst = max(worst, err)
     assert abs(fc - fp) <= 1e-5 * abs(fp) and abs(kc - kp) <= 1e-5 * abs(kp)
-    log(3, f"small two-stream deck (nx 128, npc 64, 40 steps), card vs CPU: "
-           f"fields within {worst:.2e} of their scale, field energy "
-           f"{fc:.6e} vs {fp:.6e} J, kinetic {kc:.6e} vs {kp:.6e} J")
+    log(14 if packed else 3,
+        f"small two-stream deck (nx 128, npc 64, 40 steps"
+        f"{', tpu: packed_fused: 1, 40 launches of vay_packed' if packed else ''}"
+        f"), card vs CPU: fields within {worst:.2e} of their scale, field "
+        f"energy {fc:.6e} vs {fp:.6e} J, kinetic {kc:.6e} vs {kp:.6e} J")
 
 
-def cli_drive(tmp: Path, steps=2000, outputs=4):
-    """The main path through the user's entry point; returns (launches,
+def cli_drive(tmp: Path, steps=2000, outputs=4, packed=False):
+    """The main path through the user's entry point (with ``packed``, the
+    deck with ``tpu: packed_fused: 1``: phase 16); returns (launches,
     steps/s)."""
     from opal_tpu_torch import cli, constants as const
 
@@ -330,9 +366,9 @@ def cli_drive(tmp: Path, steps=2000, outputs=4):
     src = (ROOT / "examples" / "two_stream.yaml").read_text()
     src = src.replace("end: 0.1", f"end: {(steps + 0.5) * dt!r}")
     src = src.replace("n_outputs: 20", f"n_outputs: {outputs}")
-    run = tmp / "two_stream"
+    run = tmp / ("two_stream_packed" if packed else "two_stream")
     run.mkdir(parents=True)
-    (run / "deck.yaml").write_text(src)
+    (run / "deck.yaml").write_text(src + (PACKED_DECK if packed else ""))
     so, se = io.StringIO(), io.StringIO()
     reset_launches()
     t0 = time.perf_counter()
@@ -345,8 +381,9 @@ def cli_drive(tmp: Path, steps=2000, outputs=4):
     assert rc == 0, (rc, out, err)
     assert "[fused pusher: electron]" in out, out
     assert "buffer-overflow particle losses" not in err, err
-    assert list(launches) == ["vay"], launches
-    launches = launches["vay"]
+    form = "vay_packed" if packed else "vay"
+    assert list(launches) == [form], launches
+    launches = launches[form]
     totals = []
     for i in range(outputs + 1):
         g = np.loadtxt(run / f"{i}_grid.dat")
@@ -360,10 +397,13 @@ def cli_drive(tmp: Path, steps=2000, outputs=4):
     drift = abs(totals[-1] - totals[0]) / totals[0]
     assert drift < 1e-3, drift
     banner = out.splitlines()[0]
-    log(4, f"python -m opal_tpu_torch two_stream.yaml (nx 1000, npc 100, "
-           f"{steps} steps, {outputs} outputs): '{banner}', kernel launches "
-           f"{launches}, no losses, total energy drift {drift:.3e}, "
-           f"{steps / wall:.1f} steps/s over {wall:.2f} s incl. output dumps")
+    log(16 if packed else 4,
+        f"python -m opal_tpu_torch two_stream.yaml (nx 1000, npc 100, "
+        f"{steps} steps, {outputs} outputs"
+        f"{', tpu: packed_fused: 1' if packed else ''}): '{banner}', "
+        f"launches of {form} {launches}, no losses, total energy drift "
+        f"{drift:.3e}, {steps / wall:.1f} steps/s over {wall:.2f} s incl. "
+        f"output dumps")
     return launches, steps / wall
 
 
@@ -513,24 +553,34 @@ def hole_boring_kernels():
     return out
 
 
-def hb_card_vs_cpu(tmp: Path):
+def hb_card_vs_cpu(tmp: Path, packed=False):
     """Phase 7: the small hole_boring deck stepped on the card (both
     kernel forms) and on the CPU (their plain versions), f32 particles
     and f64 fields: the push columns round alike, the deposits add in
     another order, so fields and energies agree within 1e-5 of their
-    scale."""
+    scale.  With ``packed`` (phase 14) the deck sets ``tpu:
+    packed_fused: 1``: the packed Vay and Boris forms.  Returns the
+    card's launches."""
     from opal_tpu_torch.cli import build
 
-    (tmp / "hb_small").mkdir()
-    deck = tmp / "hb_small" / "deck.yaml"
-    deck.write_text(HB_SMALL)
+    name = "hb_small_packed" if packed else "hb_small"
+    (tmp / name).mkdir()
+    deck = tmp / name / "deck.yaml"
+    deck.write_text(HB_SMALL + (PACKED_DECK[1:] if packed else ""))
     out = {}
     for dev in ("cuda", "cpu"):
         sim, sp, rp = build(deck, device=dev)
         assert all(sim._fused_applicable(n, sp[n]) for n in sp)
+        assert all(sim._packed_applicable(n, sp[n]) == packed for n in sp)
         steps = rp["total_steps"]
+        reset_launches()
         res = sim.run(*sim.init_fields(), sp, rp["tstart"],
                       sim.zero_counters(), steps)
+        if dev == "cuda":
+            launches = launched()
+            forms = ("vay_packed", "boris_packed") if packed else (
+                "vay", "boris")
+            assert launches == dict.fromkeys(forms, steps), launches
         assert all(int(v) == 0 for v in res[6].values()), res[6]
         out[dev] = (res, sim.em_field_energy(res[0], res[1]), {
             n: sim.total_kinetic_energy(n, res[4][n]) for n in sp})
@@ -544,11 +594,14 @@ def hb_card_vs_cpu(tmp: Path):
     assert fp > 0 and abs(fc - fp) <= 1e-5 * abs(fp), (fc, fp)
     for n in kp:
         assert abs(kc[n] - kp[n]) <= 1e-5 * abs(kp[n]), (n, kc[n], kp[n])
-    log(7, f"small hole_boring deck (nx 800, npc 10 a species, {steps} "
-           f"steps), card vs CPU: fields within {worst:.2e} of their "
-           f"scale, field energy {fc:.6e} vs {fp:.6e} J, electrons "
-           f"{kc['electron']:.6e} vs {kp['electron']:.6e} J, ions "
-           f"{kc['ion']:.6e} vs {kp['ion']:.6e} J")
+    log(14 if packed else 7,
+        f"small hole_boring deck (nx 800, npc 10 a species, {steps} steps"
+        f"{', tpu: packed_fused: 1' if packed else ''}; launches "
+        f"{launches}), card vs CPU: fields within {worst:.2e} of their "
+        f"scale, field energy {fc:.6e} vs {fp:.6e} J, electrons "
+        f"{kc['electron']:.6e} vs {kp['electron']:.6e} J, ions "
+        f"{kc['ion']:.6e} vs {kp['ion']:.6e} J")
+    return launches
 
 
 class _Echo(io.StringIO):
@@ -913,6 +966,176 @@ def cb_ledger(smi: str, chunk=500):
     return closure_w, closure
 
 
+def _random_table(spec, dev, fields_seed, e_scale, b_scale):
+    """An (n_rows, 8) field table of random E ~ ``e_scale`` V/m and B ~
+    ``b_scale`` T over the slab's rows."""
+    from opal_tpu_torch.ops import fused as F
+
+    n_slab = spec.n_rows - 2 * F.PAD
+    g = torch.Generator(device="cpu").manual_seed(fields_seed)
+    E = (e_scale * torch.randn(n_slab, 3, generator=g)).to(dev)
+    B = (b_scale * torch.randn(n_slab, 3, generator=g)).to(dev)
+    return F.make_eb_rows(E, B)
+
+
+def packed_vs_plain(label, ps, spec, fields_seed=1, e_scale=10.0,
+                    b_scale=1e-8):
+    """Phase 13, one form at one shape: kernel B2 against its plain
+    version on one sorted packed state and random E/B: the hot matrix,
+    the aux matrix and the next anchors bitwise, the slab within 1e-5 of
+    its scale, no slab without the deposit.  Returns (max_abs_err, ms,
+    plain_ms, bound_ms, bound_by, call_ms), timed as
+    :func:`kernel_vs_plain` times B1."""
+    from opal_tpu_torch.ops import fused as F
+
+    eb = _random_table(spec, ps.h.device, fields_seed, e_scale, b_scale)
+    anchors = F.block_anchors(spec, ps.h[:, 0].reshape(-1))
+    args = (spec, anchors, ps.h, ps.weight, eb)
+    Hk, Ak, ok, ak = F.fused_push_deposit_packed(*args)
+    Hr, Ar, orf, ar = F.fused_push_deposit_packed_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(ak, ar), "next anchors differ"
+    assert torch.equal(Hk, Hr), "hot matrix differs from the plain version"
+    assert torch.equal(Ak, Ar), "aux matrix differs from the plain version"
+    if spec.dep_skip:
+        assert ok is None and orf is None
+        slab_err, slab_txt = 0.0, "no slab (deposit skipped)"
+    else:
+        slab_err = (ok - orf).abs().max().item()
+        scale = orf.abs().max().item()
+        assert scale > 0 and slab_err <= 1e-5 * scale, (slab_err, scale)
+        slab_txt = f"slab max |err| {slab_err:.3e} (max |slab| {scale:.3e})"
+    ms = device_ms(lambda: F.fused_push_deposit_packed(*args))
+    call_ms = cuda_ms(lambda: F.fused_push_deposit_packed(*args))
+    plain_ms = cuda_ms(lambda: F.fused_push_deposit_packed_reference(*args))
+    n = ps.weight.numel()
+    n_alive = int((ps.weight > 0).sum())
+    n_miss = int(Ak[:, 3].sum().item())
+    bound_ms, bound_by = bound(spec, n, n_alive - n_miss, packed=True)
+    log(13, f"{label} ({F.packed_form_name(spec)}): rows {n} (alive "
+            f"{n_alive}), block {spec.block}, window {spec.window}, n_rows "
+            f"{spec.n_rows}: H, A and anchors bitwise equal; {slab_txt}; "
+            f"misses {n_miss}; kernel {ms:.4f} ms of device time (20 calls "
+            f"back to back), the wrapper's call {call_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms (medians of 20), bound {bound_ms:.4f} ms "
+            f"({bound_by})")
+    return slab_err, ms, plain_ms, bound_ms, bound_by, call_ms
+
+
+def b1_full_vay_ms(label, st, spec, fields_seed=1, e_scale=10.0,
+                   b_scale=1e-8):
+    """B1's full Vay form (the work column accumulated, prev_x gh chi
+    written: B2's outputs in the column layout) on the same rows: its
+    device time, printed beside B2's."""
+    from opal_tpu_torch.ops import fused as F
+
+    spec = spec._replace(lite=False, work_out=True, work_inc=False,
+                         pusher="vay")
+    eb = _random_table(spec, st.x.device, fields_seed, e_scale, b_scale)
+    # the f32 work column (a mixed-precision deck keeps an f64 one)
+    args = (spec, F.block_anchors(spec, st.cell), st.cell, st.x, st.y,
+            st.z, st.ux, st.uy, st.uz, st.gamma, st.weight,
+            st.work.to(torch.float32), eb)
+    ms = device_ms(lambda: F.fused_push_deposit(*args))
+    log(13, f"{label}: B1's full Vay form ({F.form_name(spec)} with the "
+            f"work column) on the same rows, kernel {ms:.4f} ms of device "
+            f"time")
+    return ms
+
+
+def packed_kernels():
+    """Phase 13: the four forms of kernel B2 against their plain version,
+    each at the shapes of the decks that run it: the Vay forms at the
+    bench shape (10,485,760 rows, block 8192, window 12), the Vay form
+    at the two_stream CLI shape (155,648 rows, block 2048, window 40),
+    and at the hole_boring shape (753,664 rows a species, block 2048,
+    window 56, n_rows 20,228) the electrons through the Vay forms and
+    the carbon ions through the Boris forms; B1's full Vay time on the
+    same electron rows beside them.  Returns {(shape, form): result of
+    :func:`packed_vs_plain`}."""
+    from opal_tpu_torch import constants as const
+    from opal_tpu_torch.cli import build
+    from opal_tpu_torch.grid import HALO, GridGeometry
+    from opal_tpu_torch.ops import fused as F
+    from opal_tpu_torch.parallel.migrate import sort_state
+
+    dx = 500.0
+    dt = 0.95 * dx / const.SPEED_OF_LIGHT
+    out = {}
+    for shape, nx, npc, cap, block, window, forms in (
+        ("bench", BENCH["nx"], BENCH["particles"] // BENCH["nx"],
+         10_485_760, BENCH["block"], BENCH["window"],
+         ("vay_packed", "vay_packed_dep_skip")),
+        ("two_stream CLI", 1000, 100, 155_648, 2048, 40, ("vay_packed",)),
+    ):
+        geom = GridGeometry(nx=nx, dx=dx, xmin=0.0, n_devices=1)
+        st = sort_state(two_stream_state(geom, npc, cap, dt, "cuda"), nx)
+        spec = F.FusedSpec(
+            block=block, window=window, n_rows=nx + 2 * HALO + 2 * F.PAD,
+            dx=dx, dt=dt, charge=const.ELECTRON_CHARGE,
+            mass=const.ELECTRON_MASS, row_off=HALO + F.PAD,
+        )
+        b1_full_vay_ms(f"{shape} shape", st, spec)
+        ps = F.pack_fused(st, block)
+        for form in forms:
+            sp = spec._replace(dep_skip=form.endswith("dep_skip"))
+            out[shape, form] = packed_vs_plain(f"{shape} shape", ps, sp)
+        del st, ps
+        torch.cuda.empty_cache()
+
+    sim, states, _ = build(ROOT / "examples" / "hole_boring.yaml",
+                           device="cuda")
+    for name, st in states.items():
+        spec = sim._fused_spec(name)
+        assert (spec.block, spec.window, spec.n_rows, st.x.shape[0]) == (
+            2048, 56, 20_228, 753_664), spec
+        st = sort_state(st, sim.geom.n_loc)
+        if name == "electron":
+            b1_full_vay_ms("hole_boring shape", st, spec, 2, 1e13, 3e4)
+        ps = F.pack_fused(st, spec.block)
+        for dep_skip in (False, True):
+            sp = spec._replace(dep_skip=dep_skip)
+            out["hole_boring", F.packed_form_name(sp)] = packed_vs_plain(
+                f"hole_boring {name} shape", ps, sp, fields_seed=2,
+                e_scale=1e13, b_scale=3e4)
+    del sim, states
+    torch.cuda.empty_cache()
+    return out
+
+
+def bench_twin(smi: str):
+    """Phase 15: ``python -m opal_tpu_torch.bench`` at its defaults
+    (bench.py's deck: 8*2**20 electrons, nx 1024, three blocks of 1024
+    steps), with and without ``--packed``, and ``--packed
+    --no-deposition`` cut to blocks of 64 steps: each prints its one
+    JSON line with no loss, and every step of the three blocks launches
+    the layout's kernel form once.  Returns {form: launches}."""
+    from opal_tpu_torch import bench
+
+    launches = {}
+    for argv, form, steps in (([], "vay", 1024),
+                              (["--packed"], "vay_packed", 1024),
+                              (["--packed", "--no-deposition", "--steps",
+                                "64"], "vay_packed_dep_skip", 64)):
+        so, se = io.StringIO(), io.StringIO()
+        reset_launches()
+        with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+            rc = bench.main(argv + ["--verbose"])
+        torch.cuda.synchronize()
+        got = launched()
+        assert rc == 0, (rc, so.getvalue(), se.getvalue())
+        lines = so.getvalue().strip().splitlines()
+        assert len(lines) == 1, lines
+        line = json.loads(lines[0])
+        assert "error" not in line and line["value"] > 0, line
+        assert got == {form: 3 * steps}, got
+        launches[form] = got[form]
+        log(15, f"python -m opal_tpu_torch.bench {' '.join(argv)}: "
+                f"{lines[0]}; {se.getvalue().strip()}; launches of {form} "
+                f"{got[form]}; on {smi}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -990,6 +1213,11 @@ def main(argv=None) -> int:
         qed_card_vs_cpu(tmp)
         cb_launches = cb_cli_drive(tmp, smi)
         cb_ledger(smi)
+        b2 = packed_kernels()
+        card_vs_cpu(tmp, packed=True)
+        hb_packed = hb_card_vs_cpu(tmp, packed=True)
+        twin = bench_twin(smi)
+        ts_packed, _ = cli_drive(tmp, packed=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1001,6 +1229,13 @@ def main(argv=None) -> int:
         "boris": {"hole_boring": hb_launches["boris"]},
         "vay_full_dep_skip": {
             "colliding_beams": cb_launches["vay_full_dep_skip"]},
+        "vay_packed": {"two_stream packed": ts_packed,
+                       "bench --packed": twin["vay_packed"],
+                       "small hole_boring packed": hb_packed["vay_packed"]},
+        "boris_packed": {
+            "small hole_boring packed": hb_packed["boris_packed"]},
+        "vay_packed_dep_skip": {
+            "bench --packed --no-deposition": twin["vay_packed_dep_skip"]},
     }
     timed = {
         "vay": (hb["vay"], "lite Vay, electrons, deposit on"),
@@ -1010,6 +1245,14 @@ def main(argv=None) -> int:
         "vay_full": (cb["vay_full"], "full Vay, deposit on"),
         "vay_dep_skip": (cb["vay_dep_skip"], "lite Vay, deposit off"),
         "boris_dep_skip": (cb["boris_dep_skip"], "lite Boris, deposit off"),
+        "vay_packed": (b2["bench", "vay_packed"],
+                       "packed layout, Vay, deposit on, bench shape"),
+        "vay_packed_dep_skip": (b2["bench", "vay_packed_dep_skip"],
+                                "packed layout, Vay, deposit off, bench shape"),
+        "boris_packed": (b2["hole_boring", "boris_packed"],
+                         "packed layout, Boris, ions, deposit on"),
+        "boris_packed_dep_skip": (b2["hole_boring", "boris_packed_dep_skip"],
+                                  "packed layout, Boris, deposit off"),
     }
 
     def row(form):
@@ -1017,7 +1260,10 @@ def main(argv=None) -> int:
         if form == "vay":
             err = max(err, err_vay)
         paths = by_path.get(form, {})
-        return dict(name=f"fused_push_deposit[{form}] ({label})", **KERNEL,
+        kernel = KERNEL_PACKED if "packed" in form else KERNEL
+        name = "fused_push_deposit_packed" if "packed" in form else \
+            "fused_push_deposit"
+        return dict(name=f"{name}[{form}] ({label})", **kernel,
                     launches=sum(paths.values()), launches_by_path=paths,
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None,

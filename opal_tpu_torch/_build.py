@@ -87,4 +87,9 @@ def library() -> ctypes.CDLL:
     fn.argtypes = (
         [vp] * 27 + [ctypes.c_longlong] + [i32] * 9 + [f32] * 10 + [vp]
     )
+    fn = L.opal_fused_push_deposit_packed
+    fn.restype = i32
+    fn.argtypes = (
+        [vp] * 8 + [ctypes.c_longlong] + [i32] * 7 + [f32] * 10 + [vp]
+    )
     return L

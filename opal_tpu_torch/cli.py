@@ -10,7 +10,9 @@ backlog notes and output files.  The fused-kernel block, window,
 resort and migration cadences and the capacities are auto-sized by the
 same rules, so one deck runs the same schedule in both packages; as
 there, mixed-precision QED decks run the unfused push with f64
-arithmetic, and ``--f32`` (or ``tpu: fused_pusher: 1``) the kernel.
+arithmetic, and ``--f32`` (or ``tpu: fused_pusher: 1``) the kernel;
+``tpu: packed_fused: 1`` carries the fused species in the packed layout
+through the packed kernel (never with QED emission).
 Decks that need what is not ported (photon absorption, several
 devices, electrostatic initialization, checkpoints) are refused with
 exit code 1.
@@ -366,6 +368,9 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
         seed=seed,
         migration_capacity=migration_capacity,
         fused_pusher=fused_pusher,
+        # the packed layout (ops.fused.PackedState), off unless the deck
+        # asks for it, as in opal_tpu (cli.py:625)
+        packed_fused=bool(tpu_opt("packed_fused", 0)),
         fused_block=fused_block,
         fused_window=fused_window,
         fused_resort_every=fused_resort_every,

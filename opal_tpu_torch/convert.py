@@ -4,7 +4,8 @@ A system without trained weights starts from its particle state and
 fields; these helpers turn host (numpy) arrays of ``opal_tpu``'s
 ``ParticleState`` and field slabs into the port's tensors and back.
 They read attributes by name only, so this module needs neither JAX
-nor ``opal_tpu``.
+nor ``opal_tpu``.  Like the rest of the port they put the tensors on
+the CUDA device unless the caller asks for ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from .species import ParticleState
 
 
-def state_from_numpy(ps, device="cpu") -> ParticleState:
+def state_from_numpy(ps, device="cuda") -> ParticleState:
     """A port ``ParticleState`` on ``device`` from a dict of columns by
     name (what :func:`to_numpy` returns) or any object with the same
     column attributes (``opal_tpu.species.ParticleState`` with numpy or
@@ -32,7 +33,7 @@ def state_from_numpy(ps, device="cpu") -> ParticleState:
     return ParticleState(**cols)
 
 
-def fields_from_numpy(E, B, J, rho, device="cpu"):
+def fields_from_numpy(E, B, J, rho, device="cuda"):
     """(E, B, J, rho) host arrays -> tensors on ``device``."""
     return tuple(
         torch.from_numpy(np.array(a, copy=True)).to(device)

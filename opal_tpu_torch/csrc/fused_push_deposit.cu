@@ -1,31 +1,41 @@
 // Fused field gather + push + charge-conserving deposit for Hopper
 // (sm_90a), the hot loop of the PIC step.
 //
-// Replaces: opal_tpu/ops/fused.py::_kernel_block (the Pallas kernel
-// launched by fused_push_deposit), in the forms the PIC step reaches:
-//   * Vay (electrons, electron.rs:268-330), with the work column either
-//     accumulated into the f32 column or output as the bare increment
-//     (work_in == nullptr); lite, or full: the QED outputs prev_x,
-//     gamma at the half step and chi as well (fused.py:494-500,
-//     556-564), with gh = 1 and chi = 0 on rows not updated so that
-//     they are inert in the emission rate;
-//   * Boris (ions, ion.rs:168-214), lite, gamma - 1 kept
-//     cancellation-free, with no work column read or written;
-// each with the deposit on, or skipped (dep_skip, fused.py:523-524:
+// Replaces both Pallas kernels of opal_tpu/ops/fused.py:
+//   * _kernel_block (launched by fused_push_deposit, the column layout:
+//     one array per particle column), in the forms the PIC step reaches:
+//     - Vay (electrons, electron.rs:268-330), with the work column either
+//       accumulated into the f32 column or output as the bare increment
+//       (work_in == nullptr); lite, or full: the QED outputs prev_x,
+//       gamma at the half step and chi as well (fused.py:494-500,
+//       556-564), with gh = 1 and chi = 0 on rows not updated so that
+//       they are inert in the emission rate;
+//     - Boris (ions, ion.rs:168-214), lite, gamma - 1 kept
+//       cancellation-free, with no work column read or written;
+//   * _kernel_packed (launched by fused_push_deposit_packed, the packed
+//     layout, fused.py:927-1014): the same physics on a hot matrix H
+//     (nblk, 9, block) whose columns are cell (as f32) x y z ux uy uz
+//     gamma work, a weight array (alive == weight * charge != 0), and an
+//     aux matrix A (nblk, 4, block) of prev_x chi gh miss.  Always the
+//     full outputs: Vay accumulates the work read from H; Boris writes
+//     chi = 0 and its own gamma as gh and passes the work through
+//     (fused.py:612-617).
+// Each with the deposit on, or skipped (dep_skip, fused.py:523-524:
 // decks without current deposition), which then has no shared tile, no
 // flush and no slab pointer at all.
-// The plain PyTorch version is
-// opal_tpu_torch/ops/fused.py::fused_push_deposit_reference.
+// The plain PyTorch versions are
+// opal_tpu_torch/ops/fused.py::fused_push_deposit_reference and
+// ::fused_push_deposit_packed_reference.
 //
 // What bounds it on an H100: HBM traffic.  Each row reads nine or ten
 // 4-byte columns (cell x y z ux uy uz gamma weight [work]) and writes
 // nine or ten (the eight updated columns, [work] and miss), and three
 // more in the full form (prev_x gh chi): 72 B per row for Boris, 76-80
-// B for lite Vay, 88-92 B for full Vay.  At the bench capacity of 10.5M rows
-// that is ~0.85 GB a step against 3.35 TB/s.  The push is ~150 flops a
-// row, far below the f32 peak.  The risk is the deposit: a cell-sorted
-// block spans a few cells, so thousands of threads add into the same
-// few tile entries.
+// B for lite Vay, 88-92 B for full Vay and for the packed layout.  At
+// the bench capacity of 10.5M rows that is ~0.85-0.97 GB a step against
+// 3.35 TB/s.  The push is ~150 flops a row, far below the f32 peak.  The
+// risk is the deposit: a cell-sorted block spans a few cells, so
+// thousands of threads add into the same few tile entries.
 //
 // What the design does about it: one read and one write of every
 // column, coalesced (consecutive threads take consecutive rows); the
@@ -35,8 +45,16 @@
 // atomics and are flushed to the (n_rows, 16) slab with one global
 // atomic per non-zero entry.  The per-block window minimum for the next
 // step is reduced with warp shuffles and shared memory.  The pusher and
-// the work leg, the full outputs and the deposit are template
-// parameters, so each form carries no branch or column it does not use.
+// the work leg, the full outputs, the deposit and the layout are
+// template parameters, so each form carries no branch or column it does
+// not use.
+//
+// The two layouts differ only in addressing: within a block each column
+// is a contiguous run of `block` values in both, so one CTA reads and
+// writes each column coalesced either way.  Column c of block b starts
+// at col[c] + b * stride, where the stride is `block` for the column
+// layout and 9 * block (H) or 4 * block (A) for the packed one; only the
+// cell column's type (i32, or f32 in H) depends on the layout.
 //
 // One CTA serves one logical block of `block` rows (blocks run in no
 // order, so the slab is zeroed by the caller, not by block 0 as on the
@@ -51,6 +69,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kCols = 16;
+// columns of the packed hot matrix H and aux matrix A (fused.py:922-924)
+constexpr int kHCols = 9;
+constexpr int kACols = 4;
 
 __device__ __forceinline__ float w2(float xh) {
   // second-order b-spline weight (yee.rs:140-149)
@@ -78,42 +99,49 @@ struct Consts {
   float charge, alpha, c, kwork, dt, talpha, kx, inv_dt, inv_dx, crit;
 };
 
+// The particle columns: `cell`/`ncell` are int32 in the column layout and
+// f32 in the packed one.  Column pointers address block 0; block b's
+// rows start `b * s_h` (the cell..work columns, in and out) or `b * s_a`
+// (prev_x gh chi miss) values later, and `b * block` for the weight.
+struct Args {
+  const void* cell; const float* x; const float* y; const float* z;
+  const float* ux; const float* uy; const float* uz; const float* gamma;
+  const float* weight; const float* work_in; const float* eb;
+  void* ncell; float* nx; float* ny; float* nz; float* nux; float* nuy;
+  float* nuz; float* ng; float* nwork; float* nprev; float* ngh;
+  float* nchi; float* miss; const int* anchors; int* anchors_next;
+  float* out;
+};
+
 // kBoris: the Boris push (ions) instead of Vay (electrons).  kWork: the
 // work column is carried (read from work_in, or from 0 when work_in is
-// null, and written to nwork); without it neither pointer is touched.
-// kFull: prev_x, gh and chi are written (Vay only).  kDeposit: the
-// deposit into the (n_rows, 16) slab; without it `out` is not touched.
-// Six forms are instantiated: {lite Vay, full Vay} with work and lite
-// Boris without, each with and without the deposit.
-template <bool kBoris, bool kWork, bool kFull, bool kDeposit>
+// null, and written to nwork; Vay adds the step's work, Boris passes it
+// through); without it neither pointer is touched.  kFull: prev_x, gh
+// and chi are written (Boris: gh is its gamma at the half rotation, chi
+// 0).  kDeposit: the deposit into the (n_rows, 16) slab; without it
+// `out` is not touched.  kPacked: the cell column is f32 (the packed
+// hot matrix).  Ten forms are instantiated: {lite Vay, full Vay} with
+// work and lite Boris without (column layout), and full Vay and full
+// Boris with work (packed layout), each with and without the deposit.
+template <bool kBoris, bool kWork, bool kFull, bool kDeposit, bool kPacked>
 __global__ void __launch_bounds__(kThreads)
-fused_push_deposit_kernel(
-    const int* __restrict__ anchors, const int* __restrict__ cell,
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ z, const float* __restrict__ ux,
-    const float* __restrict__ uy, const float* __restrict__ uz,
-    const float* __restrict__ gamma, const float* __restrict__ weight,
-    const float* __restrict__ work_in, const float* __restrict__ eb,
-    int* __restrict__ ncell, float* __restrict__ nx, float* __restrict__ ny,
-    float* __restrict__ nz, float* __restrict__ nux,
-    float* __restrict__ nuy, float* __restrict__ nuz,
-    float* __restrict__ ng, float* __restrict__ nwork,
-    float* __restrict__ nprev, float* __restrict__ ngh,
-    float* __restrict__ nchi, float* __restrict__ miss,
-    int* __restrict__ anchors_next, float* __restrict__ out, int block,
-    int W, int n_rows, int row_off, int pad, Consts k) {
+fused_push_deposit_kernel(const Args a, int64_t s_h, int64_t s_a, int block,
+                          int W, int n_rows, int row_off, int pad,
+                          Consts k) {
   extern __shared__ float smem[];
   float* win = smem;               // W rows x 6 (Ex Ey Ez Bx By Bz)
   float* tile = smem + W * 6;      // (W + 4) rows x 16 deposit columns
   __shared__ int warp_min[2][kThreads / 32];
 
   const int b = blockIdx.x;
-  const int base = anchors[b];
+  const int base = a.anchors[b];
   const int tid = threadIdx.x;
+  const int64_t oh = (int64_t)b * s_h, oa = (int64_t)b * s_a,
+                ow = (int64_t)b * block;
 
   for (int i = tid; i < W * 6; i += kThreads) {
     int r = base + i / 6;
-    win[i] = (r >= 0 && r < n_rows) ? eb[(int64_t)r * 8 + i % 6] : 0.0f;
+    win[i] = (r >= 0 && r < n_rows) ? a.eb[(int64_t)r * 8 + i % 6] : 0.0f;
   }
   if constexpr (kDeposit)
     for (int i = tid; i < (W + 4) * kCols; i += kThreads) tile[i] = 0.0f;
@@ -122,30 +150,44 @@ fused_push_deposit_kernel(
   const int lo_row = pad + 2, hi_row = n_rows - pad - 3;
   const int sent = n_rows;
   int min_fit = sent, min_alive = sent;
+  const int* cell_i = static_cast<const int*>(a.cell);
+  const float* cell_f = static_cast<const float*>(a.cell);
+  int* ncell_i = static_cast<int*>(a.ncell);
+  float* ncell_f = static_cast<float*>(a.ncell);
 
   for (int r = tid; r < block; r += kThreads) {
-    const int64_t i = (int64_t)b * block + r;
-    const int row = cell[i] + row_off;
+    const int64_t i = oh + r, j = oa + r;
+    float cellf = 0.0f;
+    int cell;
+    if constexpr (kPacked) {
+      // the f32 cell column truncates to i32, as astype does
+      cellf = cell_f[i];
+      cell = (int)cellf;
+    } else {
+      cell = cell_i[i];
+    }
+    const int row = cell + row_off;
     const int rel = row - base;
-    const float xv = x[i], yv = y[i], zv = z[i];
-    const float uxv = ux[i], uyv = uy[i], uzv = uz[i], gv = gamma[i];
-    const float q = weight[i] * k.charge;
+    const float xv = a.x[i], yv = a.y[i], zv = a.z[i];
+    const float uxv = a.ux[i], uyv = a.uy[i], uzv = a.uz[i], gv = a.gamma[i];
+    const float q = a.weight[ow + r] * k.charge;
     float w_in = 0.0f;
-    if (kWork && work_in) w_in = work_in[i];
+    if (kWork && a.work_in) w_in = a.work_in[i];
     const bool fit = rel >= 1 && rel <= W - 3 && row >= lo_row && row <= hi_row;
     const bool alive = q != 0.0f;
     const bool upd = fit && alive;
-    miss[i] = (alive && !fit) ? 1.0f : 0.0f;
+    a.miss[j] = (alive && !fit) ? 1.0f : 0.0f;
     if (alive) min_alive = min(min_alive, row);
     if (!upd) {
-      ncell[i] = row - row_off;
-      nx[i] = xv; ny[i] = yv; nz[i] = zv;
-      nux[i] = uxv; nuy[i] = uyv; nuz[i] = uzv; ng[i] = gv;
-      if (kWork) nwork[i] = w_in;
+      if constexpr (kPacked) ncell_f[i] = cellf;
+      else ncell_i[i] = cell;
+      a.nx[i] = xv; a.ny[i] = yv; a.nz[i] = zv;
+      a.nux[i] = uxv; a.nuy[i] = uyv; a.nuz[i] = uzv; a.ng[i] = gv;
+      if (kWork) a.nwork[i] = w_in;
       if (kFull) {
-        nprev[i] = xv;
-        ngh[i] = 1.0f;
-        nchi[i] = 0.0f;
+        a.nprev[j] = xv;
+        a.ngh[j] = 1.0f;
+        a.nchi[j] = 0.0f;
       }
       continue;
     }
@@ -155,11 +197,11 @@ fused_push_deposit_kernel(
     float Ex = 0.0f, Ey = 0.0f, Ez = 0.0f, By = 0.0f, Bz = 0.0f;
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
-      const int j = rel - 1 + t;
-      const float dj = d - (float)j;
+      const int jt = rel - 1 + t;
+      const float dj = d - (float)jt;
       const float ce = w2(dj);          // edge taps (Ey, Ez)
       const float cc = w2(dj - 0.5f);   // centred taps (Ex, By, Bz)
-      const float* e = win + j * 6;
+      const float* e = win + jt * 6;
       Ex = Ex + cc * e[0];
       Ey = Ey + ce * e[1];
       Ez = Ez + ce * e[2];
@@ -177,6 +219,7 @@ fused_push_deposit_kernel(
       const float umz = uzv + k.alpha * Ez;
       const float um2 = (umx * umx + umy * umy) + umz * umz;
       const float gam = 1.0f + um2 / (1.0f + sqrtf(1.0f + um2));
+      if (kFull) gh = gam;
       const float tb = k.alpha / gam;
       const float upx = umx + tb * (umy * cBz - umz * cBy);
       const float upy = umy + tb * (umz * cBx - umx * cBz);
@@ -246,16 +289,17 @@ fused_push_deposit_kernel(
     xn = xn - fl;
     const float prevn = xv - fl;
 
-    ncell[i] = celln - row_off;
-    nx[i] = xn;
-    ny[i] = yv + vty * k.dt;
-    nz[i] = zv + vtz * k.dt;
-    nux[i] = unx; nuy[i] = uny; nuz[i] = unz; ng[i] = gn;
-    if (kWork) nwork[i] = wk;
+    if constexpr (kPacked) ncell_f[i] = (float)(celln - row_off);
+    else ncell_i[i] = celln - row_off;
+    a.nx[i] = xn;
+    a.ny[i] = yv + vty * k.dt;
+    a.nz[i] = zv + vtz * k.dt;
+    a.nux[i] = unx; a.nuy[i] = uny; a.nuz[i] = unz; a.ng[i] = gn;
+    if (kWork) a.nwork[i] = wk;
     if (kFull) {
-      nprev[i] = prevn;
-      ngh[i] = gh;
-      nchi[i] = chi;
+      a.nprev[j] = prevn;
+      a.ngh[j] = gh;
+      a.nchi[j] = chi;
     }
     min_fit = min(min_fit, celln);
     if constexpr (!kDeposit) continue;
@@ -301,7 +345,7 @@ fused_push_deposit_kernel(
       ma = min(ma, warp_min[1][w]);
     }
     const int amin = mf == sent ? ma : mf;
-    anchors_next[b] = max(2, min(amin - 1, n_rows - W - 2));
+    a.anchors_next[b] = max(2, min(amin - 1, n_rows - W - 2));
   }
 
   // ---- flush the tile into the slab (rows base-2 .. base+W+1) ---------
@@ -310,25 +354,17 @@ fused_push_deposit_kernel(
       const float v = tile[i];
       const int r = base - 2 + i / kCols;
       if (v != 0.0f && r >= 0 && r < n_rows)
-        atomicAdd(out + (int64_t)r * kCols + i % kCols, v);
+        atomicAdd(a.out + (int64_t)r * kCols + i % kCols, v);
     }
   }
 }
 
-struct Args {
-  const int* anchors; const int* cell; const float* x; const float* y;
-  const float* z; const float* ux; const float* uy; const float* uz;
-  const float* gamma; const float* weight; const float* work_in;
-  const float* eb; int* ncell; float* nx; float* ny; float* nz;
-  float* nux; float* nuy; float* nuz; float* ng; float* nwork;
-  float* nprev; float* ngh; float* nchi; float* miss; int* anchors_next;
-  float* out;
-};
-
-template <bool kBoris, bool kWork, bool kFull, bool kDeposit>
-int launch(const Args& a, long long nblk, int block, int window,
-           int n_rows, int row_off, int pad, Consts k, cudaStream_t stream) {
-  auto kernel = fused_push_deposit_kernel<kBoris, kWork, kFull, kDeposit>;
+template <bool kBoris, bool kWork, bool kFull, bool kDeposit, bool kPacked>
+int launch(const Args& a, long long nblk, int64_t s_h, int64_t s_a,
+           int block, int window, int n_rows, int row_off, int pad,
+           Consts k, cudaStream_t stream) {
+  auto kernel =
+      fused_push_deposit_kernel<kBoris, kWork, kFull, kDeposit, kPacked>;
   const size_t smem = sizeof(float) *
       ((size_t)window * 6 + (kDeposit ? (size_t)(window + 4) * kCols : 0));
   if (smem > 48 * 1024) {
@@ -337,23 +373,20 @@ int launch(const Args& a, long long nblk, int block, int window,
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<(unsigned)nblk, kThreads, smem, stream>>>(
-      a.anchors, a.cell, a.x, a.y, a.z, a.ux, a.uy, a.uz, a.gamma,
-      a.weight, a.work_in, a.eb, a.ncell, a.nx, a.ny, a.nz, a.nux, a.nuy,
-      a.nuz, a.ng, a.nwork, a.nprev, a.ngh, a.nchi, a.miss, a.anchors_next,
-      a.out, block, window, n_rows, row_off, pad, k);
+      a, s_h, s_a, block, window, n_rows, row_off, pad, k);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// boris: 0 Vay, 1 Boris.  work_out: carry the work column (nwork must
-// then be non-null; work_in null outputs the bare increment).  full:
-// write prev_x, gh and chi (nprev, ngh, nchi non-null).  deposit: add
-// into the slab `out` (non-null); without it `out` must be null.  Only
-// the forms the PIC step runs are built: Vay with the work column, lite
-// or full (electrons), and lite Boris without it (ions), each with and
-// without the deposit; any other combination returns
-// cudaErrorInvalidValue.
+// The column layout.  boris: 0 Vay, 1 Boris.  work_out: carry the work
+// column (nwork must then be non-null; work_in null outputs the bare
+// increment).  full: write prev_x, gh and chi (nprev, ngh, nchi
+// non-null).  deposit: add into the slab `out` (non-null); without it
+// `out` must be null.  Only the forms the PIC step runs are built: Vay
+// with the work column, lite or full (electrons), and lite Boris without
+// it (ions), each with and without the deposit; any other combination
+// returns cudaErrorInvalidValue.
 extern "C" int opal_fused_push_deposit(
     const int* anchors, const int* cell, const float* x, const float* y,
     const float* z, const float* ux, const float* uy, const float* uz,
@@ -373,19 +406,55 @@ extern "C" int opal_fused_push_deposit(
   if ((out != nullptr) != (deposit != 0)) return (int)cudaErrorInvalidValue;
   const long long nblk = n / block;
   if (nblk == 0) return 0;
-  const Args a{anchors, cell, x, y, z, ux, uy, uz, gamma, weight, work_in,
-               eb, ncell, nx, ny, nz, nux, nuy, nuz, ng, nwork, nprev, ngh,
-               nchi, miss, anchors_next, out};
+  const Args a{cell, x, y, z, ux, uy, uz, gamma, weight, work_in, eb,
+               ncell, nx, ny, nz, nux, nuy, nuz, ng, nwork, nprev, ngh,
+               nchi, miss, anchors, anchors_next, out};
   const Consts k{charge, alpha, c, kwork, dt, talpha, kx, inv_dt, inv_dx,
                  crit};
   cudaStream_t s = (cudaStream_t)stream;
-#define OPAL_LAUNCH(B, F, D) \
-  launch<B, !B, F, D>(a, nblk, block, window, n_rows, row_off, pad, k, s)
+#define OPAL_LAUNCH(B, F, D)                                              \
+  launch<B, !B, F, D, false>(a, nblk, block, block, block, window, n_rows, \
+                             row_off, pad, k, s)
   if (boris) return deposit ? OPAL_LAUNCH(true, false, true)
                             : OPAL_LAUNCH(true, false, false);
   if (full) return deposit ? OPAL_LAUNCH(false, true, true)
                            : OPAL_LAUNCH(false, true, false);
   return deposit ? OPAL_LAUNCH(false, false, true)
                  : OPAL_LAUNCH(false, false, false);
+#undef OPAL_LAUNCH
+}
+
+// The packed layout: H (nblk, 9, block) and the output Hn of the same
+// shape, A (nblk, 4, block), weight (nblk, block), all f32.  boris: 0
+// Vay, 1 Boris; deposit: add into the slab `out` (non-null), or not
+// (`out` null).  Four forms, all with the full outputs and the work
+// column.
+extern "C" int opal_fused_push_deposit_packed(
+    const int* anchors, const float* H, const float* weight, const float* eb,
+    float* Hn, float* A, int* anchors_next, float* out, long long nblk,
+    int block, int window, int n_rows, int row_off, int pad, int boris,
+    int deposit, float charge, float alpha, float c, float kwork, float dt,
+    float talpha, float kx, float inv_dt, float inv_dx, float crit,
+    void* stream) {
+  if (block <= 0 || nblk < 0 || !H || !Hn || !A || !weight)
+    return (int)cudaErrorInvalidValue;
+  if ((out != nullptr) != (deposit != 0)) return (int)cudaErrorInvalidValue;
+  if (nblk == 0) return 0;
+  const int64_t bs = block;
+  // H_COLS: cell x y z ux uy uz gamma work; A_COLS: prev_x chi gh miss
+  const Args a{H, H + bs, H + 2 * bs, H + 3 * bs, H + 4 * bs, H + 5 * bs,
+               H + 6 * bs, H + 7 * bs, weight, H + 8 * bs, eb,
+               Hn, Hn + bs, Hn + 2 * bs, Hn + 3 * bs, Hn + 4 * bs,
+               Hn + 5 * bs, Hn + 6 * bs, Hn + 7 * bs, Hn + 8 * bs,
+               A, A + 2 * bs, A + bs, A + 3 * bs, anchors, anchors_next,
+               out};
+  const Consts k{charge, alpha, c, kwork, dt, talpha, kx, inv_dt, inv_dx,
+                 crit};
+  cudaStream_t s = (cudaStream_t)stream;
+#define OPAL_LAUNCH(B, D)                                                   \
+  launch<B, true, true, D, true>(a, nblk, kHCols * bs, kACols * bs, block, \
+                                 window, n_rows, row_off, pad, k, s)
+  if (boris) return deposit ? OPAL_LAUNCH(true, true) : OPAL_LAUNCH(true, false);
+  return deposit ? OPAL_LAUNCH(false, true) : OPAL_LAUNCH(false, false);
 #undef OPAL_LAUNCH
 }

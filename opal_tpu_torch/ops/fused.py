@@ -9,9 +9,14 @@ launched by ``fused_push_deposit``) in the forms the step reaches: the
 Vay push for electrons, with the work column, lite or full (the QED
 outputs chi, gamma at the half step and prev_x as well), and the lite
 Boris push for ions, without it; each with the deposit on or skipped
-(``dep_skip``, decks without current deposition).  The CUDA kernel is
-``csrc/fused_push_deposit.cu``; :func:`fused_push_deposit_reference` is
-the same function in plain PyTorch ops.
+(``dep_skip``, decks without current deposition).  It is also the port
+of the packed-layout kernel (``_kernel_packed`` launched by
+``fused_push_deposit_packed``, below :data:`H_COLS`): the same physics
+with the full outputs on a species packed into one hot matrix.  The
+CUDA kernel of both is ``csrc/fused_push_deposit.cu``;
+:func:`fused_push_deposit_reference` and
+:func:`fused_push_deposit_packed_reference` are the same functions in
+plain PyTorch ops.
 
 Shape contract (as in the JAX kernel)
 -------------------------------------
@@ -38,6 +43,7 @@ them into (J, rho).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -123,36 +129,13 @@ def _reach_rows(spec: FusedSpec):
     return PAD + 2, spec.n_rows - PAD - 3
 
 
-def fused_push_deposit_reference(spec: FusedSpec, anchors, cell, x, y, z,
-                                 ux, uy, uz, gamma, weight_, work, eb_rows):
-    """Plain PyTorch version of the fused kernel, vectorized over all
-    rows.  Same arguments and results as :func:`fused_push_deposit`.
-
-    The arithmetic follows the JAX kernel operation by operation (same
-    association, constants rounded to f32 once), so on a card the CUDA
-    kernel, built without FMA contraction, reproduces its push columns
-    bit for bit; the deposit slab differs only by summation order."""
-    _check_form(spec)
-    n = cell.shape[0]
-    BS, W, n_rows = spec.block, spec.window, spec.n_rows
-    nblk = n // BS
-    k = {name: float(v) for name, v in _scalars(spec).items()}
-
-    base = anchors.long().repeat_interleave(BS)
-    row = cell.long() + spec.row_off
-    rel = row - base
+def _gather(eb_rows, row, rel, x, fit, n_rows):
+    """The field gather of the kernel: the 4 live b-spline taps, rows
+    rel-1 .. rel+2, summed from 0 in ascending order (the JAX W-cell
+    loop adds exact zeros for every other cell, so the sums are the
+    same), zeroed on rows that do not fit their window."""
     relf = rel.to(F32)
-    q = weight_ * k["charge"]
-    lo_row, hi_row = _reach_rows(spec)
-    fit = (rel >= 1) & (rel <= W - 3) & (row >= lo_row) & (row <= hi_row)
-    alive = q != 0.0
-    miss = alive & ~fit
-    upd = fit & alive
     fitf = fit.to(F32)
-
-    # ---- field gather: the 4 live b-spline taps, rows rel-1 .. rel+2,
-    # summed from 0 in ascending order (the JAX W-cell loop adds exact
-    # zeros for every other cell, so the sums are the same) ----------
     d = relf + x
     zero = torch.zeros_like(x)
     Ex, Ey, Ez, By, Bz = zero, zero, zero, zero, zero
@@ -167,13 +150,21 @@ def fused_push_deposit_reference(spec: FusedSpec, anchors, cell, x, y, z,
         By = By + cc * e[:, 4]
         Bz = Bz + cc * e[:, 5]
     Bx = zero + eb_rows[torch.clamp(row, 0, n_rows - 1), 3]
-    Ex, Ey, Ez, Bx, By, Bz = (f * fitf for f in (Ex, Ey, Ez, Bx, By, Bz))
+    return tuple(f * fitf for f in (Ex, Ey, Ez, Bx, By, Bz))
 
+
+def _push(spec: FusedSpec, k: dict, ux, uy, uz, gamma, work_in, fields,
+          full: bool):
+    """The momentum update (``opal_tpu/ops/fused.py::_push_core``).
+    Returns (unx, uny, unz, gn, ign, gh, chi, work, vty, vtz); gh, chi
+    and work are ``None`` where the form does not compute them: Vay
+    computes gh with ``full`` or a work column, the work with a work
+    column and chi with ``full``; Boris has gh (its gamma at the half
+    rotation) and chi 0 with ``full``, and passes the work through."""
+    Ex, Ey, Ez, Bx, By, Bz = fields
     C = k["c"]
     alpha = k["alpha"]
-    work_in = None
-    if spec.work_out:
-        work_in = torch.zeros_like(ux) if spec.work_inc else work
+    gh = chi = None
     wk = work_in
     if spec.pusher == "boris":
         # ---- Boris push (ion.rs:168-214), gamma-1 cancellation-free --
@@ -183,6 +174,8 @@ def fused_push_deposit_reference(spec: FusedSpec, anchors, cell, x, y, z,
         umz = uz + alpha * Ez
         um2 = umx * umx + umy * umy + umz * umz
         gam = 1.0 + um2 / (1.0 + torch.sqrt(1.0 + um2))
+        if full:
+            gh, chi = gam, torch.zeros_like(ux)
         # a true division: ``float / tensor`` is a reciprocal and a
         # product in PyTorch, two roundings where the kernel has one
         tb = torch.full_like(gam, alpha) / gam
@@ -202,49 +195,70 @@ def fused_push_deposit_reference(spec: FusedSpec, anchors, cell, x, y, z,
         ign = 1.0 / gn
         # transverse positions advance with the NEW velocity
         vty, vtz = C * uny * ign, C * unz * ign
-    else:
-        # ---- Vay push (electron.rs:268-330) --------------------------
-        ig = 1.0 / gamma
-        vx, vy, vz = C * ux * ig, C * uy * ig, C * uz * ig
-        uhx = ux + alpha * (Ex + (vy * Bz - vz * By))
-        uhy = uy + alpha * (Ey + (vz * Bx - vx * Bz))
-        uhz = uz + alpha * (Ez + (vx * By - vy * Bx))
-        if spec.work_out or not spec.lite:
-            gh = torch.sqrt(1.0 + uhx * uhx + uhy * uhy + uhz * uhz)
-        if spec.work_out:
-            wk = work_in + k["kwork"] * (
-                uhx * Ex + uhy * Ey + uhz * Ez) * k["dt"] / gh
-        if not spec.lite:
-            # chi from F.u at the half step; a true division by the
-            # critical field (``tensor / float`` is a product with the
-            # reciprocal on CUDA)
-            fx = gh * Ex + C * (uhy * Bz - uhz * By)
-            fy = gh * Ey + C * (uhz * Bx - uhx * Bz)
-            fz = gh * Ez + C * (uhx * By - uhy * Bx)
-            eu = Ex * uhx + Ey * uhy + Ez * uhz
-            f2 = fx * fx + fy * fy + fz * fz - eu * eu
-            chi = torch.sqrt(torch.clamp(f2, min=0.0)) / torch.full_like(
-                f2, k["crit"])
-        upx = uhx + alpha * Ex
-        upy = uhy + alpha * Ey
-        upz = uhz + alpha * Ez
-        gp2 = 1.0 + upx * upx + upy * upy + upz * upz
-        ta = k["talpha"]
-        tvx, tvy, tvz = ta * Bx, ta * By, ta * Bz
-        ustar = upx * tvx + upy * tvy + upz * tvz
-        t2 = tvx * tvx + tvy * tvy + tvz * tvz
-        sig = gp2 - t2
-        gn = torch.sqrt(
-            0.5 * sig + torch.sqrt(0.25 * sig * sig + t2 + ustar * ustar))
-        ign = 1.0 / gn
-        itx, ity, itz = tvx * ign, tvy * ign, tvz * ign
-        s = 1.0 / (1.0 + itx * itx + ity * ity + itz * itz)
-        udt = upx * itx + upy * ity + upz * itz
-        unx = s * (upx + udt * itx + (upy * itz - upz * ity))
-        uny = s * (upy + udt * ity + (upz * itx - upx * itz))
-        unz = s * (upz + udt * itz + (upx * ity - upy * itx))
-        # transverse positions advance with the OLD velocity
-        vty, vtz = vy, vz
+        return unx, uny, unz, gn, ign, gh, chi, wk, vty, vtz
+
+    # ---- Vay push (electron.rs:268-330) ------------------------------
+    ig = 1.0 / gamma
+    vx, vy, vz = C * ux * ig, C * uy * ig, C * uz * ig
+    uhx = ux + alpha * (Ex + (vy * Bz - vz * By))
+    uhy = uy + alpha * (Ey + (vz * Bx - vx * Bz))
+    uhz = uz + alpha * (Ez + (vx * By - vy * Bx))
+    if work_in is not None or full:
+        gh = torch.sqrt(1.0 + uhx * uhx + uhy * uhy + uhz * uhz)
+    if work_in is not None:
+        wk = work_in + k["kwork"] * (
+            uhx * Ex + uhy * Ey + uhz * Ez) * k["dt"] / gh
+    if full:
+        # chi from F.u at the half step; a true division by the
+        # critical field (``tensor / float`` is a product with the
+        # reciprocal on CUDA)
+        fx = gh * Ex + C * (uhy * Bz - uhz * By)
+        fy = gh * Ey + C * (uhz * Bx - uhx * Bz)
+        fz = gh * Ez + C * (uhx * By - uhy * Bx)
+        eu = Ex * uhx + Ey * uhy + Ez * uhz
+        f2 = fx * fx + fy * fy + fz * fz - eu * eu
+        chi = torch.sqrt(torch.clamp(f2, min=0.0)) / torch.full_like(
+            f2, k["crit"])
+    upx = uhx + alpha * Ex
+    upy = uhy + alpha * Ey
+    upz = uhz + alpha * Ez
+    gp2 = 1.0 + upx * upx + upy * upy + upz * upz
+    ta = k["talpha"]
+    tvx, tvy, tvz = ta * Bx, ta * By, ta * Bz
+    ustar = upx * tvx + upy * tvy + upz * tvz
+    t2 = tvx * tvx + tvy * tvy + tvz * tvz
+    sig = gp2 - t2
+    gn = torch.sqrt(
+        0.5 * sig + torch.sqrt(0.25 * sig * sig + t2 + ustar * ustar))
+    ign = 1.0 / gn
+    itx, ity, itz = tvx * ign, tvy * ign, tvz * ign
+    s = 1.0 / (1.0 + itx * itx + ity * ity + itz * itz)
+    udt = upx * itx + upy * ity + upz * itz
+    unx = s * (upx + udt * itx + (upy * itz - upz * ity))
+    uny = s * (upy + udt * ity + (upz * itx - upx * itz))
+    unz = s * (upz + udt * itz + (upx * ity - upy * itx))
+    # transverse positions advance with the OLD velocity
+    return unx, uny, unz, gn, ign, gh, chi, wk, vy, vz
+
+
+def _step(spec: FusedSpec, anchors, row, x, ux, uy, uz, gamma, q, work_in,
+          eb_rows, full: bool):
+    """Fit test, gather, push and x advance of every row, and the next
+    window bases (``_kernel_block``/``_kernel_packed`` up to their
+    write-back).  ``row`` is the table row (cell + row_off), ``q`` the
+    macrocharge.  Returns a dict of the intermediate tensors."""
+    BS, W, n_rows = spec.block, spec.window, spec.n_rows
+    nblk = row.shape[0] // BS
+    k = {name: float(v) for name, v in _scalars(spec).items()}
+    base = anchors.long().repeat_interleave(BS)
+    rel = row - base
+    lo_row, hi_row = _reach_rows(spec)
+    fit = (rel >= 1) & (rel <= W - 3) & (row >= lo_row) & (row <= hi_row)
+    alive = q != 0.0
+    upd = fit & alive
+    fields = _gather(eb_rows, row, rel, x, fit, n_rows)
+    unx, uny, unz, gn, ign, gh, chi, wk, vty, vtz = _push(
+        spec, k, ux, uy, uz, gamma, work_in, fields, full)
 
     # ---- x advance and the +-1 cell shift (sign of floor) -----------
     xn = x + k["kx"] * unx * ign
@@ -253,25 +267,6 @@ def fused_push_deposit_reference(spec: FusedSpec, anchors, cell, x, y, z,
     xn = xn - fl
     prevn = x - fl
 
-    cols = dict(
-        cell=(torch.where(upd, celln, row) - spec.row_off).to(torch.int32),
-        x=torch.where(upd, xn, x),
-        y=torch.where(upd, y + vty * k["dt"], y),
-        z=torch.where(upd, z + vtz * k["dt"], z),
-        ux=torch.where(upd, unx, ux),
-        uy=torch.where(upd, uny, uy),
-        uz=torch.where(upd, unz, uz),
-        gamma=torch.where(upd, gn, gamma),
-    )
-    if spec.work_out:
-        cols["winc" if spec.work_inc else "work"] = torch.where(
-            upd, wk, work_in)
-    if not spec.lite:
-        # rows not updated are inert in the emission rate: rate(0) = 0
-        cols.update(prev_x=torch.where(upd, prevn, x),
-                    gh=torch.where(upd, gh, 1.0),
-                    chi=torch.where(upd, chi, 0.0))
-
     # ---- next window bases: per-block minimum of the post-push fit
     # rows, or of the alive rows' pre-push cells when none fit --------
     sent = n_rows
@@ -279,15 +274,22 @@ def fused_push_deposit_reference(spec: FusedSpec, anchors, cell, x, y, z,
     amin_alive = torch.where(alive, row, sent).view(nblk, BS).amin(dim=1)
     amin = torch.where(amin_fit == sent, amin_alive, amin_fit)
     anchors_next = torch.clamp(amin - 1, 2, n_rows - W - 2).to(torch.int32)
-    if spec.dep_skip:
-        return cols, miss.to(F32), None, anchors_next
+    return dict(k=k, upd=upd, miss=(alive & ~fit).to(F32), unx=unx,
+                uny=uny, unz=unz, gn=gn, ign=ign, gh=gh, chi=chi, work=wk,
+                vty=vty, vtz=vtz, xn=xn, celln=celln, prevn=prevn,
+                q=q, anchors_next=anchors_next)
 
-    # ---- charge-conserving deposit of the 16 unshifted tap columns ---
-    qd = torch.where(upd, q, 0.0)
+
+def _deposit(spec: FusedSpec, r: dict):
+    """The charge-conserving deposit of the updated rows' 16 unshifted
+    tap columns into a new (n_rows, 16) slab."""
+    k, upd = r["k"], r["upd"]
+    xn, prevn, ign = r["xn"], r["prevn"], r["ign"]
+    qd = torch.where(upd, r["q"], 0.0)
     qf = qd * k["inv_dt"]
     qx = qd * k["inv_dx"]
-    qy = qx * (C * uny * ign)
-    qz = qx * (C * unz * ign)
+    qy = qx * (k["c"] * r["uny"] * ign)
+    qz = qx * (k["c"] * r["unz"] * ign)
     w_m1 = weight(1.0 + xn)
     w_0 = weight(xn)
     w_p1 = weight(1.0 - xn)
@@ -301,9 +303,51 @@ def fused_push_deposit_reference(spec: FusedSpec, anchors, cell, x, y, z,
         dim=1,
     )
     vals = torch.where(upd[:, None], vals, 0.0)
-    out = torch.zeros((n_rows, 16), dtype=F32, device=x.device)
-    out.index_add_(0, torch.where(upd, celln, 0), vals)
-    return cols, miss.to(F32), out, anchors_next
+    out = torch.zeros((spec.n_rows, 16), dtype=F32, device=xn.device)
+    out.index_add_(0, torch.where(upd, r["celln"], 0), vals)
+    return out
+
+
+def fused_push_deposit_reference(spec: FusedSpec, anchors, cell, x, y, z,
+                                 ux, uy, uz, gamma, weight_, work, eb_rows):
+    """Plain PyTorch version of the fused kernel, vectorized over all
+    rows.  Same arguments and results as :func:`fused_push_deposit`.
+
+    The arithmetic follows the JAX kernel operation by operation (same
+    association, constants rounded to f32 once), so on a card the CUDA
+    kernel, built without FMA contraction, reproduces its push columns
+    bit for bit; the deposit slab differs only by summation order."""
+    _check_form(spec)
+    work_in = None
+    if spec.work_out:
+        work_in = torch.zeros_like(ux) if spec.work_inc else work
+    row = cell.long() + spec.row_off
+    r = _step(spec, anchors, row, x, ux, uy, uz, gamma,
+              weight_ * float(spec.charge), work_in, eb_rows,
+              full=not spec.lite)
+    upd = r["upd"]
+    dt = r["k"]["dt"]
+    cols = dict(
+        cell=(torch.where(upd, r["celln"], row) - spec.row_off).to(
+            torch.int32),
+        x=torch.where(upd, r["xn"], x),
+        y=torch.where(upd, y + r["vty"] * dt, y),
+        z=torch.where(upd, z + r["vtz"] * dt, z),
+        ux=torch.where(upd, r["unx"], ux),
+        uy=torch.where(upd, r["uny"], uy),
+        uz=torch.where(upd, r["unz"], uz),
+        gamma=torch.where(upd, r["gn"], gamma),
+    )
+    if spec.work_out:
+        cols["winc" if spec.work_inc else "work"] = torch.where(
+            upd, r["work"], work_in)
+    if not spec.lite:
+        # rows not updated are inert in the emission rate: rate(0) = 0
+        cols.update(prev_x=torch.where(upd, r["prevn"], x),
+                    gh=torch.where(upd, r["gh"], 1.0),
+                    chi=torch.where(upd, r["chi"], 0.0))
+    out = None if spec.dep_skip else _deposit(spec, r)
+    return cols, r["miss"], out, r["anchors_next"]
 
 
 def _check_form(spec: FusedSpec):
@@ -418,14 +462,229 @@ def fused_push_deposit(spec: FusedSpec, anchors, cell, x, y, z, ux, uy, uz,
     return out_cols, miss, out, anchors_next
 
 
-#: the kernel forms the step can reach, by :func:`form_name`
-FORMS = ("vay", "vay_dep_skip", "vay_full", "vay_full_dep_skip", "boris",
-         "boris_dep_skip")
+# ----------------------------------------------------------------------
+# The packed layout (opal_tpu/ops/fused.py:895-1131)
+# ----------------------------------------------------------------------
+#
+# A fused species may ride the step as ONE hot matrix
+#
+#     h: (nblk, 9, RB, 128) f32   columns H_COLS (cell as f32 .. work)
+#
+# read and written by the kernel, an aux matrix the kernel derives every
+# step (prev_x chi gh miss), and a read-only weight array whose sign is
+# the alive mask.  opal_tpu packed it for the TPU's DMA engine (one
+# block read instead of ~24); on a GPU each column of a block is still a
+# contiguous run of ``block`` values, so the packed kernel is the column
+# kernel with other strides.  The layout's semantics are opal_tpu's: the
+# cell is stored as f32 (exact below 2**24), dead rows have weight 0,
+# ions carry a zero work column, and the work integral accumulates in
+# f32 inside h even under mixed precision (cast back on unpack).
 
-#: kernel launches of each form since the counts were last reset
-#: (chip_smoke.py reads them to show the main path ran through the
-#: kernel)
+#: hot-matrix columns (kernel input and output)
+H_COLS = ("cell", "x", "y", "z", "ux", "uy", "uz", "gamma", "work")
+#: aux-matrix columns (kernel output only, re-derived every step)
+A_COLS = ("prev_x", "chi", "gh", "miss")
+
+
+@dataclasses.dataclass
+class PackedState:
+    """Fused-species state in the packed hot/aux layout; ``tau`` (the
+    electrons' optical depth) stays a column outside the kernel."""
+
+    h: torch.Tensor                # (nblk, len(H_COLS), RB, 128) f32
+    aux: torch.Tensor              # (nblk, len(A_COLS), RB, 128) f32
+    weight: torch.Tensor           # (nblk, RB, 128) f32; alive: > 0
+    tau: torch.Tensor | None       # (n,) or None
+
+
+def pack_fused(st, block: int) -> PackedState:
+    """``ParticleState`` of an electron or ion species -> ``PackedState``
+    (``opal_tpu/ops/fused.py::pack_fused``)."""
+    n = st.x.shape[0]
+    nblk, RB = n // block, block // 128
+    to4 = lambda a: a.to(F32).reshape(nblk, RB, 128)
+    zero = torch.zeros((nblk, RB, 128), dtype=F32, device=st.x.device)
+    hc = dict(
+        cell=to4(st.cell), x=to4(st.x), y=to4(st.y), z=to4(st.z),
+        ux=to4(st.ux), uy=to4(st.uy), uz=to4(st.uz), gamma=to4(st.gamma),
+        work=to4(st.work) if st.work is not None else zero,
+    )
+    ac = dict(
+        prev_x=to4(st.prev_x),
+        chi=to4(st.chi) if st.chi is not None else zero,
+        gh=torch.ones_like(zero), miss=zero,
+    )
+    return PackedState(
+        h=torch.stack([hc[c] for c in H_COLS], dim=1),
+        aux=torch.stack([ac[c] for c in A_COLS], dim=1),
+        weight=to4(torch.where(st.alive, st.weight, 0.0)),
+        tau=st.tau,
+    )
+
+
+def unpack_fused(ps: PackedState, template):
+    """``PackedState`` -> ``ParticleState`` with the template's dtypes
+    and its other columns; alive is ``weight > 0``, and the f32 work
+    column is cast to the template's (f64 under mixed precision)."""
+    n = template.x.shape[0]
+    flat = lambda a: a.reshape(n)
+    w = flat(ps.weight).to(template.weight.dtype)
+    rep = dict(
+        cell=flat(ps.h[:, 0]).to(template.cell.dtype),
+        x=flat(ps.h[:, 1]), y=flat(ps.h[:, 2]), z=flat(ps.h[:, 3]),
+        ux=flat(ps.h[:, 4]), uy=flat(ps.h[:, 5]), uz=flat(ps.h[:, 6]),
+        gamma=flat(ps.h[:, 7]), prev_x=flat(ps.aux[:, 0]),
+        weight=w, alive=w > 0,
+    )
+    if template.work is not None:
+        rep["work"] = flat(ps.h[:, 8]).to(template.work.dtype)
+    if template.chi is not None:
+        rep["chi"] = flat(ps.aux[:, 1])
+    if template.tau is not None:
+        rep["tau"] = ps.tau
+    return dataclasses.replace(template, **rep)
+
+
+def packed_form_name(spec: FusedSpec) -> str:
+    """The packed kernel form a spec launches: the pusher, ``_packed``,
+    and ``_dep_skip`` without the deposit.  The packed kernel always
+    writes the full outputs and carries the work column, so the spec's
+    ``lite``, ``work_out`` and ``work_inc`` do not apply to it."""
+    return spec.pusher + "_packed" + ("_dep_skip" if spec.dep_skip else "")
+
+
+def fused_push_deposit_packed_reference(spec: FusedSpec, anchors, H,
+                                        weight_, eb_rows):
+    """Plain PyTorch version of the packed kernel
+    (``opal_tpu/ops/fused.py::_kernel_packed`` and the anchor clip of
+    ``fused_push_deposit_packed``); same arguments and results as
+    :func:`fused_push_deposit_packed`.  The physics is the column
+    version's (:func:`_step`, :func:`_deposit`), with the full outputs
+    and the work read from and accumulated into ``H``."""
+    nblk, CH, RB, _ = H.shape
+    n = nblk * RB * 128
+    col = lambda c: H[:, c].reshape(n)
+    cellf, x, y, z, ux, uy, uz, g, work_in = (col(c) for c in range(CH))
+    row = cellf.to(torch.int32).long() + spec.row_off
+    r = _step(spec, anchors, row, x, ux, uy, uz, g,
+              weight_.reshape(n) * float(spec.charge), work_in, eb_rows,
+              full=True)
+    upd = r["upd"]
+    dt = r["k"]["dt"]
+    hn = (
+        torch.where(upd, (r["celln"] - spec.row_off).to(F32), cellf),
+        torch.where(upd, r["xn"], x),
+        torch.where(upd, y + r["vty"] * dt, y),
+        torch.where(upd, z + r["vtz"] * dt, z),
+        torch.where(upd, r["unx"], ux),
+        torch.where(upd, r["uny"], uy),
+        torch.where(upd, r["unz"], uz),
+        torch.where(upd, r["gn"], g),
+        torch.where(upd, r["work"], work_in),
+    )
+    an = (
+        torch.where(upd, r["prevn"], x),
+        torch.where(upd, r["chi"], 0.0),
+        torch.where(upd, r["gh"], 1.0),
+        r["miss"],
+    )
+    to4 = lambda a: a.view(nblk, RB, 128)
+    out = None if spec.dep_skip else _deposit(spec, r)
+    return (torch.stack([to4(a) for a in hn], dim=1),
+            torch.stack([to4(a) for a in an], dim=1), out,
+            r["anchors_next"])
+
+
+def _check_packed_args(spec: FusedSpec, anchors, H, weight_, eb_rows):
+    if H.dim() != 4 or tuple(H.shape[1:2] + H.shape[3:]) != (
+            len(H_COLS), 128):
+        raise ValueError(f"H has shape {tuple(H.shape)}, want "
+                         f"(nblk, {len(H_COLS)}, RB, 128)")
+    nblk, _, RB, _ = H.shape
+    if spec.block != RB * 128:
+        raise ValueError(f"block {spec.block} is not RB * 128 = {RB * 128}")
+    if spec.window + 4 > spec.n_rows:
+        raise ValueError("window + 4 must not exceed the field table rows")
+    want = dict(anchors=((nblk,), torch.int32), H=(tuple(H.shape), F32),
+                weight=((nblk, RB, 128), F32),
+                eb_rows=((spec.n_rows, 8), F32))
+    for name, t in dict(anchors=anchors, H=H, weight=weight_,
+                        eb_rows=eb_rows).items():
+        shape, dtype = want[name]
+        if t.device != H.device:
+            raise ValueError(f"{name} is on {t.device}, H on {H.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
+
+
+def fused_push_deposit_packed(spec: FusedSpec, anchors, H, weight_,
+                              eb_rows):
+    """Run the fused kernel over the packed layout: ``H`` (nblk, 9, RB,
+    128) in the columns :data:`H_COLS`, ``weight_`` (nblk, RB, 128),
+    ``anchors`` (nblk,) int32, the (n_rows, 8) field table; ``spec.block
+    == RB * 128``.
+
+    CPU tensors go through :func:`fused_push_deposit_packed_reference`;
+    CUDA tensors launch the CUDA kernel (``csrc/fused_push_deposit.cu``,
+    its packed forms) on the current stream, or raise.
+
+    Returns ``(H_new, A_new, out_slab, anchors_next)``: the updated hot
+    matrix, the aux matrix (nblk, 4, RB, 128) in the columns
+    :data:`A_COLS`, the (n_rows, 16) deposit slab (``None`` with
+    ``dep_skip``) and the window bases for the next step."""
+    if H.device.type == "cpu":
+        return fused_push_deposit_packed_reference(spec, anchors, H,
+                                                   weight_, eb_rows)
+    if H.device.type != "cuda":
+        raise ValueError(f"no fused kernel for device {H.device}")
+    if spec.pusher not in ("vay", "boris"):
+        raise ValueError(f"no packed kernel for pusher {spec.pusher!r}")
+    _check_packed_args(spec, anchors, H, weight_, eb_rows)
+    from .._build import library
+
+    lib = library()
+    nblk = H.shape[0]
+    H_new = torch.empty_like(H)
+    A_new = torch.empty((nblk, len(A_COLS)) + tuple(H.shape[2:]),
+                        dtype=F32, device=H.device)
+    anchors_next = torch.empty_like(anchors)
+    out = (None if spec.dep_skip else
+           torch.zeros((spec.n_rows, 16), dtype=F32, device=H.device))
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+    k = _scalars(spec)
+    with torch.cuda.device(H.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.opal_fused_push_deposit_packed(
+            ptr(anchors), ptr(H), ptr(weight_), ptr(eb_rows), ptr(H_new),
+            ptr(A_new), ptr(anchors_next), ptr(out), nblk, spec.block,
+            spec.window, spec.n_rows, spec.row_off, PAD,
+            int(spec.pusher == "boris"), int(not spec.dep_skip),
+            *(k[c] for c in ("charge", "alpha", "c", "kwork", "dt",
+                             "talpha", "kx", "inv_dt", "inv_dx", "crit")),
+            ctypes.c_void_p(stream),
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"fused_push_deposit_packed kernel failed: cudaError {rc}")
+    fused_push_deposit_packed.launches[packed_form_name(spec)] += 1
+    return H_new, A_new, out, anchors_next
+
+
+#: the kernel forms the step can reach, by :func:`form_name` (column
+#: layout) and :func:`packed_form_name` (packed layout)
+FORMS = ("vay", "vay_dep_skip", "vay_full", "vay_full_dep_skip", "boris",
+         "boris_dep_skip", "vay_packed", "vay_packed_dep_skip",
+         "boris_packed", "boris_packed_dep_skip")
+
+#: kernel launches of each form since the counts were last reset, one
+#: dict for both layouts' wrappers (chip_smoke.py reads it to show the
+#: main path ran through the kernel)
 fused_push_deposit.launches = dict.fromkeys(FORMS, 0)
+fused_push_deposit_packed.launches = fused_push_deposit.launches
 
 
 def make_eb_rows(E_slab, B_slab):

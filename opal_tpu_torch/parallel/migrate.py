@@ -2,9 +2,11 @@
 
 Ports of ``opal_tpu/parallel/migrate.py``'s ``sort_state``
 (``:494-569``) and ``migrate_edges`` (``:679-903``) for cell-sorted
-species, of ``opal_tpu/sim.py``'s ``_wrap_kill`` for the others, at
-one device, and of ``insert`` (``:572-``), which places emitted photons
-into dead slots.  The JAX versions move the state as one packed float
+species, and of their packed-layout forms ``sort_packed``,
+``migrate_edges_packed`` and ``_edges_packed_full`` (``:905-1101``), of
+``opal_tpu/sim.py``'s ``_wrap_kill`` for the others, at one device, and
+of ``insert`` (``:572-``), which places emitted photons into dead
+slots.  The JAX versions move the state as one packed float
 matrix; here every
 column moves at its own dtype (cells stay integers, and the
 field-dtype ``work`` column of mixed-precision runs is never rounded
@@ -215,6 +217,142 @@ def _edges_core(W: dict, geom: GridGeometry, tot_l, tot_r, K: int, cap: int):
     W = {k: _put(v, dest_r, from_right[k]) for k, v in W.items()}
     ins_overflow = vl.sum() + vr.sum() - ok_l.sum() - ok_r.sum()
     return W, overflow + ins_overflow
+
+
+def _packed_columns(ps, rows_of):
+    """The window columns of a ``PackedState`` by name (``H_COLS``,
+    ``A_COLS``, ``weight`` and ``tau``): ``rows_of(a)`` takes the
+    window's rows of a flat column.  ``tau`` rides at f32 as in
+    opal_tpu's packed window matrix; ``alive`` is ``weight > 0``."""
+    from ..ops.fused import A_COLS, H_COLS
+
+    n = ps.weight.numel()
+    flat = lambda a: a.reshape(n)
+    W = {c: rows_of(flat(ps.h[:, i])) for i, c in enumerate(H_COLS)}
+    W.update({c: rows_of(flat(ps.aux[:, i])) for i, c in enumerate(A_COLS)})
+    W["weight"] = rows_of(flat(ps.weight))
+    if ps.tau is not None:
+        W["tau"] = rows_of(ps.tau).to(ps.h.dtype)
+    W["alive"] = W["weight"] > 0.0
+    return W
+
+
+def _packed_totals(ps, geom: GridGeometry):
+    """Alive rows left of and right of the local slab, over the whole
+    state."""
+    alive, cell = ps.weight > 0.0, ps.h[:, 0]
+    return (torch.sum(alive & (cell < 0.0)),
+            torch.sum(alive & (cell >= geom.n_loc)))
+
+
+def migrate_edges_packed(ps, geom: GridGeometry, send_capacity: int,
+                         window: int):
+    """:func:`migrate_edges` on the packed layout (``ops.fused.
+    PackedState``, ``opal_tpu/parallel/migrate.py:905-1014``): the head
+    and tail windows are whole blocks, ``kb = max(2, ceil(window /
+    block))`` of them, the tail's placed on the block that holds the
+    alive/dead boundary less half a window, so the boundary lies inside
+    it wherever it falls in its block.  The shared :func:`_edges_core`
+    runs the exchange on their rows; retired rows get weight 0, the dead
+    encoding of the layout.  A state of fewer than ``2 * kb`` blocks is
+    exchanged over all its rows (:func:`_edges_packed_full`).
+
+    Returns ``(PackedState, overflow)``."""
+    nblk, _, RB, _ = ps.h.shape
+    block = RB * 128
+    kb = max(2, -(-window // block))
+    if nblk < 2 * kb:
+        return _edges_packed_full(ps, geom, send_capacity)
+    K = kb * block
+    cap = int(min(send_capacity, K // 2))
+    dev = ps.h.device
+
+    n_alive = torch.sum(ps.weight > 0.0)
+    # block-aligned tail window centred on the alive/dead boundary
+    b0 = torch.clamp(torch.div(n_alive - K // 2, block, rounding_mode="floor"),
+                     kb, nblk - kb)
+    ab = torch.arange(kb, device=dev)
+    bidx = torch.cat([ab, b0 + ab])
+    ar = torch.arange(K, device=dev)
+    ridx = torch.cat([ar, b0 * block + ar])
+    tot_l, tot_r = _packed_totals(ps, geom)
+    W, overflow = _edges_core(_packed_columns(ps, lambda a: a[ridx]), geom,
+                              tot_l, tot_r, K, cap)
+    return _packed_put(ps, W, bidx, ridx), overflow
+
+
+def _packed_put(ps, W: dict, bidx, ridx):
+    """A copy of ``ps`` with the window columns ``W`` written back into
+    the blocks ``bidx`` (rows ``ridx`` of ``tau``)."""
+    from ..ops.fused import A_COLS, H_COLS, PackedState
+
+    nb = bidx.shape[0]
+    shape = (nb,) + tuple(ps.weight.shape[1:])
+    stack = lambda names: torch.stack([W[c].view(shape) for c in names],
+                                      dim=1)
+    h, aux, weight = ps.h.clone(), ps.aux.clone(), ps.weight.clone()
+    h[bidx] = stack(H_COLS)
+    aux[bidx] = stack(A_COLS)
+    weight[bidx] = W["weight"].view(shape)
+    tau = ps.tau
+    if tau is not None:
+        tau = tau.clone()
+        tau[ridx] = W["tau"].to(tau.dtype)
+    return PackedState(h=h, aux=aux, weight=weight, tau=tau)
+
+
+def _edges_packed_full(ps, geom: GridGeometry, send_capacity: int):
+    """Whole-state fallback of :func:`migrate_edges_packed`
+    (``opal_tpu/parallel/migrate.py:1064-1101``) for states too small
+    for block-aligned windows: head = rows [0, n/2), tail = rows [n/2,
+    n), so window placement can miss nothing."""
+    nblk = ps.h.shape[0]
+    n = ps.weight.numel()
+    K = n // 2
+    cap = int(min(send_capacity, K // 2))
+    dev = ps.h.device
+    tot_l, tot_r = _packed_totals(ps, geom)
+    W, overflow = _edges_core(_packed_columns(ps, lambda a: a), geom,
+                              tot_l, tot_r, K, cap)
+    return _packed_put(ps, W, torch.arange(nblk, device=dev),
+                       torch.arange(n, device=dev)), overflow
+
+
+def sort_packed(ps, n_loc: int):
+    """:func:`sort_state` on the packed layout
+    (``opal_tpu/parallel/migrate.py:1017-1061``): alive rows ascending by
+    ``2*cell + (ux > 0)``, dead rows (weight <= 0) to the tail under the
+    placeholder cell ``n_loc - 1``; gamma is rebuilt, prev_x set to x,
+    chi zeroed and gh reset, as :func:`sort_state` does, and tau rides
+    at the hot matrix's f32 as in opal_tpu.  Equal keys keep their
+    order (a stable sort).  Returns ``(PackedState, cell)``, ``cell`` the
+    sorted f32 cell column."""
+    from ..ops.fused import PackedState
+
+    nblk, CH, RB, _ = ps.h.shape
+    n = nblk * RB * 128
+    flat = lambda a: a.reshape(n)
+    cell, x, y, z, ux, uy, uz, _, work = (flat(ps.h[:, c])
+                                          for c in range(CH))
+    weight = flat(ps.weight)
+    dead = weight <= 0.0
+    cell = torch.where(dead, float(n_loc - 1), cell)
+    skey = torch.where(
+        dead, _BIG,
+        2 * cell.to(torch.int32) + (ux > 0.0).to(torch.int32))
+    order = torch.argsort(skey, stable=True)
+    cell, x, y, z, ux, uy, uz, work, weight = (
+        a[order] for a in (cell, x, y, z, ux, uy, uz, work, weight))
+    gamma = torch.sqrt(1.0 + ux * ux + uy * uy + uz * uz)
+    to4 = lambda a: a.view(nblk, RB, 128)
+    h = torch.stack([to4(c) for c in (cell, x, y, z, ux, uy, uz, gamma,
+                                      work)], dim=1)
+    zero = torch.zeros_like(to4(x))
+    aux = torch.stack([to4(x), zero, torch.ones_like(zero), zero], dim=1)
+    tau = ps.tau
+    if tau is not None:
+        tau = tau[order].to(ps.h.dtype).to(tau.dtype)
+    return PackedState(h=h, aux=aux, weight=to4(weight), tau=tau), cell
 
 
 def wrap_kill(state: ParticleState, geom: GridGeometry):

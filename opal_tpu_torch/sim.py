@@ -8,7 +8,8 @@ and ``opal_tpu/sim.py``'s (``:1020-1247``), on one device:
    non-periodic edges);
 2. push each species: the fused CUDA kernel (gather + Vay push for
    electrons or Boris push for ions [+ deposit]) plus the compacted
-   unfused fallback for rows outside their block window, or the unfused
+   unfused fallback for rows outside their block window, on the column
+   layout or, with ``packed_fused``, on the packed one, or the unfused
    ops for species the kernel cannot take (photons fly ballistically);
    with emission on, the electrons' optical depths fall by the emission
    rate at the half-step chi and gamma;
@@ -46,7 +47,9 @@ from .ops.pusher import (
 )
 from .qed import emission
 from .parallel import halo
-from .parallel.migrate import migrate_edges, sort_state, wrap_kill
+from .parallel.migrate import (
+    migrate_edges, migrate_edges_packed, sort_packed, sort_state, wrap_kill,
+)
 from .species import ParticleState, SpeciesSpec, kinetic_energy_weights
 
 
@@ -77,6 +80,9 @@ class SimOptions:
     # the field dtype (f64) and rounds only the stored state
     push_f64_compute: bool = False
     seed: int = 0
+    # the edge exchange (off: a bench ablation; the fused kernel then
+    # serves no species, as in opal_tpu)
+    migration: bool = True
     # leavers sent per side per exchange; more are counted as losses
     migration_capacity: int = 4096
     # upper bound on any particle's per-step cell drift, in cells (the
@@ -91,6 +97,12 @@ class SimOptions:
     fused_block: int = 4096
     fused_window: int = 32
     fused_misfit_capacity: int = 1024
+    # the packed layout for fused species (ops.fused.PackedState): run()
+    # packs them once on entry and unpacks them once on exit, and the
+    # step runs the packed kernel on them; not with QED emission, whose
+    # passes read columns.  Under mixed precision the work integral then
+    # accumulates in f32 inside the packed matrix, as in opal_tpu
+    packed_fused: bool = False
     # resort cadence R: a local re-sort (migrate.sort_state) opens every
     # R-step period; between sorts the kernel re-anchors each block from
     # its own fit-row minimum
@@ -159,16 +171,30 @@ class Simulation:
     def _n_rows(self) -> int:
         return self.geom.n_loc + 2 * HALO + 2 * F.PAD
 
-    def _fused_applicable(self, name, st: ParticleState) -> bool:
+    def _fused_applicable(self, name, st) -> bool:
         """Whether the fused kernel can serve this species."""
+        if isinstance(st, F.PackedState):
+            return True  # only packed because it was applicable
         opt = self.options
         return (
             opt.fused_pusher
+            and opt.migration
             and self.specs[name].kind in ("electron", "ion")
             and st.x.dtype == torch.float32
             and st.x.shape[0] % opt.fused_block == 0
             # window read/write (base-2 .. base+W+2) must fit the table
             and opt.fused_window + 4 <= self._n_rows
+        )
+
+    def _packed_applicable(self, name, st) -> bool:
+        """Whether ``run`` packs this species (``opal_tpu/sim.py:
+        487-500``): fused-applicable, QED emission off, not packed
+        yet."""
+        return (
+            self.options.packed_fused
+            and not self.options.photon_emission
+            and not isinstance(st, F.PackedState)
+            and self._fused_applicable(name, st)
         )
 
     def _fused_spec(self, name) -> F.FusedSpec:
@@ -270,7 +296,7 @@ class Simulation:
 
         Returns (state, J_add, rho_add, losses, anchors_next); J_add and
         rho_add are ``None`` without current deposition."""
-        opt, geom = self.options, self.geom
+        opt = self.options
         spec = self.specs[name]
         fspec = self._fused_spec(name)
         eb = F.make_eb_rows(E_slab, B_slab)
@@ -318,17 +344,9 @@ class Simulation:
             for k, v in upd.items():
                 v[idx] = fb[k].to(v.dtype)
             if opt.current_deposition:
-                u_fb = torch.stack([fb["ux"], fb["uy"], fb["uz"]], dim=1)
-                vel = const.SPEED_OF_LIGHT * u_fb / fb["gamma"][:, None]
-                out_slab = F.deposit_into_slab(
-                    out_slab, fb["cell"] + fspec.row_off, fb["x"],
-                    fb["prev_x"], m_q, vel, geom.dx, opt.dt,
-                )
-                # deposit-reach violations drop taps: counted as losses
-                viol = (m_q != 0.0) & (
-                    (m_cell < -(HALO - 2)) | (m_cell > geom.n_loc + HALO - 3)
-                )
-                losses = losses + viol.sum()
+                out_slab, lost = self._fallback_deposit(out_slab, fb, m_cell,
+                                                        m_q)
+                losses = losses + lost
         J_add = rho_add = None
         if out_slab is not None:
             J_add, rho_add = F.fold_out_slab(out_slab)
@@ -336,6 +354,86 @@ class Simulation:
             dataclasses.replace(st, **upd), J_add, rho_add, losses,
             anchors_next,
         )
+
+    def _fallback_deposit(self, out_slab, fb, m_cell, m_q):
+        """Deposit the misfit fallback's pushed rows ``fb`` (pre-push
+        cells ``m_cell``, macrocharges ``m_q``) into the kernel's tap
+        slab.  Rows past the deposit reach drop taps: they are counted
+        as losses.  Returns (out_slab, losses)."""
+        geom, opt = self.geom, self.options
+        u_fb = torch.stack([fb["ux"], fb["uy"], fb["uz"]], dim=1)
+        vel = const.SPEED_OF_LIGHT * u_fb / fb["gamma"][:, None]
+        out_slab = F.deposit_into_slab(
+            out_slab, fb["cell"] + HALO + F.PAD, fb["x"], fb["prev_x"], m_q,
+            vel, geom.dx, opt.dt,
+        )
+        viol = (m_q != 0.0) & (
+            (m_cell < -(HALO - 2)) | (m_cell > geom.n_loc + HALO - 3)
+        )
+        return out_slab, viol.sum()
+
+    def _packed_push_deposit(self, name, ps: F.PackedState, E_slab, B_slab,
+                             anchors):
+        """:meth:`_fused_push_deposit` on the packed layout
+        (``opal_tpu/sim.py:723-827``): the packed kernel, then the
+        compacted unfused fallback for its misfit rows, which gathers
+        and scatters them through flat indices into the hot and aux
+        matrices.  Electrons in the fallback accumulate the f32 work
+        column of the hot matrix; ions pass theirs through.  QED is off
+        here (:meth:`_packed_applicable`), so there is no tau update.
+
+        Returns (PackedState, J_add, rho_add, losses, anchors_next)."""
+        opt = self.options
+        spec = self.specs[name]
+        fspec = self._fused_spec(name)
+        eb = F.make_eb_rows(E_slab, B_slab)
+        h, aux, out_slab, anchors_next = F.fused_push_deposit_packed(
+            fspec, anchors, ps.h, ps.weight, eb)
+
+        nblk, CH, RB, _ = h.shape
+        CA = aux.shape[1]
+        block = RB * 128
+        n = nblk * block
+        mtab, losses = F.misfit_compact(
+            aux[:, F.A_COLS.index("miss")].reshape(n),
+            opt.fused_misfit_capacity)
+        # one host read per step, as in the column path; the table is
+        # ascending with the unused slots (== n) at its end, so its
+        # first n_mis entries are exactly the misfit rows
+        n_mis = int((mtab < n).sum())
+        if n_mis:
+            idx = mtab[:n_mis]
+            # flat indices of each row's columns: indexing h[blk, :, ...]
+            # across the column dim would copy h transposed
+            blk, pin = idx // block, idx % block
+            hidx = (blk * (CH * block) + pin)[:, None] + block * torch.arange(
+                CH, device=idx.device)[None, :]
+            rows = h.view(-1)[hidx]
+            m_cell = rows[:, 0].to(torch.int32)
+            m_q = ps.weight.view(-1)[idx] * float(spec.charge)
+            electron = spec.kind == "electron"
+            fb = self._push_rows(
+                name, m_cell, rows[:, 1], rows[:, 2], rows[:, 3],
+                rows[:, 4:7], rows[:, 7], rows[:, 8] if electron else None,
+                E_slab, B_slab,
+            )
+            h.view(-1)[hidx] = torch.stack(
+                [fb["cell"].to(torch.float32)]
+                + [fb[c] for c in F.H_COLS[1:8]]
+                + [fb["work"] if electron else rows[:, 8]], dim=1)
+            aidx = (blk * (CA * block) + pin)[:, None] + block * torch.arange(
+                2, device=idx.device)[None, :]
+            chi = fb["chi"] if electron else torch.zeros_like(fb["x"])
+            aux.view(-1)[aidx] = torch.stack([fb["prev_x"], chi], dim=1)
+            if opt.current_deposition:
+                out_slab, lost = self._fallback_deposit(out_slab, fb, m_cell,
+                                                        m_q)
+                losses = losses + lost
+        J_add = rho_add = None
+        if out_slab is not None:
+            J_add, rho_add = F.fold_out_slab(out_slab)
+        return (F.PackedState(h=h, aux=aux, weight=ps.weight, tau=ps.tau),
+                J_add, rho_add, losses, anchors_next)
 
     # ------------------------------------------------------------------
     # schedule
@@ -365,11 +463,25 @@ class Simulation:
 
     def _migrate(self, name, st):
         opt = self.options
+        if isinstance(st, F.PackedState):
+            return migrate_edges_packed(
+                st, self.geom, opt.migration_capacity, opt.migration_window
+            )
         if self._fused_applicable(name, st):
             return migrate_edges(
                 st, self.geom, opt.migration_capacity, opt.migration_window
             )
         return wrap_kill(st, self.geom)
+
+    def _sort(self, name, st):
+        """The maintenance sort of a fused species, either layout, and
+        the window bases of its sorted blocks: (state, anchors)."""
+        if isinstance(st, F.PackedState):
+            st, cell = sort_packed(st, self.geom.n_loc)
+        else:
+            st = sort_state(st, self.geom.n_loc)
+            cell = st.cell
+        return st, F.block_anchors(self._fused_spec(name), cell)
 
     def _sort_phase(self, c: Carry) -> Carry:
         """Maintenance sort of every fused species + fresh block
@@ -377,9 +489,7 @@ class Simulation:
         species, anchors = dict(c.species), dict(c.anchors)
         for name in self.specs:
             if self._fused_applicable(name, species[name]):
-                st = sort_state(species[name], self.geom.n_loc)
-                anchors[name] = F.block_anchors(self._fused_spec(name), st.cell)
-                species[name] = st
+                species[name], anchors[name] = self._sort(name, species[name])
         return c._replace(species=species, anchors=anchors)
 
     def _migrate_phase(self, c: Carry) -> Carry:
@@ -407,19 +517,20 @@ class Simulation:
             st = species[name]
             if self._fused_applicable(name, st):
                 if inline_sort:
-                    st = sort_state(st, geom.n_loc)
-                    anch = F.block_anchors(self._fused_spec(name), st.cell)
+                    st, anch = self._sort(name, st)
                 else:
                     anch = anchors[name]
-                st, J_add, rho_add, losses, anchors[name] = (
-                    self._fused_push_deposit(name, st, E_slab, B_slab, anch)
-                )
+                push = (self._packed_push_deposit
+                        if isinstance(st, F.PackedState)
+                        else self._fused_push_deposit)
+                st, J_add, rho_add, losses, anchors[name] = push(
+                    name, st, E_slab, B_slab, anch)
                 if J_add is not None:
                     fused_dep[name] = (J_add, rho_add)
                 counters[name] = counters[name] + losses
             else:
                 st = self._push_species(name, st, E_slab, B_slab)
-            if inline_migrate:
+            if opt.migration and inline_migrate:
                 st, ovf = self._migrate(name, st)
                 counters[name] = counters[name] + ovf
             species[name] = st
@@ -490,14 +601,19 @@ class Simulation:
         any_fused = any(
             self._fused_applicable(n, species[n]) for n in self.specs
         )
-        inline_migrate = M == 1
+        # the packed layout: packed once here, unpacked once at the end
+        templates = {n: species[n] for n in self.specs
+                     if self._packed_applicable(n, species[n])}
+        species = {**species, **{n: F.pack_fused(st, opt.fused_block)
+                                 for n, st in templates.items()}}
+        inline_migrate = not opt.migration or M == 1
         inline_sort = any_fused and R == 1
         sort_phase = any_fused and R > 1
         Mb = 1 if inline_migrate else M
         # placeholders: the sort phase computes the bases before the
         # first fused step of every run
         anchors = {
-            n: torch.full((species[n].x.shape[0] // opt.fused_block,), 2,
+            n: torch.full((species[n].weight.numel() // opt.fused_block,), 2,
                           dtype=torch.int32, device=self.device)
             for n in self.specs if self._fused_applicable(n, species[n])
         }
@@ -520,7 +636,9 @@ class Simulation:
             R_eff = max(Mb, (R // Mb) * Mb)
             for lo in range(0, nsteps, R_eff):
                 c = blocks(self._sort_phase(c), min(R_eff, nsteps - lo))
-        return c.E, c.B, c.J, c.rho, c.species, c.t, c.counters
+        species = {**c.species, **{n: F.unpack_fused(c.species[n], tmpl)
+                                   for n, tmpl in templates.items()}}
+        return c.E, c.B, c.J, c.rho, species, c.t, c.counters
 
     # ------------------------------------------------------------------
     # public API

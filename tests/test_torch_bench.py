@@ -1,0 +1,159 @@
+"""The port's bench twin (``python -m opal_tpu_torch.bench``) on the CPU
+at a tiny size, and the port's CUDA defaults of ``convert``.
+
+The twin must print exactly one JSON line with ``bench.py``'s keys,
+size its deck by ``bench.py``'s rules, void a run that counts a loss
+with ``bench.py``'s error line, refuse the flags it does not port with
+exit code 1, and without a card exit 1 unless ``--device cpu`` is
+given.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from opal_tpu_torch import bench
+from opal_tpu_torch.convert import fields_from_numpy, state_from_numpy
+
+pytestmark = pytest.mark.unit
+
+TINY = ["--device", "cpu", "--particles", "8192", "--nx", "64",
+        "--fused-block", "256", "--steps", "8"]
+KEYS = {"metric", "value", "unit", "vs_baseline", "vs_node_proxy"}
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["column", "packed"])
+def test_bench_prints_one_line(packed, capsys, monkeypatch):
+    """Both layouts: one JSON line with bench.py's keys (and the
+    device), a positive rate, and every step of the three blocks through
+    the kernel's form of that layout."""
+    from opal_tpu_torch.ops import fused as F
+
+    calls = {"column": 0, "packed": 0}
+    real = {"column": F.fused_push_deposit,
+            "packed": F.fused_push_deposit_packed}
+
+    def spy(name):
+        def call(*args):
+            calls[name] += 1
+            return real[name](*args)
+        return call
+
+    monkeypatch.setattr(F, "fused_push_deposit", spy("column"))
+    monkeypatch.setattr(F, "fused_push_deposit_packed", spy("packed"))
+    argv = TINY + (["--packed"] if packed else [])
+    assert bench.main(argv) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1
+    line = json.loads(out[0])
+    assert KEYS <= line.keys() and "error" not in line
+    assert line["metric"] == "macroparticle-pushes/sec/chip"
+    assert line["unit"] == "pushes/s" and line["device"] == "cpu"
+    assert line["value"] > 0
+    assert line["vs_baseline"] == pytest.approx(line["value"] / 3.2e8)
+    assert line["vs_node_proxy"] == pytest.approx(line["value"] / 1.1e9)
+    want = {"column": 0, "packed": 0}
+    want["packed" if packed else "column"] = 3 * 8
+    assert calls == want
+
+
+def test_bench_sizing_follows_bench_py(monkeypatch):
+    """The default deck's auto-sizing (``bench.py:296-495``): 8*2**20
+    electrons over nx 1024, block 8192, window 12, sort every 320 steps
+    and exchange every 160, misfit capacity 256, capacity factor 1.25,
+    the migration window and capacity of bench.py's formulas; the state
+    itself is not drawn here (``build`` would)."""
+    import opal_tpu_torch.sim as S
+
+    args = bench._parser().parse_args([])
+    sim_kw = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_sim(geom, opts, specs, **kw):
+        sim_kw.update(geom=geom, opts=opts, **kw)
+        raise Stop
+
+    monkeypatch.setattr(S, "Simulation", fake_sim)
+    with pytest.raises(Stop):
+        bench.build(args)
+    opts = sim_kw["opts"]
+    assert (args.nx, args.steps, args.fused_block, args.fused_resort,
+            args.migrate_every, args.misfit_capacity,
+            args.capacity_factor) == (1024, 1024, 8192, 320, 160, 256, 1.25)
+    assert (opts.fused_window, opts.fused_resort_every, opts.migration_every,
+            opts.fused_misfit_capacity) == (12, 320, 160, 256)
+    assert opts.migration_window == 49_480 and opts.migration_capacity == 19_064
+    assert opts.max_drift_cells_per_step == 0.0095
+    assert opts.fused_pusher and not opts.packed_fused
+    assert sim_kw["dtype"] == torch.float32 and sim_kw["geom"].nx == 1024
+
+
+@pytest.mark.parametrize("steps,spp,want", [
+    (1024, -1, 1024),   # auto at 8.39M particles: one call a block
+    (400, 192, 134),    # bench.py's floor gave 200, above the limit
+    (10, 0, 10),
+    (10, 3, 3),
+])
+def test_chunks_never_exceed_steps_per_program(steps, spp, want):
+    got = bench.chunk_steps(steps, spp, 8 * 2**20)
+    assert got == want
+    assert spp <= 0 or got <= spp
+
+
+def test_bench_loss_voids_the_run(capsys):
+    """A window far too narrow for the block (8 cells for a block of 8192
+    rows over 64 cells) sends most rows to a misfit fallback of 256:
+    the overflow is a counted loss, and the line is bench.py's error
+    line with value 0."""
+    argv = ["--device", "cpu", "--particles", "8192", "--nx", "64",
+            "--fused-block", "8192", "--fused-window", "8", "--steps", "4"]
+    assert bench.main(argv) == 0
+    cap = capsys.readouterr()
+    out = cap.out.strip().splitlines()
+    assert len(out) == 1
+    line = json.loads(out[0])
+    assert line["value"] == 0.0 and line["vs_baseline"] == 0.0
+    assert line["error"].startswith("invalid: buffer-overflow particle losses")
+    assert "# ERROR buffer-overflow particle losses" in cap.err
+
+
+@pytest.mark.parametrize("flag", [
+    ["--qed"], ["--no-absorption"], ["--chi", "0.1"],
+    ["--absorption-block", "16"], ["--absorption-active", "64"],
+    ["--emission-active", "64"], ["--devices", "4"], ["--aot"],
+    ["--mxu-gather"], ["--dynamic-gather"], ["--sort-rowgather"],
+    ["--fused-subblocks", "4"], ["--sorted-pipeline"], ["--no-lite"],
+])
+def test_bench_refuses_unported_flags(flag, capsys):
+    assert bench.main(TINY + flag) == 1
+    cap = capsys.readouterr()
+    assert cap.out == ""
+    assert cap.err.startswith(f"opal_tpu_torch.bench: {flag[0]} is not ported")
+
+
+def test_bench_without_card_exits_1(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert bench.main(TINY[2:]) == 1
+    cap = capsys.readouterr()
+    assert cap.out == "" and "no CUDA device" in cap.err
+    assert "--device cpu" in cap.err
+
+
+def test_convert_defaults_to_the_card():
+    """``state_from_numpy`` and ``fields_from_numpy`` put their tensors
+    on the CUDA device unless asked for the CPU: without a card the
+    default raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cols = {"cell": np.zeros(4, np.int32), "x": np.zeros(4, np.float32)}
+    assert state_from_numpy(cols, device="cpu").x.device.type == "cpu"
+    with pytest.raises((AssertionError, RuntimeError)):
+        state_from_numpy(cols)
+    a = np.zeros((4, 3))
+    with pytest.raises((AssertionError, RuntimeError)):
+        fields_from_numpy(a, a, a, a[:, 0])

@@ -303,7 +303,7 @@ def _edge_state(sort):
     jg, tg = _geoms()
     cols = to_numpy(_ion_init(initialize, tg, np.float64, device="cpu"))
     if sort:
-        cols = to_numpy(TM.sort_state(state_from_numpy(cols), tg.n_loc))
+        cols = to_numpy(TM.sort_state(state_from_numpy(cols, device="cpu"), tg.n_loc))
     live = np.flatnonzero(cols["alive"])
     moves = {live[0]: -1, live[1]: 2, live[2]: 3, live[-1]: tg.n_loc,
              live[-2]: tg.interior_end, live[-3]: tg.interior_end + 5}
@@ -322,7 +322,8 @@ def test_migrate_edges_non_periodic():
                                 128)
 
     js, jovf = _one_device(dev, _jax_state(cols))
-    ts, tovf = TM.migrate_edges(state_from_numpy(cols), tg, 64, 128)
+    ts, tovf = TM.migrate_edges(state_from_numpy(cols, device="cpu"), tg,
+                                64, 128)
     tc = to_numpy(ts)
     assert int(tovf) == int(jovf) == 0
     jc = {k: np.asarray(getattr(js, k)) for k in cols}
@@ -345,7 +346,7 @@ def test_wrap_kill_non_periodic():
         return JM.migrate(st, jg, "x", jax.lax.axis_index("x"), 64)
 
     js, jovf = _one_device(dev, _jax_state(cols))
-    ts, tovf = TM.wrap_kill(state_from_numpy(cols), tg)
+    ts, tovf = TM.wrap_kill(state_from_numpy(cols, device="cpu"), tg)
     assert int(tovf) == int(jovf) == 0
     jc = _lexsorted({k: np.asarray(getattr(js, k)) for k in cols})
     tc = _lexsorted(to_numpy(ts))

@@ -78,7 +78,7 @@ def test_sort_state():
     perm = rng.permutation(CAP)
     cols = {k: v[perm] for k, v in cols.items()}
     js = jax.jit(lambda s: JM.sort_state(s, NX))(_jax_state(cols))
-    ts = TM.sort_state(state_from_numpy(cols), NX)
+    ts = TM.sort_state(state_from_numpy(cols, device="cpu"), NX)
     jc = {k: np.asarray(getattr(js, k)) for k in cols}
     tc = to_numpy(ts)
     for c in (jc, tc):
@@ -101,7 +101,8 @@ def test_migrate_edges(send_capacity):
     """Leavers on both sides of a sorted state (cells -1 and NX, as a
     push leaves them) re-enter on the other side; with a send capacity
     of 4 some are lost and counted."""
-    cols = to_numpy(TM.sort_state(state_from_numpy(_host_state(2)), NX))
+    cols = to_numpy(TM.sort_state(
+        state_from_numpy(_host_state(2), device="cpu"), NX))
     alive = cols["alive"]
     left = np.flatnonzero(alive & (cols["cell"] == 0))[:6]
     right = np.flatnonzero(alive & (cols["cell"] == NX - 1))[-5:]
@@ -115,8 +116,8 @@ def test_migrate_edges(send_capacity):
         return JM.migrate_edges(st, jg, "x", 0, send_capacity, window)
 
     js, jovf = _one_device(dev, _jax_state(cols))
-    ts, tovf = TM.migrate_edges(state_from_numpy(cols), tg, send_capacity,
-                                window)
+    ts, tovf = TM.migrate_edges(state_from_numpy(cols, device="cpu"), tg,
+                                send_capacity, window)
     tc = to_numpy(ts)
     assert int(tovf) == int(jovf)
     assert (int(tovf) > 0) == (send_capacity < 6)

@@ -267,7 +267,8 @@ def test_insert_branches(branch):
     valid = rng.random(16) < 0.6
     valid[:2] = True
     js, jovf = JM.insert(_jstate(st), _jstate(buf), jnp.asarray(valid))
-    ts, tovf = TM.insert(state_from_numpy(st), state_from_numpy(buf),
+    ts, tovf = TM.insert(state_from_numpy(st, device="cpu"),
+                         state_from_numpy(buf, device="cpu"),
                          _t(valid))
     assert int(tovf) == int(jovf) == 0
     got = to_numpy(ts)
@@ -346,8 +347,8 @@ def test_emit_radiation():
     m, mi = emission_widths(TSimLike.options, 3200)
     draws = _jax_draws(jax.random.fold_in(key, 0), m, mi, np.float64)
     tsp, tlost, tdef = emit_radiation(
-        TSimLike, {"electron": state_from_numpy(e),
-                   "photon": state_from_numpy(ph)}, t, draws)
+        TSimLike, {"electron": state_from_numpy(e, device="cpu"),
+                   "photon": state_from_numpy(ph, device="cpu")}, t, draws)
     assert int(tlost) == int(jlost) == 0
     assert int(tdef) == int(jdef)
     n_emit = int((e["alive"] & (e["tau"] < 0)).sum())

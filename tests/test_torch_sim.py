@@ -113,8 +113,8 @@ def test_fused_mixed_precision_matches_opal_tpu():
                       SimOptions(**kw), {"electron": SpeciesSpec.electron()},
                       device="cpu", dtype=torch.float32,
                       field_dtype=torch.float64)
-    tout = tsim.run(*fields_from_numpy(E, B, J, rho),
-                    {"electron": state_from_numpy(host)}, 0.0,
+    tout = tsim.run(*fields_from_numpy(E, B, J, rho, device="cpu"),
+                    {"electron": state_from_numpy(host, device="cpu")}, 0.0,
                     tsim.zero_counters(), nsteps)
 
     assert counter_total(jout[6]["electron"]) == 0
