@@ -10,8 +10,9 @@ the port on the card, phase by phase, each printing one line or more:
 
 1. device: the card, the CUDA version and ``nvidia-smi``'s name and
    power limit (there is no CPU fallback: without a card this exits 1);
-2. build: ``nvcc`` of the kernel sources, and the compiler's resource
-   report;
+2. build: ``nvcc`` of the kernel sources, the compiler's registers and
+   spills of each kernel form, and the atomic instructions in each
+   form's SASS (``cuobjdump -sass``);
 3. kernel vs plain: the fused kernel against its plain PyTorch version
    on the same CUDA tensors, at the bench shape (8.39M electrons, nx
    1024, block 8192, window 12) and at the two_stream CLI shape (1e5
@@ -71,13 +72,19 @@ the port on the card, phase by phase, each printing one line or more:
     layout's form a step;
 16. the two_stream CLI drive of phase 4 with ``tpu: packed_fused: 1``:
     every step through the packed Vay form, no loss, energy drift below
-    1e-3.
+    1e-3;
+17. the deposit on row orders that break its fast path: at the bench
+    and two_stream CLI shapes, rows shuffled within each block, every
+    row of a block in one cell, two cells alternating row by row, and
+    dead and misfit rows interleaved (and at the CLI shape, blocks of
+    128 rows), through B1's lite Vay form and B2's ``vay_packed``
+    against their plain versions, with each case's device time.
 
 Kernel times (``ms``) are device time: 20 calls queued behind a
 device-side spin run back to back between two CUDA events.  The
 wrapper's whole call (``call_ms``) and the plain version's
 (``plain_ms``) are timed by CUDA events around each call, host launch
-included.  Phases 1-16 take about ten to
+included.  Phases 1-17 take about ten to
 fourteen minutes.  Any failed check raises, so the
 script exits non-zero without the final line.  Before the last line it
 prints one JSON object describing each kernel form of the paths, and
@@ -88,10 +95,13 @@ prints one JSON object describing each kernel form of the paths, and
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import dataclasses
 import io
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -152,6 +162,67 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return res.stdout.strip().splitlines()[0]
+
+
+#: the template arguments of one instantiation of the kernel in its
+#: mangled name: kBoris, kWork, kFull, kDeposit, kPacked
+_FORM_BITS = re.compile(r"fused_push_deposit_kernelILb([01])ELb([01])ELb([01])"
+                        r"ELb([01])ELb([01])E")
+
+
+def _form_of(mangled: str) -> str | None:
+    """The launch counts' name of the kernel form a mangled symbol
+    instantiates (``ops.fused.form_name``/``packed_form_name``)."""
+    m = _FORM_BITS.search(mangled)
+    if m is None:
+        return None
+    boris, _, full, deposit, packed = (b == "1" for b in m.groups())
+    name = ("boris" if boris else "vay") + (
+        "_packed" if packed else "_full" if full else "")
+    return name + ("" if deposit else "_dep_skip")
+
+
+def ptxas_report(log_text: str) -> dict:
+    """{form: "N registers, S B spill stores, L B spill loads"} from the
+    build's ``-Xptxas -v`` output."""
+    out, form, spill = {}, None, ""
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            form = _form_of(line)
+        elif "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            spill = f"{m[1]} B spill stores, {m[2]} B spill loads"
+        elif "Used" in line and "registers" in line and form is not None:
+            regs = re.search(r"Used (\d+) registers", line)[1]
+            out[form] = f"{regs} registers, {spill}"
+            form = None
+    return out
+
+
+def sass_atomics(lib: Path) -> dict | None:
+    """{form: {opcode: count}}: the atomic instructions (``ATOMS``
+    shared, ``ATOM``/``RED`` global) in each kernel form's SASS, read with
+    the toolkit's ``cuobjdump -sass``; None without cuobjdump."""
+    from opal_tpu_torch import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    res = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300, check=True)
+    out, form = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            form = _form_of(line)
+            if form is not None:
+                out[form] = collections.Counter()
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"((?:ATOMS|ATOMG|ATOM|RED)\b[\w.]*)", line)
+        if m and form is not None:
+            out[form][m[1]] += 1
+    return {f: dict(c) for f, c in out.items()}
 
 
 def cuda_ms(fn, reps=20):
@@ -238,23 +309,25 @@ def bound(spec, n_rows_state, n_pushed, packed=False):
 
 
 def kernel_vs_plain(label, st, spec, fields_seed=1, e_scale=10.0,
-                    b_scale=1e-8, phase=3):
-    """Compare the kernel with its plain version on one sorted state and
-    random E/B (E ~ ``e_scale`` V/m, B ~ ``b_scale`` T): the push columns
-    (with prev_x, gh and chi in the full form), ``miss`` and the next
-    anchors bitwise, the slab within 1e-5 of its scale; without the
-    deposit, no slab at all (the kernel is handed a null pointer, so a
-    write would fault).  Returns (max_abs_err, ms, plain_ms, bound_ms,
-    bound_by, call_ms): ``ms`` the device time of the wrapper's call
-    (the kernel, and with the deposit the slab's zero fill), ``call_ms``
-    and ``plain_ms`` the wrapper's and the plain version's calls timed as
-    a whole with CUDA events, host launch included."""
+                    b_scale=1e-8, phase=3, sort=True):
+    """Compare the kernel with its plain version on one state, sorted
+    first unless ``sort`` is false, and random E/B (E ~ ``e_scale`` V/m,
+    B ~ ``b_scale`` T): the push columns (with prev_x, gh and chi in the
+    full form), ``miss`` and the next anchors bitwise, the slab within
+    1e-5 of its scale; without the deposit, no slab at all (the kernel
+    is handed a null pointer, so a write would fault).  Returns
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by, call_ms): ``ms`` the
+    device time of the wrapper's call (the kernel, and with the deposit
+    the slab's zero fill), ``call_ms`` and ``plain_ms`` the wrapper's and
+    the plain version's calls timed as a whole with CUDA events, host
+    launch included."""
     from opal_tpu_torch.ops import fused as F
     from opal_tpu_torch.parallel.migrate import sort_state
 
     dev = st.x.device
     n_loc = spec.n_rows - 2 * F.PAD - 8
-    st = sort_state(st, n_loc)
+    if sort:
+        st = sort_state(st, n_loc)
     g = torch.Generator(device="cpu").manual_seed(fields_seed)
     E = (e_scale * torch.randn(n_loc + 8, 3, generator=g)).to(dev)
     B = (b_scale * torch.randn(n_loc + 8, 3, generator=g)).to(dev)
@@ -979,9 +1052,10 @@ def _random_table(spec, dev, fields_seed, e_scale, b_scale):
 
 
 def packed_vs_plain(label, ps, spec, fields_seed=1, e_scale=10.0,
-                    b_scale=1e-8):
-    """Phase 13, one form at one shape: kernel B2 against its plain
-    version on one sorted packed state and random E/B: the hot matrix,
+                    b_scale=1e-8, phase=13):
+    """Phase 13 (or ``phase``), one form at one shape: kernel B2 against
+    its plain version on one sorted packed state and random E/B: the hot
+    matrix,
     the aux matrix and the next anchors bitwise, the slab within 1e-5 of
     its scale, no slab without the deposit.  Returns (max_abs_err, ms,
     plain_ms, bound_ms, bound_by, call_ms), timed as
@@ -1012,7 +1086,7 @@ def packed_vs_plain(label, ps, spec, fields_seed=1, e_scale=10.0,
     n_alive = int((ps.weight > 0).sum())
     n_miss = int(Ak[:, 3].sum().item())
     bound_ms, bound_by = bound(spec, n, n_alive - n_miss, packed=True)
-    log(13, f"{label} ({F.packed_form_name(spec)}): rows {n} (alive "
+    log(phase, f"{label} ({F.packed_form_name(spec)}): rows {n} (alive "
             f"{n_alive}), block {spec.block}, window {spec.window}, n_rows "
             f"{spec.n_rows}: H, A and anchors bitwise equal; {slab_txt}; "
             f"misses {n_miss}; kernel {ms:.4f} ms of device time (20 calls "
@@ -1136,6 +1210,88 @@ def bench_twin(smi: str):
     return launches
 
 
+#: phase 17's row orders, each breaking the deposit's fast path (one
+#: tile row a warp)
+STRESS_ORDERS = ("shuffled within each block", "one cell a block",
+                 "two cells alternating row by row",
+                 "dead and misfit rows interleaved")
+
+
+def stress_state(st, block, window, order, seed=17):
+    """The sorted state ``st`` with its rows reordered or changed within
+    each block of ``block`` rows, as :data:`STRESS_ORDERS` names them: a
+    random permutation of each block; every row of a block moved to the
+    cell of the block's middle row, or to it and the next cell in turn;
+    every 5th row dead (weight 0) and every 7th moved ``window + 4``
+    cells up, past its block's window (a miss)."""
+    n = st.x.shape[0]
+    nblk = n // block
+    dev = st.x.device
+    if order == STRESS_ORDERS[0]:
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        perm = torch.argsort(torch.rand(nblk, block, generator=g), dim=1)
+        perm = (perm + block * torch.arange(nblk)[:, None]).reshape(-1)
+        perm = perm.to(dev)
+        return dataclasses.replace(
+            st, **{k: v[perm] for k, v in st.columns().items()})
+    r = torch.arange(n, device=dev)
+    mid = st.cell.view(nblk, block)[:, block // 2].repeat_interleave(block)
+    if order == STRESS_ORDERS[1]:
+        return dataclasses.replace(st, cell=mid)
+    if order == STRESS_ORDERS[2]:
+        return dataclasses.replace(st, cell=(mid + r % 2).to(st.cell.dtype))
+    dead = r % 5 == 3
+    cell = torch.where(r % 7 == 1, st.cell + (window + 4), st.cell)
+    return dataclasses.replace(
+        st, cell=cell.to(st.cell.dtype), alive=st.alive & ~dead,
+        weight=torch.where(dead, 0.0, st.weight))
+
+
+def stress_kernels():
+    """Phase 17: the deposit on row orders that break its fast path.  At
+    the bench shape and the two_stream CLI shape, for each of
+    :data:`STRESS_ORDERS`, and at the CLI shape also with blocks of 128
+    rows (half the CTA's threads without a row): B1's lite Vay form and
+    B2's ``vay_packed`` against their plain versions on the reordered
+    rows, with the checks and times of phases 3 and 13 (push columns,
+    H, A, miss and anchors bitwise, the slab within 1e-5 of its scale).
+    Returns {(shape, case, form): result of :func:`kernel_vs_plain` or
+    :func:`packed_vs_plain`}."""
+    from opal_tpu_torch import constants as const
+    from opal_tpu_torch.grid import HALO, GridGeometry
+    from opal_tpu_torch.ops import fused as F
+    from opal_tpu_torch.parallel.migrate import sort_state
+
+    dx = 500.0
+    dt = 0.95 * dx / const.SPEED_OF_LIGHT
+    out = {}
+    for shape, nx, npc, cap, block, window in (
+        ("bench", BENCH["nx"], BENCH["particles"] // BENCH["nx"],
+         10_485_760, BENCH["block"], BENCH["window"]),
+        ("two_stream CLI", 1000, 100, 155_648, 2048, 40),
+    ):
+        geom = GridGeometry(nx=nx, dx=dx, xmin=0.0, n_devices=1)
+        st = sort_state(two_stream_state(geom, npc, cap, dt, "cuda"), nx)
+        spec = F.FusedSpec(
+            block=block, window=window, n_rows=nx + 2 * HALO + 2 * F.PAD,
+            dx=dx, dt=dt, charge=const.ELECTRON_CHARGE,
+            mass=const.ELECTRON_MASS, row_off=HALO + F.PAD,
+        )
+        cases = [(order, spec, stress_state(st, block, window, order))
+                 for order in STRESS_ORDERS]
+        if shape == "two_stream CLI":
+            cases.append(("blocks of 128 rows", spec._replace(block=128), st))
+        for case, sp, rows in cases:
+            label = f"{shape} shape, {case}"
+            out[shape, case, "vay"] = kernel_vs_plain(
+                label, rows, sp, phase=17, sort=False)
+            out[shape, case, "vay_packed"] = packed_vs_plain(
+                label, F.pack_fused(rows, sp.block), sp, phase=17)
+        del st, cases
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -1166,10 +1322,15 @@ def main(argv=None) -> int:
            f"{torch.version.cuda}, nvidia-smi: {smi}")
 
     lib, seconds = _build.build()
-    report = [l.strip() for l in lib.with_suffix(".log").read_text()
-              .splitlines() if "registers" in l or "spill" in l]
+    report = ptxas_report(lib.with_suffix(".log").read_text())
+    assert set(report) == set(F.FORMS), report
     _build.library()
-    log(2, f"built {lib.name} in {seconds:.1f} s: {' | '.join(report)}")
+    log(2, f"built {lib.name} in {seconds:.1f} s; ptxas: " + "; ".join(
+        f"{form} {report[form]}" for form in F.FORMS))
+    atomics = sass_atomics(lib)
+    log(2, "atomics in the SASS (cuobjdump -sass): " + (
+        "cuobjdump not found" if atomics is None else "; ".join(
+            f"{form} {atomics.get(form, {})}" for form in F.FORMS)))
     if args.profile is not None:
         tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
         try:
@@ -1218,6 +1379,7 @@ def main(argv=None) -> int:
         hb_packed = hb_card_vs_cpu(tmp, packed=True)
         twin = bench_twin(smi)
         ts_packed, _ = cli_drive(tmp, packed=True)
+        stress_kernels()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -33,21 +33,42 @@
 // more in the full form (prev_x gh chi): 72 B per row for Boris, 76-80
 // B for lite Vay, 88-92 B for full Vay and for the packed layout.  At
 // the bench capacity of 10.5M rows that is ~0.85-0.97 GB a step against
-// 3.35 TB/s.  The push is ~150 flops a row, far below the f32 peak.  The
-// risk is the deposit: a cell-sorted block spans a few cells, so
-// thousands of threads add into the same few tile entries.
+// 3.35 TB/s.  The push is ~150 flops a row, far below the f32 peak.
+// What keeps it from that bound is the deposit: a cell-sorted block
+// spans a few cells, so thousands of rows add into the same few tile
+// entries, and a shared f32 atomicAdd is a compare-and-swap loop
+// (ATOMS.CAST.SPIN and a branch back in the SASS), which 32 lanes on one
+// word retry one after another.  Adding each row's 15 taps that way took
+// 2.1975 ms a launch at the bench shape (8192-row blocks of one to three
+// cells), against 0.3601 ms for the same rows without the deposit.
 //
 // What the design does about it: one read and one write of every
 // column, coalesced (consecutive threads take consecutive rows); the
 // block's field window [base, base+W) is staged in shared memory once
-// and each field is gathered from its 4 live taps; the 16 deposit
-// columns accumulate in a (W+4) x 16 shared tile with shared-memory
-// atomics and are flushed to the (n_rows, 16) slab with one global
-// atomic per non-zero entry.  The per-block window minimum for the next
-// step is reduced with warp shuffles and shared memory.  The pusher and
-// the work leg, the full outputs, the deposit and the layout are
-// template parameters, so each form carries no branch or column it does
-// not use.
+// and each field is gathered from its 4 live taps.  The deposit keeps
+// the sums in registers: each lane adds the taps of its rows whose tile
+// row is the warp's current one into 15 running sums of its own, so a
+// sorted block costs one warp vote a row step and no shared memory.
+// Rows of another tile row (a cell boundary, a row that crossed a cell)
+// are summed over the warp one tile row at a time by a transpose of
+// 16 shuffles (warp_column_sum) and added to the (W+4) x 16 shared
+// tile by 15 lanes on 15 distinct words; the running sums go there the
+// same way when the warp's rows leave its tile row, and at the end.
+// Past kMaxSegments tile rows in one warp step the remaining rows add
+// their own taps, so that rows in any order are correct, only slower.
+// The tile is flushed to the (n_rows, 16) slab with one global atomic
+// per non-zero entry.  Measured on an "NVIDIA H100 80GB HBM3, 700.00 W"
+// (chip_smoke.py phases 3, 6, 13): 0.46 ms at the bench shape (0.31 ms
+// without the deposit), 0.02 ms at the two_stream CLI shape and
+// 0.05-0.06 ms at the hole_boring one, from 0.22-0.24 ms.  Of the 0.16
+// ms the deposit still adds at the bench shape (kernel_variants.py),
+// the sums of other tile rows take ~0.06 ms, and the running sums the
+// rest: a vote and 15 adds a row step, and 64 registers, which fit two
+// CTAs an SM where the form without the deposit, at 40, fits three.
+// The per-block window minimum for the next step is reduced with warp
+// shuffles and shared memory.  The pusher and the work leg, the full
+// outputs, the deposit and the layout are template parameters, so each
+// form carries no branch or column it does not use.
 //
 // The two layouts differ only in addressing: within a block each column
 // is a contiguous run of `block` values in both, so one CTA reads and
@@ -67,8 +88,20 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+// threads a CTA: against 256, 512 runs the forms at the CLI shapes'
+// small grids up to a fifth faster, and at the bench shape within 2%
+// (kernel_variants.py)
+constexpr int kThreads = 512;
+constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kCols = 16;
+// the deposit key of a lane with nothing to deposit
+constexpr int kNoKey = 0x7fffffff;
+// tile rows other than its current one that a warp sums with shuffles in
+// one row step; lanes with a key past them add their own values with
+// shared atomics (of 0, 2, 4, 8, 16 and 32, 8 ran rows shuffled within
+// their blocks fastest and sorted rows as fast as any; 0 puts the taps
+// of every crossing row through those atomics and takes 96 registers)
+constexpr int kMaxSegments = 8;
 // columns of the packed hot matrix H and aux matrix A (fused.py:922-924)
 constexpr int kHCols = 9;
 constexpr int kACols = 4;
@@ -113,6 +146,37 @@ struct Args {
   float* out;
 };
 
+// Sums 16 per-lane values over the warp by transposition: four halving
+// exchanges (8 + 4 + 2 + 1 shuffles), each lane keeping the half of its
+// columns that its partner sends it, then one butterfly step; 16
+// shuffles in all, where a butterfly over every column takes 16 x 5.
+// Returns, in lane l, the warp's sum of column l >> 1 (both lanes of a
+// pair hold it).  Every lane of the warp must call it.
+__device__ __forceinline__ float warp_column_sum(float (&v)[kCols],
+                                                 int lane) {
+#pragma unroll
+  for (int s = 3; s >= 0; --s) {
+    const int h = 1 << s;
+    const bool upper = (lane & (2 * h)) != 0;
+#pragma unroll
+    for (int j = 0; j < h; ++j) {
+      const float send = upper ? v[j] : v[j + h];
+      const float keep = upper ? v[j + h] : v[j];
+      v[j] = keep + __shfl_xor_sync(kFullMask, send, 2 * h);
+    }
+  }
+  return v[0] + __shfl_xor_sync(kFullMask, v[0], 1);
+}
+
+// Adds the warp's column sums s (lane l: column l >> 1, as
+// warp_column_sum leaves them) into tile row `row`: one lane a column,
+// 15 distinct words.
+__device__ __forceinline__ void add_to_tile(float* tile, int row, float s,
+                                            int lane) {
+  if ((lane & 1) == 0 && (lane >> 1) < kCols - 1)
+    atomicAdd(tile + row * kCols + (lane >> 1), s);
+}
+
 // kBoris: the Boris push (ions) instead of Vay (electrons).  kWork: the
 // work column is carried (read from work_in, or from 0 when work_in is
 // null, and written to nwork; Vay adds the step's work, Boris passes it
@@ -123,6 +187,192 @@ struct Args {
 // hot matrix).  Ten forms are instantiated: {lite Vay, full Vay} with
 // work and lite Boris without (column layout), and full Vay and full
 // Boris with work (packed layout), each with and without the deposit.
+//
+// push_row reads, pushes and writes back row r of block b, and with the
+// deposit returns the row's tile row celln - base + 2 and its 15 tap
+// values in v; kNoKey (v untouched) for a row that deposits nothing.
+template <bool kBoris, bool kWork, bool kFull, bool kDeposit, bool kPacked>
+__device__ __forceinline__ int push_row(const Args& a, int64_t i, int64_t j,
+                                        int64_t iw, const float* win,
+                                        int base, int W, int row_off,
+                                        int lo_row, int hi_row,
+                                        const Consts& k, int& min_fit,
+                                        int& min_alive, float (&v)[kCols]) {
+  float cellf = 0.0f;
+  int cell;
+  if constexpr (kPacked) {
+    // the f32 cell column truncates to i32, as astype does
+    cellf = static_cast<const float*>(a.cell)[i];
+    cell = (int)cellf;
+  } else {
+    cell = static_cast<const int*>(a.cell)[i];
+  }
+  const int row = cell + row_off;
+  const int rel = row - base;
+  const float xv = a.x[i], yv = a.y[i], zv = a.z[i];
+  const float uxv = a.ux[i], uyv = a.uy[i], uzv = a.uz[i], gv = a.gamma[i];
+  const float q = a.weight[iw] * k.charge;
+  float w_in = 0.0f;
+  if (kWork && a.work_in) w_in = a.work_in[i];
+  const bool fit = rel >= 1 && rel <= W - 3 && row >= lo_row && row <= hi_row;
+  const bool alive = q != 0.0f;
+  a.miss[j] = (alive && !fit) ? 1.0f : 0.0f;
+  if (alive) min_alive = min(min_alive, row);
+  if (!(fit && alive)) {
+    if constexpr (kPacked) static_cast<float*>(a.ncell)[i] = cellf;
+    else static_cast<int*>(a.ncell)[i] = cell;
+    a.nx[i] = xv; a.ny[i] = yv; a.nz[i] = zv;
+    a.nux[i] = uxv; a.nuy[i] = uyv; a.nuz[i] = uzv; a.ng[i] = gv;
+    if (kWork) a.nwork[i] = w_in;
+    if (kFull) {
+      a.nprev[j] = xv;
+      a.ngh[j] = 1.0f;
+      a.nchi[j] = 0.0f;
+    }
+    return kNoKey;
+  }
+
+  // ---- gather: taps rel-1 .. rel+2, summed from 0 in order ---------
+  const float d = (float)rel + xv;
+  float Ex = 0.0f, Ey = 0.0f, Ez = 0.0f, By = 0.0f, Bz = 0.0f;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int jt = rel - 1 + t;
+    const float dj = d - (float)jt;
+    const float ce = w2(dj);          // edge taps (Ey, Ez)
+    const float cc = w2(dj - 0.5f);   // centred taps (Ex, By, Bz)
+    const float* e = win + jt * 6;
+    Ex = Ex + cc * e[0];
+    Ey = Ey + ce * e[1];
+    Ez = Ez + ce * e[2];
+    By = By + cc * e[4];
+    Bz = Bz + cc * e[5];
+  }
+  const float Bx = 0.0f + win[rel * 6 + 3];
+
+  float unx, uny, unz, gn, ign, vty, vtz, wk = w_in, gh = 1.0f, chi = 0.0f;
+  if constexpr (kBoris) {
+    // ---- Boris push (ion.rs:168-214), gamma - 1 cancellation-free ---
+    const float cBx = k.c * Bx, cBy = k.c * By, cBz = k.c * Bz;
+    const float umx = uxv + k.alpha * Ex;
+    const float umy = uyv + k.alpha * Ey;
+    const float umz = uzv + k.alpha * Ez;
+    const float um2 = (umx * umx + umy * umy) + umz * umz;
+    const float gam = 1.0f + um2 / (1.0f + sqrtf(1.0f + um2));
+    if (kFull) gh = gam;
+    const float tb = k.alpha / gam;
+    const float upx = umx + tb * (umy * cBz - umz * cBy);
+    const float upy = umy + tb * (umz * cBx - umx * cBz);
+    const float upz = umz + tb * (umx * cBy - umy * cBx);
+    const float cB2 = (cBx * cBx + cBy * cBy) + cBz * cBz;
+    const float tp = (2.0f * tb) / (1.0f + (tb * tb) * cB2);
+    const float uplx = umx + tp * (upy * cBz - upz * cBy);
+    const float uply = umy + tp * (upz * cBx - upx * cBz);
+    const float uplz = umz + tp * (upx * cBy - upy * cBx);
+    unx = uplx + k.alpha * Ex;
+    uny = uply + k.alpha * Ey;
+    unz = uplz + k.alpha * Ez;
+    const float un2 = (unx * unx + uny * uny) + unz * unz;
+    gn = 1.0f + un2 / (1.0f + sqrtf(1.0f + un2));
+    ign = 1.0f / gn;
+    // transverse positions advance with the NEW velocity
+    // (ion.rs:208-209)
+    vty = (k.c * uny) * ign;
+    vtz = (k.c * unz) * ign;
+  } else {
+    // ---- Vay push (electron.rs:268-330) ---------------------------
+    const float ig = 1.0f / gv;
+    const float vx = (k.c * uxv) * ig, vy = (k.c * uyv) * ig,
+                vz = (k.c * uzv) * ig;
+    const float uhx = uxv + k.alpha * (Ex + (vy * Bz - vz * By));
+    const float uhy = uyv + k.alpha * (Ey + (vz * Bx - vx * Bz));
+    const float uhz = uzv + k.alpha * (Ez + (vx * By - vy * Bx));
+    if (kWork || kFull)
+      gh = sqrtf(((1.0f + uhx * uhx) + uhy * uhy) + uhz * uhz);
+    if (kWork)
+      wk = w_in + ((k.kwork * ((uhx * Ex + uhy * Ey) + uhz * Ez)) * k.dt) / gh;
+    if (kFull) {
+      // chi from F.u at the half step (fused.py:556-564)
+      const float fx = gh * Ex + k.c * (uhy * Bz - uhz * By);
+      const float fy = gh * Ey + k.c * (uhz * Bx - uhx * Bz);
+      const float fz = gh * Ez + k.c * (uhx * By - uhy * Bx);
+      const float eu = (Ex * uhx + Ey * uhy) + Ez * uhz;
+      const float f2 = ((fx * fx + fy * fy) + fz * fz) - eu * eu;
+      chi = sqrtf(f2 < 0.0f ? 0.0f : f2) / k.crit;
+    }
+    const float upx = uhx + k.alpha * Ex;
+    const float upy = uhy + k.alpha * Ey;
+    const float upz = uhz + k.alpha * Ez;
+    const float gp2 = ((1.0f + upx * upx) + upy * upy) + upz * upz;
+    const float tvx = k.talpha * Bx, tvy = k.talpha * By, tvz = k.talpha * Bz;
+    const float ustar = (upx * tvx + upy * tvy) + upz * tvz;
+    const float t2 = (tvx * tvx + tvy * tvy) + tvz * tvz;
+    const float sig = gp2 - t2;
+    gn = sqrtf(0.5f * sig + sqrtf(((0.25f * sig) * sig + t2) + ustar * ustar));
+    ign = 1.0f / gn;
+    const float itx = tvx * ign, ity = tvy * ign, itz = tvz * ign;
+    const float s = 1.0f / (((1.0f + itx * itx) + ity * ity) + itz * itz);
+    const float udt = (upx * itx + upy * ity) + upz * itz;
+    unx = s * ((upx + udt * itx) + (upy * itz - upz * ity));
+    uny = s * ((upy + udt * ity) + (upz * itx - upx * itz));
+    unz = s * ((upz + udt * itz) + (upx * ity - upy * itx));
+    // transverse positions advance with the OLD velocity
+    // (electron.rs:315-316)
+    vty = vy;
+    vtz = vz;
+  }
+
+  // ---- x advance; the cell moves by the sign of floor(xn) -----------
+  float xn = xv + (k.kx * unx) * ign;
+  const float fl = floorf(xn);
+  const int celln = row + (fl < 0.0f ? -1 : (fl > 0.0f ? 1 : 0));
+  xn = xn - fl;
+  const float prevn = xv - fl;
+
+  if constexpr (kPacked)
+    static_cast<float*>(a.ncell)[i] = (float)(celln - row_off);
+  else
+    static_cast<int*>(a.ncell)[i] = celln - row_off;
+  a.nx[i] = xn;
+  a.ny[i] = yv + vty * k.dt;
+  a.nz[i] = zv + vtz * k.dt;
+  a.nux[i] = unx; a.nuy[i] = uny; a.nuz[i] = unz; a.ng[i] = gn;
+  if (kWork) a.nwork[i] = wk;
+  if (kFull) {
+    a.nprev[j] = prevn;
+    a.ngh[j] = gh;
+    a.nchi[j] = chi;
+  }
+  min_fit = min(min_fit, celln);
+  if constexpr (kDeposit) {
+    // ---- deposit: 15 unshifted taps at tile row celln - base + 2 ----
+    const float qf = q * k.inv_dt;
+    const float qx = q * k.inv_dx;
+    const float qy = qx * ((k.c * uny) * ign);
+    const float qz = qx * ((k.c * unz) * ign);
+    const float w_m1 = w2(1.0f + xn), w_0 = w2(xn), w_p1 = w2(1.0f - xn);
+    const float w_q = w2(2.0f - xn);  // the reference's index-2 rho quirk
+    v[0] = qf * flux(-1.5f - prevn, -1.5f - xn);
+    v[1] = qf * flux(-0.5f - prevn, -0.5f - xn);
+    v[2] = qf * flux(0.5f - prevn, 0.5f - xn);
+    v[3] = qf * flux(1.5f - prevn, 1.5f - xn);
+    v[4] = qf * flux(2.5f - prevn, 2.5f - xn);
+    v[5] = qy * w_m1;
+    v[6] = qy * w_0;
+    v[7] = qy * w_p1;
+    v[8] = qz * w_m1;
+    v[9] = qz * w_0;
+    v[10] = qz * w_p1;
+    v[11] = qx * w_m1;
+    v[12] = qx * w_0;
+    v[13] = qx * w_p1;
+    v[14] = qx * w_q;
+    return celln - base + 2;
+  } else {
+    return kNoKey;
+  }
+}
+
 template <bool kBoris, bool kWork, bool kFull, bool kDeposit, bool kPacked>
 __global__ void __launch_bounds__(kThreads)
 fused_push_deposit_kernel(const Args a, int64_t s_h, int64_t s_a, int block,
@@ -136,6 +386,7 @@ fused_push_deposit_kernel(const Args a, int64_t s_h, int64_t s_a, int block,
   const int b = blockIdx.x;
   const int base = a.anchors[b];
   const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
   const int64_t oh = (int64_t)b * s_h, oa = (int64_t)b * s_a,
                 ow = (int64_t)b * block;
 
@@ -150,189 +401,76 @@ fused_push_deposit_kernel(const Args a, int64_t s_h, int64_t s_a, int block,
   const int lo_row = pad + 2, hi_row = n_rows - pad - 3;
   const int sent = n_rows;
   int min_fit = sent, min_alive = sent;
-  const int* cell_i = static_cast<const int*>(a.cell);
-  const float* cell_f = static_cast<const float*>(a.cell);
-  int* ncell_i = static_cast<int*>(a.ncell);
-  float* ncell_f = static_cast<float*>(a.ncell);
 
-  for (int r = tid; r < block; r += kThreads) {
-    const int64_t i = oh + r, j = oa + r;
-    float cellf = 0.0f;
-    int cell;
-    if constexpr (kPacked) {
-      // the f32 cell column truncates to i32, as astype does
-      cellf = cell_f[i];
-      cell = (int)cellf;
-    } else {
-      cell = cell_i[i];
-    }
-    const int row = cell + row_off;
-    const int rel = row - base;
-    const float xv = a.x[i], yv = a.y[i], zv = a.z[i];
-    const float uxv = a.ux[i], uyv = a.uy[i], uzv = a.uz[i], gv = a.gamma[i];
-    const float q = a.weight[ow + r] * k.charge;
-    float w_in = 0.0f;
-    if (kWork && a.work_in) w_in = a.work_in[i];
-    const bool fit = rel >= 1 && rel <= W - 3 && row >= lo_row && row <= hi_row;
-    const bool alive = q != 0.0f;
-    const bool upd = fit && alive;
-    a.miss[j] = (alive && !fit) ? 1.0f : 0.0f;
-    if (alive) min_alive = min(min_alive, row);
-    if (!upd) {
-      if constexpr (kPacked) ncell_f[i] = cellf;
-      else ncell_i[i] = cell;
-      a.nx[i] = xv; a.ny[i] = yv; a.nz[i] = zv;
-      a.nux[i] = uxv; a.nuy[i] = uyv; a.nuz[i] = uzv; a.ng[i] = gv;
-      if (kWork) a.nwork[i] = w_in;
-      if (kFull) {
-        a.nprev[j] = xv;
-        a.ngh[j] = 1.0f;
-        a.nchi[j] = 0.0f;
-      }
-      continue;
-    }
-
-    // ---- gather: taps rel-1 .. rel+2, summed from 0 in order -------
-    const float d = (float)rel + xv;
-    float Ex = 0.0f, Ey = 0.0f, Ez = 0.0f, By = 0.0f, Bz = 0.0f;
+  // Each lane's running sums of its rows whose tile row is the warp's
+  // `cur` (warp-uniform); they are summed over the warp and added into
+  // the tile only when the warp's rows leave `cur` behind, and once at
+  // the end.
+  int cur = kNoKey;
+  float acc[kCols] = {};
+  [[maybe_unused]] auto flush = [&]() {
+    if (cur == kNoKey) return;
+    add_to_tile(tile, cur, warp_column_sum(acc, lane), lane);
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int jt = rel - 1 + t;
-      const float dj = d - (float)jt;
-      const float ce = w2(dj);          // edge taps (Ey, Ez)
-      const float cc = w2(dj - 0.5f);   // centred taps (Ex, By, Bz)
-      const float* e = win + jt * 6;
-      Ex = Ex + cc * e[0];
-      Ey = Ey + ce * e[1];
-      Ez = Ez + ce * e[2];
-      By = By + cc * e[4];
-      Bz = Bz + cc * e[5];
-    }
-    const float Bx = 0.0f + win[rel * 6 + 3];
+    for (int c = 0; c < kCols; ++c) acc[c] = 0.0f;
+  };
 
-    float unx, uny, unz, gn, ign, vty, vtz, wk = w_in, gh = 1.0f, chi = 0.0f;
-    if constexpr (kBoris) {
-      // ---- Boris push (ion.rs:168-214), gamma - 1 cancellation-free -
-      const float cBx = k.c * Bx, cBy = k.c * By, cBz = k.c * Bz;
-      const float umx = uxv + k.alpha * Ex;
-      const float umy = uyv + k.alpha * Ey;
-      const float umz = uzv + k.alpha * Ez;
-      const float um2 = (umx * umx + umy * umy) + umz * umz;
-      const float gam = 1.0f + um2 / (1.0f + sqrtf(1.0f + um2));
-      if (kFull) gh = gam;
-      const float tb = k.alpha / gam;
-      const float upx = umx + tb * (umy * cBz - umz * cBy);
-      const float upy = umy + tb * (umz * cBx - umx * cBz);
-      const float upz = umz + tb * (umx * cBy - umy * cBx);
-      const float cB2 = (cBx * cBx + cBy * cBy) + cBz * cBz;
-      const float tp = (2.0f * tb) / (1.0f + (tb * tb) * cB2);
-      const float uplx = umx + tp * (upy * cBz - upz * cBy);
-      const float uply = umy + tp * (upz * cBx - upx * cBz);
-      const float uplz = umz + tp * (upx * cBy - upy * cBx);
-      unx = uplx + k.alpha * Ex;
-      uny = uply + k.alpha * Ey;
-      unz = uplz + k.alpha * Ez;
-      const float un2 = (unx * unx + uny * uny) + unz * unz;
-      gn = 1.0f + un2 / (1.0f + sqrtf(1.0f + un2));
-      ign = 1.0f / gn;
-      // transverse positions advance with the NEW velocity
-      // (ion.rs:208-209)
-      vty = (k.c * uny) * ign;
-      vtz = (k.c * unz) * ign;
-    } else {
-      // ---- Vay push (electron.rs:268-330) -------------------------
-      const float ig = 1.0f / gv;
-      const float vx = (k.c * uxv) * ig, vy = (k.c * uyv) * ig,
-                  vz = (k.c * uzv) * ig;
-      const float uhx = uxv + k.alpha * (Ex + (vy * Bz - vz * By));
-      const float uhy = uyv + k.alpha * (Ey + (vz * Bx - vx * Bz));
-      const float uhz = uzv + k.alpha * (Ez + (vx * By - vy * Bx));
-      if (kWork || kFull)
-        gh = sqrtf(((1.0f + uhx * uhx) + uhy * uhy) + uhz * uhz);
-      if (kWork)
-        wk = w_in + ((k.kwork * ((uhx * Ex + uhy * Ey) + uhz * Ez)) * k.dt) / gh;
-      if (kFull) {
-        // chi from F.u at the half step (fused.py:556-564)
-        const float fx = gh * Ex + k.c * (uhy * Bz - uhz * By);
-        const float fy = gh * Ey + k.c * (uhz * Bx - uhx * Bz);
-        const float fz = gh * Ez + k.c * (uhx * By - uhy * Bx);
-        const float eu = (Ex * uhx + Ey * uhy) + Ez * uhz;
-        const float f2 = ((fx * fx + fy * fy) + fz * fz) - eu * eu;
-        chi = sqrtf(f2 < 0.0f ? 0.0f : f2) / k.crit;
+  // Every lane runs every iteration, rows past the block included, so
+  // that the deposit's warp-wide votes, shuffles and reductions below
+  // always see the full warp.
+  const int iters = (block + kThreads - 1) / kThreads;
+  for (int it = 0; it < iters; ++it) {
+    const int r = it * kThreads + tid;
+    float v[kCols] = {};
+    int key = kNoKey;
+    if (r < block)
+      key = push_row<kBoris, kWork, kFull, kDeposit, kPacked>(
+          a, oh + r, oa + r, ow + r, win, base, W, row_off, lo_row, hi_row,
+          k, min_fit, min_alive, v);
+    if constexpr (kDeposit) {
+      // ---- deposit: running sums by tile row, in registers -------
+      // The common case of a cell-sorted block: every row of the warp
+      // that deposits is in tile row `cur`, and adds to its lane's sums.
+      if (!__all_sync(kFullMask, key == cur || key == kNoKey)) {
+        // Rows of other tile rows.  Once no row is left in `cur` the
+        // warp's sums go to the tile and the lowest key present becomes
+        // `cur`; the other keys' column sums (the values of lanes with
+        // another key masked to 0) go to the tile one key at a time,
+        // lowest first, and past kMaxSegments keys the remaining lanes
+        // add their own values, so that any row order is correct.
+        if (!__any_sync(kFullMask, key == cur)) {
+          flush();
+          cur = __reduce_min_sync(kFullMask, key);
+        }
+        const int other = key == cur ? kNoKey : key;
+        int seg = __reduce_min_sync(kFullMask, other);
+        for (int n = 0; seg != kNoKey; ++n) {
+          if (n == kMaxSegments) {
+            if (other != kNoKey && other >= seg) {
+              float* tr = tile + other * kCols;
+#pragma unroll
+              for (int c = 0; c < kCols - 1; ++c) atomicAdd(tr + c, v[c]);
+            }
+            break;
+          }
+          float w[kCols];
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) w[c] = other == seg ? v[c] : 0.0f;
+          add_to_tile(tile, seg, warp_column_sum(w, lane), lane);
+          seg = __reduce_min_sync(kFullMask, other > seg ? other : kNoKey);
+        }
       }
-      const float upx = uhx + k.alpha * Ex;
-      const float upy = uhy + k.alpha * Ey;
-      const float upz = uhz + k.alpha * Ez;
-      const float gp2 = ((1.0f + upx * upx) + upy * upy) + upz * upz;
-      const float tvx = k.talpha * Bx, tvy = k.talpha * By, tvz = k.talpha * Bz;
-      const float ustar = (upx * tvx + upy * tvy) + upz * tvz;
-      const float t2 = (tvx * tvx + tvy * tvy) + tvz * tvz;
-      const float sig = gp2 - t2;
-      gn = sqrtf(0.5f * sig + sqrtf(((0.25f * sig) * sig + t2) + ustar * ustar));
-      ign = 1.0f / gn;
-      const float itx = tvx * ign, ity = tvy * ign, itz = tvz * ign;
-      const float s = 1.0f / (((1.0f + itx * itx) + ity * ity) + itz * itz);
-      const float udt = (upx * itx + upy * ity) + upz * itz;
-      unx = s * ((upx + udt * itx) + (upy * itz - upz * ity));
-      uny = s * ((upy + udt * ity) + (upz * itx - upx * itz));
-      unz = s * ((upz + udt * itz) + (upx * ity - upy * itx));
-      // transverse positions advance with the OLD velocity
-      // (electron.rs:315-316)
-      vty = vy;
-      vtz = vz;
+      if (key == cur) {
+#pragma unroll
+        for (int c = 0; c < kCols - 1; ++c) acc[c] += v[c];
+      }
     }
-
-    // ---- x advance; the cell moves by the sign of floor(xn) ---------
-    float xn = xv + (k.kx * unx) * ign;
-    const float fl = floorf(xn);
-    const int celln = row + (fl < 0.0f ? -1 : (fl > 0.0f ? 1 : 0));
-    xn = xn - fl;
-    const float prevn = xv - fl;
-
-    if constexpr (kPacked) ncell_f[i] = (float)(celln - row_off);
-    else ncell_i[i] = celln - row_off;
-    a.nx[i] = xn;
-    a.ny[i] = yv + vty * k.dt;
-    a.nz[i] = zv + vtz * k.dt;
-    a.nux[i] = unx; a.nuy[i] = uny; a.nuz[i] = unz; a.ng[i] = gn;
-    if (kWork) a.nwork[i] = wk;
-    if (kFull) {
-      a.nprev[j] = prevn;
-      a.ngh[j] = gh;
-      a.nchi[j] = chi;
-    }
-    min_fit = min(min_fit, celln);
-    if constexpr (!kDeposit) continue;
-
-    // ---- deposit: 15 unshifted taps at tile row celln - base + 2 ----
-    const float qf = q * k.inv_dt;
-    const float qx = q * k.inv_dx;
-    const float qy = qx * ((k.c * uny) * ign);
-    const float qz = qx * ((k.c * unz) * ign);
-    const float w_m1 = w2(1.0f + xn), w_0 = w2(xn), w_p1 = w2(1.0f - xn);
-    const float w_q = w2(2.0f - xn);  // the reference's index-2 rho quirk
-    float* tr = tile + (celln - base + 2) * kCols;
-    atomicAdd(tr + 0, qf * flux(-1.5f - prevn, -1.5f - xn));
-    atomicAdd(tr + 1, qf * flux(-0.5f - prevn, -0.5f - xn));
-    atomicAdd(tr + 2, qf * flux(0.5f - prevn, 0.5f - xn));
-    atomicAdd(tr + 3, qf * flux(1.5f - prevn, 1.5f - xn));
-    atomicAdd(tr + 4, qf * flux(2.5f - prevn, 2.5f - xn));
-    atomicAdd(tr + 5, qy * w_m1);
-    atomicAdd(tr + 6, qy * w_0);
-    atomicAdd(tr + 7, qy * w_p1);
-    atomicAdd(tr + 8, qz * w_m1);
-    atomicAdd(tr + 9, qz * w_0);
-    atomicAdd(tr + 10, qz * w_p1);
-    atomicAdd(tr + 11, qx * w_m1);
-    atomicAdd(tr + 12, qx * w_0);
-    atomicAdd(tr + 13, qx * w_p1);
-    atomicAdd(tr + 14, qx * w_q);
   }
+  if constexpr (kDeposit) flush();
 
   // ---- block minima -> next window base ------------------------------
-  min_fit = __reduce_min_sync(0xffffffffu, min_fit);
-  min_alive = __reduce_min_sync(0xffffffffu, min_alive);
-  const int warp = tid / 32, lane = tid % 32;
+  min_fit = __reduce_min_sync(kFullMask, min_fit);
+  min_alive = __reduce_min_sync(kFullMask, min_alive);
   if (lane == 0) {
     warp_min[0][warp] = min_fit;
     warp_min[1][warp] = min_alive;

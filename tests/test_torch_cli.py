@@ -145,10 +145,11 @@ def test_profile_writes_table_and_keeps_outputs(tmp_path, capsys):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (the bench twin too) and
-    ``chip_smoke.py`` import without JAX or opal_tpu."""
+    """Every module of the port (the bench twin too), ``chip_smoke.py``
+    and ``kernel_variants.py`` import without JAX or opal_tpu."""
     code = (
         "import importlib, pkgutil, sys, opal_tpu_torch, chip_smoke\n"
+        "import kernel_variants\n"
         "for m in pkgutil.walk_packages(opal_tpu_torch.__path__,"
         " 'opal_tpu_torch.'):\n"
         "    if not m.name.endswith('__main__'):\n"

@@ -4,7 +4,9 @@ port's plain PyTorch version, at f32 in every form the step reaches:
 lite Vay (electrons) with the work increment on and off, full Vay (the
 QED outputs prev_x, gh and chi as well) and lite Boris (carbon ions, Z
 6, A 12, no work column), each with the deposit on and skipped
-(``dep_skip``).  Also the host helpers around the kernel.
+(``dep_skip``); lite Vay also on rows in the orders that break the CUDA
+deposit's fast path (shuffled within each block, one cell a block, two
+cells alternating).  Also the host helpers around the kernel.
 
 Tolerances: cells, miss flags and next-step anchors must be equal.
 The float columns (prev_x, gh and chi too) agree within 1e-6 of each
@@ -42,14 +44,38 @@ DT = 0.95 * DX / const.SPEED_OF_LIGHT
 COLS = ("cell", "x", "y", "z", "ux", "uy", "uz", "gamma")
 
 
-def _inputs(seed=0):
-    """A cell-sorted f32 state of 3 blocks with: dead tail rows, rows
-    pushed out of their block's window (misses), rows past the deposit
-    reach, and momenta that move some rows across cells; a non-zero
-    E and B table."""
+#: row orders of the inputs: cell-sorted, and three that break the CUDA
+#: deposit's fast path (one tile row a warp): rows shuffled within each
+#: block, every row of a block in one cell (the block's middle row's),
+#: and two cells alternating row by row
+ORDERS = ("sorted", "shuffled", "one_cell", "alternating")
+
+
+def _order_rows(order, cell, block, rng):
+    """The cells of ``order`` from sorted ``cell``, and the permutation
+    to apply to every column once all are drawn (None but for
+    ``shuffled``, which draws it from ``rng`` last, so the other orders'
+    draws are the sorted inputs' draws)."""
+    n = cell.shape[0]
+    if order in ("one_cell", "alternating"):
+        mid = np.repeat(cell[block // 2::block], block)
+        step = np.arange(n) % 2 if order == "alternating" else 0
+        return (mid + step).astype(np.int32), None
+    if order == "shuffled":
+        return cell, lambda: np.concatenate(
+            [b * block + rng.permutation(block) for b in range(n // block)])
+    return cell, None
+
+
+def _inputs(seed=0, order="sorted"):
+    """A cell-sorted f32 state of 3 blocks (or the rows of another of
+    :data:`ORDERS`) with: dead tail rows, rows pushed out of their
+    block's window (misses), rows past the deposit reach, and momenta
+    that move some rows across cells; a non-zero E and B table."""
     rng = np.random.default_rng(seed)
     n = BS * NBLK
     cell = np.sort(rng.integers(0, NX, n)).astype(np.int32)
+    cell, perm = _order_rows(order, cell, BS, rng)
     cell[5] = cell[5] + 25          # beyond any window of block 0
     cell[200] = -3                  # outside the deposit reach
     cell[201] = NX + HALO - 1
@@ -65,6 +91,9 @@ def _inputs(seed=0):
     )
     E = rng.normal(0.0, 100.0, (N_SLAB, 3))
     B = rng.normal(0.0, 1e-6, (N_SLAB, 3))
+    if perm is not None:
+        p = perm()
+        st = {k: v[p] for k, v in st.items()}
     return st, E, B
 
 
@@ -97,18 +126,20 @@ def _specs(window, form):
     return JF.FusedSpec(**kw), TF.FusedSpec(**kw)
 
 
-#: (window, form) cases; the Vay ids keep the (window, work_inc) names
-#: they had before the Boris form was added
+#: (window, form, order) cases; the Vay ids keep the (window, work_inc)
+#: names they had before the Boris form was added, and the sorted cases
+#: the names they had before the other row orders
 CASES = [
-    pytest.param(16, "vay_work_inc", id="16-True"),
-    pytest.param(40, "vay", id="40-False"),
-    pytest.param(24, "boris", id="24-boris"),
-    pytest.param(16, "vay_dep_skip", id="16-vay-dep_skip"),
-    pytest.param(16, "vay_full", id="16-vay-full"),
-    pytest.param(16, "vay_full_work_inc_dep_skip",
+    pytest.param(16, "vay_work_inc", "sorted", id="16-True"),
+    pytest.param(40, "vay", "sorted", id="40-False"),
+    pytest.param(24, "boris", "sorted", id="24-boris"),
+    pytest.param(16, "vay_dep_skip", "sorted", id="16-vay-dep_skip"),
+    pytest.param(16, "vay_full", "sorted", id="16-vay-full"),
+    pytest.param(16, "vay_full_work_inc_dep_skip", "sorted",
                  id="16-vay-full-work_inc-dep_skip"),
-    pytest.param(16, "boris_dep_skip", id="16-boris-dep_skip"),
-]
+    pytest.param(16, "boris_dep_skip", "sorted", id="16-boris-dep_skip"),
+] + [pytest.param(40, "vay", order, id=f"40-False-{order}")
+     for order in ORDERS[1:]]
 FULL = ("prev_x", "gh", "chi")
 
 
@@ -122,9 +153,9 @@ def _t(a, device="cpu"):
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-@pytest.mark.parametrize("window,form", CASES)
-def test_kernel_matches_pallas(window, form):
-    st, E, B = _inputs()
+@pytest.mark.parametrize("window,form,order", CASES)
+def test_kernel_matches_pallas(window, form, order):
+    st, E, B = _inputs(order=order)
     E, B = E * FORMS[form][-1], B * FORMS[form][-1]
     jspec, tspec = _specs(window, form)
     eb_j = JF.make_eb_rows(jnp.asarray(E), jnp.asarray(B))
@@ -206,6 +237,25 @@ def test_deposit_into_slab():
                                atol=1e-5 * np.abs(sj).max())
 
 
+@pytest.mark.parametrize("variant", [
+    "threads=128", "segments=2", "threads=1024,segments=32", "minblocks=3",
+    "nosum", "noother", "cheaptaps"])
+def test_kernel_variant_edits_apply(variant):
+    """``kernel_variants.py``'s edits still find what they change in the
+    kernel source, each once; an unknown edit is refused."""
+    import kernel_variants as KV
+
+    src = (KV.ROOT / KV.SOURCE).read_text()
+    out = KV.edit(src, variant)
+    assert out != src
+    for e in variant.split(","):
+        name, _, value = e.partition("=")
+        if name in KV.CONSTANTS:
+            assert f"constexpr int {KV.CONSTANTS[name]} = {value};" in out
+    with pytest.raises(ValueError):
+        KV.edit(src, variant + ",unrolled")
+
+
 @pytest.mark.parametrize("capacity", [4, 64])
 def test_misfit_compact(capacity):
     """Index table and overflow count equal, with and without
@@ -220,16 +270,17 @@ def test_misfit_compact(capacity):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("window,form", CASES)
-def test_cuda_kernel_matches_plain(window, form):
+@pytest.mark.parametrize("window,form,order", CASES)
+def test_cuda_kernel_matches_plain(window, form, order):
     """On a card: the CUDA kernel (built without FMA contraction)
     reproduces the plain PyTorch version's push columns (with prev_x, gh
     and chi in the full forms), miss flags and anchors bit for bit; the
     slab within 1e-5 of its largest entry (float atomics add in no fixed
-    order), and the forms without the deposit return none."""
+    order), and the forms without the deposit return none.  The block of
+    128 rows leaves half of the CTA's threads without a row."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    st, E, B = _inputs()
+    st, E, B = _inputs(order=order)
     E, B = E * FORMS[form][-1], B * FORMS[form][-1]
     _, spec = _specs(window, form)
     dev = "cuda"

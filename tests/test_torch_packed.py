@@ -58,6 +58,7 @@ from opal_tpu_torch.ops import fused as TF
 from opal_tpu_torch.parallel import migrate as TM
 from opal_tpu_torch.sim import SimOptions, Simulation
 from opal_tpu_torch.species import SpeciesSpec, initialize
+from tests.test_torch_fused import ORDERS, _order_rows
 
 pytestmark = pytest.mark.unit
 
@@ -195,14 +196,16 @@ def test_pack_unpack_matches_opal_tpu(kind, work_dtype):
 # ---------------------------------------------------------------------
 
 
-def _inputs(seed=0):
-    """A cell-sorted f32 state of 3 blocks of 256 with dead tail rows,
+def _inputs(seed=0, order="sorted"):
+    """A cell-sorted f32 state of 3 blocks of 256 (or the rows of another
+    of ``tests/test_torch_fused.py``'s ``ORDERS``) with dead tail rows,
     rows outside their block's window (misses), rows past the deposit
     reach, momenta that move some rows across cells, and non-zero E and
     B tables; as column arrays and as the packed (H, weight)."""
     rng = np.random.default_rng(seed)
     n = BS * NBLK
     cell = np.sort(rng.integers(0, NX, n)).astype(np.int32)
+    cell, perm = _order_rows(order, cell, BS, rng)
     cell[5] = cell[5] + 25          # beyond any window of block 0
     cell[300] = -3                  # outside the deposit reach
     cell[301] = NX + HALO - 1
@@ -216,11 +219,14 @@ def _inputs(seed=0):
         uz=f32(u[2]), gamma=f32(np.sqrt(1.0 + (u ** 2).sum(0))),
         weight=weight, work=f32(rng.normal(0.0, 1e-20, n)),
     )
-    H = np.stack([st[c].astype(np.float32).reshape(NBLK, RB, 128)
-                  for c in TF.H_COLS], axis=1)
     E = rng.normal(0.0, 100.0, (N_SLAB, 3))
     B = rng.normal(0.0, 1e-6, (N_SLAB, 3))
-    return st, H, weight.reshape(NBLK, RB, 128), E, B
+    if perm is not None:
+        p = perm()
+        st = {k: v[p] for k, v in st.items()}
+    H = np.stack([st[c].astype(np.float32).reshape(NBLK, RB, 128)
+                  for c in TF.H_COLS], axis=1)
+    return st, H, st["weight"].reshape(NBLK, RB, 128), E, B
 
 
 def _packed_specs(form, window=16):
@@ -237,9 +243,17 @@ def _tables(form, E, B):
             TF.make_eb_rows(_t(E * scale), _t(B * scale)))
 
 
-@pytest.mark.parametrize("form", list(FORMS))
-def test_packed_kernel_matches_pallas(form):
-    st, H, W, E, B = _inputs()
+#: (form, order) cases: every form on sorted rows (named by the form
+#: alone, as before the other orders), and ``vay_packed`` on the orders
+#: that break the CUDA deposit's fast path
+CASES = [pytest.param(form, "sorted", id=form) for form in FORMS] + [
+    pytest.param("vay_packed", order, id=f"vay_packed-{order}")
+    for order in ORDERS[1:]]
+
+
+@pytest.mark.parametrize("form,order", CASES)
+def test_packed_kernel_matches_pallas(form, order):
+    st, H, W, E, B = _inputs(order=order)
     jspec, tspec = _packed_specs(form)
     assert TF.packed_form_name(tspec) == form
     eb_j, eb_t = _tables(form, E, B)
@@ -327,8 +341,8 @@ def test_packed_plain_matches_column_plain(pusher):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", list(FORMS))
-def test_cuda_packed_kernel_matches_plain(form):
+@pytest.mark.parametrize("form,order", CASES)
+def test_cuda_packed_kernel_matches_plain(form, order):
     """On a card: the packed CUDA kernel reproduces the packed plain
     version's hot and aux matrices and anchors bit for bit, counts one
     launch of its form, and the slab within 1e-5 of its largest entry
@@ -336,7 +350,7 @@ def test_cuda_packed_kernel_matches_plain(form):
     no slab."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    st, H, W, E, B = _inputs()
+    st, H, W, E, B = _inputs(order=order)
     _, spec = _packed_specs(form)
     scale = FORMS[form][-1]
     eb = TF.make_eb_rows(_t(E * scale, "cuda"), _t(B * scale, "cuda"))
