@@ -78,14 +78,35 @@ the port on the card, phase by phase, each printing one line or more:
     row of a block in one cell, two cells alternating row by row, and
     dead and misfit rows interleaved (and at the CLI shape, blocks of
     128 rows), through B1's lite Vay form and B2's ``vay_packed``
-    against their plain versions, with each case's device time.
+    against their plain versions, with each case's device time;
+18. QED absorption's functions: ``airy_ai`` over every branch and
+    ``pair_cross_sections`` on 2**16 pairs, card against CPU at f64;
+19. one ``absorb`` call on a forced-event state (4096 cells, ~65k
+    electrons, 6144 photons), card against CPU with the same draws, in
+    the three pairing modes with the active-set compaction on and off:
+    equal events and counts, every column within 1e-12;
+20. B1's full Vay form with the deposit against its plain version at
+    the shapes that now run it: ``bench --qed`` at 2,097,152 particles
+    and ``bench --no-lite``;
+21. the bench twin's QED deck, ``python -m opal_tpu_torch.bench --qed
+    --particles 2097152`` (below 4e6 particles, as in ``bench.py``, the
+    only size at which the deck runs the kernel), the same with
+    ``--no-absorption``, and ``--no-lite`` cut to blocks of 256 steps:
+    no loss, one launch of the full Vay form a step, the photons, the
+    absorbed and stimulated events and the ``absorb`` time a step;
+22. the CLI's absorption path: ``examples/colliding_beams.yaml`` with
+    ``photon_absorption: true`` at ``--f32`` and full width, cut to the
+    crossing (5 outputs of 473 steps): one launch of the full Vay form
+    without the deposit and one bracketed absorption pass a step, no
+    loss, absorbed and stimulated events both seen, and the ledger
+    closure with the laser's work within 1e-4.
 
 Kernel times (``ms``) are device time: 20 calls queued behind a
 device-side spin run back to back between two CUDA events.  The
 wrapper's whole call (``call_ms``) and the plain version's
 (``plain_ms``) are timed by CUDA events around each call, host launch
-included.  Phases 1-17 take about ten to
-fourteen minutes.  Any failed check raises, so the
+included.  Phases 1-22 take about ten to
+sixteen minutes.  Any failed check raises, so the
 script exits non-zero without the final line.  Before the last line it
 prints one JSON object describing each kernel form of the paths, and
 ``nvidia-smi``'s name and power limit; the last line is
@@ -1292,6 +1313,444 @@ def stress_kernels():
     return out
 
 
+def cross_sections_card_vs_cpu():
+    """Phase 18: ``airy_ai`` over x in [-1, 60] (the series, the three
+    fitted quadrature branches and both invalid ends) and
+    ``pair_cross_sections`` on 2**16 pairs (photons and electrons from
+    co- to counter-propagating, chi 1e-3..5, some pairs forbidden for
+    stimulated emission, some with a non-positive chi), on the card
+    against the CPU at f64: the valid masks equal, the values within
+    1e-12 relative (below 1e-290, within 1e-300).  Returns the largest
+    relative difference."""
+    from opal_tpu_torch.qed.airy import airy_ai
+    from opal_tpu_torch.qed.cross_sections import pair_cross_sections
+
+    rng = np.random.default_rng(3)
+    n = 1 << 16
+    x = np.concatenate([np.linspace(-1, 0.999, 4096),
+                        np.linspace(1, 60, 60_000)])
+    g = 10 ** rng.uniform(0.2, 2.5, n)
+    th = rng.uniform(0, math.pi, n)
+    pm = np.sqrt(g**2 - 1)
+    k0 = 10 ** rng.uniform(-2, 2.5, n)
+    args = (np.stack([k0, -k0 * np.cos(th), k0 * np.sin(th), 0 * k0], 1),
+            np.stack([g, -pm, 0 * g, 0 * g], 1),
+            10 ** rng.uniform(-3, 0.7, n), 10 ** rng.uniform(-3, 0.7, n))
+    args[2][:64] = 0.0
+    args[3][64:128] = -0.5
+
+    def rel(a, b):
+        a, b = a.cpu().double(), b.double()
+        big = b.abs() > 1e-290
+        assert ((a - b).abs()[~big] <= 1e-300).all()
+        return float(((a - b).abs() / b.abs().clamp(min=1e-290))[big].max())
+
+    on = lambda *a: [torch.from_numpy(v).cuda() for v in a]
+    off = lambda *a: [torch.from_numpy(v) for v in a]
+    (vc, okc), (vh, okh) = airy_ai(*on(x)), airy_ai(*off(x))
+    assert torch.equal(okc.cpu(), okh)
+    errs = {"airy_ai": rel(vc, vh)}
+    for name, c, h in zip(("sigma_abs", "sigma_st"),
+                          pair_cross_sections(*on(*args)),
+                          pair_cross_sections(*off(*args))):
+        assert torch.equal(c.cpu() > 0, h > 0), name
+        assert int((h > 0).sum()) > n // 8, name
+        errs[name] = rel(c, h)
+    worst = max(errs.values())
+    log(18, f"airy_ai on {x.size} points in [-1, 60] and "
+            f"pair_cross_sections on {n} pairs, card vs CPU at f64: masks "
+            "equal, largest relative difference " + ", ".join(
+                f"{k} {v:.3e}" for k, v in errs.items()) + " (bar 1e-12)")
+    assert worst <= 1e-12, errs
+    return worst
+
+
+#: phase 19's pairing modes (absorb's presorted/bracketed flags)
+ABSORB_MODES = {"sort": (False, False), "presorted": (True, False),
+                "bracketed": (False, True)}
+
+
+def forced_absorb_state(mode, n_cells=4096, seed=19):
+    """The forced-event state of ``tests/test_torch_absorption.py``
+    scaled up: 1..30 electrons in each of ``n_cells`` cells (a sixteenth
+    of them with 80, past the candidate bound of 64), weights 1e10-2e10,
+    and 1.5 photons a cell of 2.5, whose optical depths are a random
+    share of their pairs' summed probabilities (an eighth 1e-30: they
+    fire on their first candidate), so that both kinds of event fire in
+    many cells.  ``mode`` arranges the electron rows as
+    :data:`ABSORB_MODES` needs: cell-sorted with the dead tail, sorted
+    with rows of adjacent cells swapped, or shuffled.  Returns numpy
+    column dicts (electrons, photons) at f64."""
+    from opal_tpu_torch.qed.cross_sections import pair_cross_sections
+    from opal_tpu_torch.species import SpeciesSpec, _empty_fields
+
+    rng = np.random.default_rng(seed)
+    per = rng.integers(1, 31, n_cells)
+    per[rng.permutation(n_cells)[: n_cells // 16]] = 80
+    cells = np.repeat(np.arange(n_cells), per)
+    n_a = cells.size
+    n_e = n_a + n_a // 8
+    e = _empty_fields(SpeciesSpec.electron(), n_e, np.float64)
+    g = rng.uniform(5.0, 50.0, n_a)
+    ang = rng.normal(0, 0.3, (2, n_a))
+    pm = np.sqrt(g**2 - 1)
+    e["cell"][:n_a], e["cell"][n_a:] = cells, n_cells - 1
+    e["x"][:n_a] = rng.uniform(0, 1, n_a)
+    e["ux"][:n_a] = -pm * np.cos(ang[0])
+    e["uy"][:n_a] = pm * np.sin(ang[0]) * np.cos(ang[1])
+    e["uz"][:n_a] = pm * np.sin(ang[0]) * np.sin(ang[1])
+    e["gamma"][:n_a] = g
+    e["chi"][:n_a] = rng.uniform(0.5, 3.0, n_a)
+    e["weight"][:n_a] = rng.uniform(1e10, 2e10, n_a)
+    e["alive"][:n_a] = True
+
+    n_p = 3 * n_cells // 2
+    ph = _empty_fields(SpeciesSpec.photon(), 5 * n_cells // 2, np.float64)
+    pc = rng.integers(0, n_cells, n_p)
+    k0 = 10 ** rng.uniform(-1.3, 0.5, n_p)
+    th = rng.normal(0, 0.3, n_p)
+    chi_g = rng.uniform(0.1, 1.5, n_p)
+    ph["cell"][:n_p], ph["x"][:n_p] = pc, rng.uniform(0, 1, n_p)
+    ph["prev_x"][:n_p] = ph["x"][:n_p]
+    ph["ux"][:n_p], ph["uy"][:n_p] = -k0 * np.cos(th), k0 * np.sin(th)
+    ph["gamma"][:n_p], ph["chi"][:n_p] = k0, chi_g
+    ph["weight"][:n_p] = rng.uniform(1e10, 2e10, n_p)
+    ph["birth_time"][:n_p] = 0.0
+    ph["pol"][:n_p] = rng.normal(size=(n_p, 4))
+    ph["basis"][:n_p] = rng.normal(size=(n_p, 6))
+    ph["alive"][:n_p] = True
+    # each photon's summed pair probabilities over its cell's electrons
+    start = np.concatenate([[0], np.cumsum(per)])
+    k4 = torch.from_numpy(np.stack([k0, -k0 * np.cos(th), k0 * np.sin(th),
+                                    0 * k0], 1))
+    p4 = torch.from_numpy(np.stack([e["gamma"], e["ux"], e["uy"], e["uz"]],
+                                   1)[:n_a])
+    tot = np.zeros((2, n_p))
+    for j in range(80):  # the j-th electron of each photon's cell
+        has = per[pc] > j
+        idx = np.where(has, start[pc] + j, 0)
+        sa, ss = pair_cross_sections(
+            k4, p4[idx], torch.from_numpy(chi_g),
+            torch.from_numpy(e["chi"][idx]))
+        w = np.where(has, e["weight"][idx] * 0.95, 0.0)
+        tot += w * np.stack([sa.numpy(), ss.numpy()])
+    ph["tau_abs"][:n_p] = rng.uniform(0.0, 1.6, n_p) * tot[0]
+    ph["tau_st"][:n_p] = np.where(tot[1] > 0,
+                                  rng.uniform(0.0, 1.6, n_p) * tot[1], 1e30)
+    ph["tau_abs"][: n_p // 8] = 1e-30
+
+    order = np.arange(n_e)
+    if mode == "bracketed":
+        for i in np.nonzero(cells[1:] != cells[:-1])[0][::2]:
+            order[i], order[i + 1] = order[i + 1], order[i]
+    elif mode == "sort":
+        order = rng.permutation(n_e)
+    e = {k: (None if v is None else v[order]) for k, v in e.items()}
+    return e, ph
+
+
+def absorb_card_vs_cpu():
+    """Phase 19: one ``absorb`` call on the forced-event state (4096
+    cells, ~65k electrons, 6144 photons) on the card and on the CPU with
+    the same draws (made on the host at the shapes of opal_tpu's arrays),
+    in the three pairing modes with the active-set compaction on (2048 of
+    the photons, so some defer) and off, stimulated emission and the
+    event records on and the event capacity at 1024: equal counts (lost,
+    deferred, photons alive, absorbed and stimulated events), equal
+    event kinds, cells and alive masks, and the event records, the
+    depths, the momenta and every other f64 column within 1e-12 of its
+    scale (the kicks of two photons on one electron add in another order
+    on the card: ROADMAP C4).  Returns {case: (events, card ms, CPU
+    ms)}."""
+    from types import SimpleNamespace
+
+    from opal_tpu_torch import constants as const
+    from opal_tpu_torch import interactions as I
+    from opal_tpu_torch.convert import state_from_numpy, to_numpy
+    from opal_tpu_torch.grid import GridGeometry
+    from opal_tpu_torch.sim import SimOptions
+
+    geom = GridGeometry(nx=4096, dx=1e-6, xmin=0.0, n_devices=1)
+    out = {}
+    for mode, (presorted, bracketed) in ABSORB_MODES.items():
+        e, ph = forced_absorb_state(mode)
+        for compact in (2048, 0):
+            opt = SimOptions(
+                dt=0.95 * 1e-6 / const.SPEED_OF_LIGHT, photon_absorption=True,
+                absorption_candidates=64, absorption_block=32,
+                absorption_active_capacity=compact,
+                absorption_event_capacity=1024,
+                extra_absorption_output=True,
+                extra_stimulated_emission_output=True)
+            sim = SimpleNamespace(geom=geom, options=opt)
+            nb, nw, evc = I.absorb_widths(opt, len(e["x"]), len(ph["x"]))
+            rng = np.random.default_rng(5)
+            draws = dict(abs_rot=int(rng.integers(len(ph["x"]))),
+                         abs_r=rng.random((nb, nw)),
+                         abs_exp=rng.exponential(size=(nb, 2, nw)),
+                         abs_tau_abs=rng.exponential(size=evc),
+                         abs_tau_st=rng.exponential(size=evc))
+            res, ms = {}, {}
+            for dev in ("cuda", "cpu"):
+                sp = {"electron": state_from_numpy(e, device=dev),
+                      "photon": state_from_numpy(ph, device=dev)}
+                I.absorb.events.update(absorbed=0, stimulated=0)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = I.absorb(sim, sp, 1e-15, draws, presorted=presorted,
+                             bracketed=bracketed)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                ms[dev] = (time.perf_counter() - t0) * 1e3
+                res[dev] = (r, dict(I.absorb.events))
+            (rc, evc_c), (rh, evc_h) = res["cuda"], res["cpu"]
+            assert evc_c == evc_h, (evc_c, evc_h)
+            assert evc_h["absorbed"] > 100 and evc_h["stimulated"] > 10, evc_h
+            assert int(rc[1]) == int(rh[1]) and int(rc[2]) == int(rh[2])
+            assert int(rh[2]) > 0  # truncated cells, past the capacities
+            (rec_c, want_c), (rec_h, want_h) = rc[3], rh[3]
+            assert torch.equal(want_c.cpu(), want_h)
+            assert torch.equal(rec_c[want_c, 13].cpu(), rec_h[want_h, 13])
+            worst = _rel_diff(rec_c[want_c].cpu(), rec_h[want_h])
+            for name in ("electron", "photon"):
+                c, h = to_numpy(rc[0][name]), to_numpy(rh[0][name])
+                for col, v in h.items():
+                    if v.dtype.kind in "bi":
+                        assert np.array_equal(c[col], v), (name, col)
+                    else:
+                        worst = max(worst, _rel_diff(
+                            torch.from_numpy(c[col]), torch.from_numpy(v)))
+            label = f"{mode}, {'compaction 2048' if compact else 'whole buffer'}"
+            log(19, f"absorb on the forced-event state ({label}): "
+                    f"{evc_h['absorbed']} absorbed and {evc_h['stimulated']} "
+                    f"stimulated events on both, deferred {int(rh[2])}, lost "
+                    f"{int(rh[1])}; records, depths, momenta and every column "
+                    f"within {worst:.3e} of their scale (bar 1e-12); card "
+                    f"{ms['cuda']:.1f} ms, CPU {ms['cpu']:.1f} ms")
+            assert worst <= 1e-12, (label, worst)
+            out[label] = (evc_h, ms["cuda"], ms["cpu"])
+    return out
+
+
+def _rel_diff(a, b):
+    """max |a - b| over the finite entries, over max |b| there; the
+    infinite entries (dead rows' depths) must be equal."""
+    a, b = a.double(), b.double()
+    fin = torch.isfinite(b)
+    assert torch.equal(torch.isfinite(a), fin)
+    assert torch.equal(a[~fin], b[~fin])
+    if not fin.any():
+        return 0.0
+    scale = float(b[fin].abs().max())
+    return float((a[fin] - b[fin]).abs().max()) / max(scale, 1e-300)
+
+
+def full_deposit_kernels():
+    """Phase 20: kernel B1's full Vay form with the deposit against its
+    plain version at the shapes that now run it: the ``bench --qed``
+    deck at 2,097,152 particles (2,621,440 rows over nx 16,384, block
+    2048, window 24) under random fields of laser strength, and the
+    ``bench --no-lite`` deck (the bench shape: 10,485,760 rows over nx
+    1024, block 8192, window 12).  Returns {shape: result of
+    :func:`kernel_vs_plain`}."""
+    from opal_tpu_torch import bench
+
+    out = {}
+    for label, argv, scales in (
+        ("bench --qed", ["--qed", "--particles", "2097152"],
+         dict(fields_seed=5, e_scale=CB_E, b_scale=CB_B)),
+        ("bench --no-lite", ["--no-lite"], {}),
+    ):
+        args = bench._parser().parse_args(argv)
+        sim, _, species, _ = bench.build(args)
+        spec = sim._fused_spec("electron")
+        assert (spec.lite, spec.dep_skip, spec.pusher) == (False, False, "vay")
+        out[label] = kernel_vs_plain(f"{label} shape", species["electron"],
+                                     spec, phase=20, **scales)
+        del sim, species
+        torch.cuda.empty_cache()
+    return out
+
+
+def qed_bench_twin(smi: str):
+    """Phase 21: the bench twin's QED deck and ``--no-lite``:
+    ``python -m opal_tpu_torch.bench --qed --particles 2097152`` (three
+    blocks of 50 steps through the full Vay form with the deposit), the
+    same with ``--no-absorption``, and ``--no-lite`` at the default
+    8,388,608 particles cut to blocks of 256 steps.  Each prints its one
+    JSON line with no loss and launches the form once a step; the QED
+    runs also give the photons alive, the absorbed and stimulated events
+    and the time between the two ends of each ``absorb`` call on the
+    card's clock, per step.  Returns {run: (launches, line, extra)}."""
+    from opal_tpu_torch import bench
+    from opal_tpu_torch import interactions as I
+    from opal_tpu_torch import sim as S
+
+    real = S.absorb
+    spans = []
+
+    def timed_absorb(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = real(*a, **kw)
+        ev[1].record()
+        spans.append(ev)
+        return res
+
+    out = {}
+    runs = (("bench --qed", ["--qed", "--particles", "2097152"], 3 * 50),
+            ("bench --qed --no-absorption",
+             ["--qed", "--no-absorption", "--particles", "2097152"], 3 * 50),
+            ("bench --no-lite", ["--no-lite", "--steps", "256"], 3 * 256))
+    S.absorb = timed_absorb
+    try:
+        for label, argv, steps in runs:
+            so, se = io.StringIO(), io.StringIO()
+            spans.clear()
+            I.absorb.events.update(absorbed=0, stimulated=0)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+                rc = bench.main(argv + ["--verbose"])
+            torch.cuda.synchronize()
+            got = launched()
+            assert rc == 0, (rc, so.getvalue(), se.getvalue())
+            lines = so.getvalue().strip().splitlines()
+            assert len(lines) == 1, lines
+            line = json.loads(lines[0])
+            assert "error" not in line and line["value"] > 0, line
+            assert got == {"vay_full": steps}, got
+            absorb_ms = (sum(a.elapsed_time(b) for a, b in spans) / len(spans)
+                         if spans else None)
+            assert (absorb_ms is not None) == (label == "bench --qed")
+            extra = dict(absorb_ms_per_step=absorb_ms,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         **I.absorb.events)
+            if "--qed" in argv:
+                photons = int(se.getvalue().split("photons=")[1].split()[0])
+                assert photons > 0
+                extra["photons"] = photons
+            out[label] = (got["vay_full"], line, extra)
+            log(21, f"python -m opal_tpu_torch.bench {' '.join(argv)}: "
+                    f"{lines[0]}; {' '.join(se.getvalue().split())}; launches "
+                    f"of vay_full {got['vay_full']}; " + ", ".join(
+                        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                        for k, v in extra.items() if v is not None)
+                    + f"; on {smi}")
+    finally:
+        S.absorb = real
+    return out
+
+
+#: the colliding_beams deck with absorption, cut to the crossing (the run
+#: ends 0.5 um/c after the pulse's peak meets the beam: 2,368 steps, of
+#: which the CLI runs 5 x 473)
+CB_ABS_EDITS = (("photon_absorption: false", "photon_absorption: true"),
+                ("end: 6.0e-6/c", "end: -1.5e-6/c"))
+
+
+def cb_absorption_drive(tmp: Path, smi: str):
+    """Phase 22, the absorption main path of the CLI: ``python -m
+    opal_tpu_torch`` on ``examples/colliding_beams.yaml`` with
+    ``photon_absorption: true`` at ``--f32``, at full width (nx 4000,
+    50,000 electrons, 256 candidates a photon) and cut to the crossing,
+    written to a temporary directory: one launch of the full Vay form
+    without the deposit a step, the bracketed absorption pass a step, no
+    loss, finite outputs, at least one absorbed and one stimulated
+    event, and the radiated-energy ledger with the laser's work on the
+    electrons (ROADMAP C8) from the states the CLI's ``Simulation.run``
+    calls took and returned, summed in f64, within 1e-4.  Returns the
+    launches."""
+    from opal_tpu_torch import cli
+    from opal_tpu_torch import interactions as I
+    from opal_tpu_torch import sim as S
+    from opal_tpu_torch.species import kinetic_energy_weights
+
+    src = (ROOT / "examples" / "colliding_beams.yaml").read_text()
+    for a, b in CB_ABS_EDITS:
+        assert src.count(a) == 1, a
+        src = src.replace(a, b)
+    run = tmp / "colliding_beams_absorption"
+    run.mkdir()
+    (run / "deck.yaml").write_text(src)
+    seen, calls = {}, []
+    real_run, real_absorb = S.Simulation.run, S.absorb
+
+    def run_spy(self, E, B, J, rho, species, *a, **kw):
+        seen.setdefault("first", (self, species))
+        res = real_run(self, E, B, J, rho, species, *a, **kw)
+        seen["last"] = res[4]
+        return res
+
+    def absorb_spy(*a, **kw):
+        calls.append(kw["bracketed"])
+        return real_absorb(*a, **kw)
+
+    so, se = io.StringIO(), io.StringIO()
+    I.absorb.events.update(absorbed=0, stimulated=0)
+    S.Simulation.run, S.absorb = run_spy, absorb_spy
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+            rc = cli.main([str(run / "deck.yaml"), "--f32"])
+        torch.cuda.synchronize()
+    finally:
+        S.Simulation.run, S.absorb = real_run, real_absorb
+    wall = time.perf_counter() - t0
+    launches = launched()
+    out, err = so.getvalue(), se.getvalue()
+    assert rc == 0, (rc, out, err)
+    assert "[fused pusher: electron]" in out, out
+    assert "buffer-overflow particle losses" not in err, err
+    steps = launches.get("vay_full_dep_skip", 0)
+    # the CLI runs n_outputs blocks of total_steps // n_outputs steps
+    assert launches == {"vay_full_dep_skip": steps} and steps == 5 * (
+        2368 // 5), launches
+    assert set(calls) == {True} and len(calls) == steps
+    n_out = int(out.splitlines()[-1].split()[1])
+    for i in range(n_out + 1):
+        g = np.loadtxt(run / f"{i}_grid.dat")
+        assert g.shape == (4000, 11) and np.isfinite(g).all()
+        e = _energy_file(run / f"{i}_energy.dat")
+        assert all(math.isfinite(v) for v in e.values()) and e["electrons"] > 0
+    sim, sp0 = seen["first"]
+    sp1 = seen["last"]
+
+    def joules(sp):
+        el = sp["electron"]
+        return (
+            float(kinetic_energy_weights(sim.specs["electron"], el).double()
+                  .sum()),
+            float(kinetic_energy_weights(sim.specs["photon"], sp["photon"])
+                  .double().sum()),
+            float(torch.where(el.alive, el.weight.double() * el.work.double(),
+                              0.0).sum()))
+
+    (e0, p0, w0), (e1, p1, w1) = joules(sp0), joules(sp1)
+    gain, e_loss, work = p1 - p0, e0 - e1, w1 - w0
+    assert gain > 0
+    closure_w = abs(e_loss + work - gain) / gain
+    backlog = [l for l in err.splitlines() if "backlog" in l]
+    log(22, f"python -m opal_tpu_torch colliding_beams.yaml with "
+            f"photon_absorption: true --f32 (nx 4000, 50,000 electrons, cut "
+            f"to the crossing: {steps} steps over {n_out} outputs): launches "
+            f"{launches}, {len(calls)} bracketed absorption passes, "
+            f"{I.absorb.events['absorbed']} absorbed and "
+            f"{I.absorb.events['stimulated']} stimulated events, no losses, "
+            f"outputs finite; electron loss {e_loss:.6e} J, laser work "
+            f"{work:.6e} J, photon gain {gain:.6e} J: closure with the work "
+            f"{closure_w:.3e}; QED backlog notes {len(backlog)}"
+            f"{': ' + backlog[-1] if backlog else ''}; {steps / wall:.1f} "
+            f"steps/s over {wall:.1f} s incl. set-up and dumps, on {smi}")
+    # a check that sees no event proves nothing of the kicks and kills
+    assert I.absorb.events["absorbed"] > 0, I.absorb.events
+    assert I.absorb.events["stimulated"] > 0, I.absorb.events
+    assert closure_w < 1e-4, closure_w
+    return launches, steps / wall, closure_w
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -1380,6 +1839,11 @@ def main(argv=None) -> int:
         twin = bench_twin(smi)
         ts_packed, _ = cli_drive(tmp, packed=True)
         stress_kernels()
+        cross_sections_card_vs_cpu()
+        absorb_card_vs_cpu()
+        full_dep = full_deposit_kernels()
+        qtwin = qed_bench_twin(smi)
+        cb_abs_launches, _, _ = cb_absorption_drive(tmp, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1390,7 +1854,11 @@ def main(argv=None) -> int:
         "vay": {"two_stream": ts_launches, "hole_boring": hb_launches["vay"]},
         "boris": {"hole_boring": hb_launches["boris"]},
         "vay_full_dep_skip": {
-            "colliding_beams": cb_launches["vay_full_dep_skip"]},
+            "colliding_beams": cb_launches["vay_full_dep_skip"],
+            "colliding_beams with absorption":
+                cb_abs_launches["vay_full_dep_skip"]},
+        "vay_full": {label: qtwin[label][0] for label in (
+            "bench --qed", "bench --qed --no-absorption")},
         "vay_packed": {"two_stream packed": ts_packed,
                        "bench --packed": twin["vay_packed"],
                        "small hole_boring packed": hb_packed["vay_packed"]},
@@ -1404,7 +1872,11 @@ def main(argv=None) -> int:
         "boris": (hb["boris"], "lite Boris, ions, deposit on"),
         "vay_full_dep_skip": (cb["vay_full_dep_skip"],
                               "full Vay, QED electrons, deposit off"),
-        "vay_full": (cb["vay_full"], "full Vay, deposit on"),
+        "vay_full": (full_dep["bench --qed"],
+                     "full Vay, deposit on, bench --qed shape"),
+        "vay_full (bench --no-lite shape)": (
+            full_dep["bench --no-lite"],
+            "full Vay, deposit on, bench --no-lite shape"),
         "vay_dep_skip": (cb["vay_dep_skip"], "lite Vay, deposit off"),
         "boris_dep_skip": (cb["boris_dep_skip"], "lite Boris, deposit off"),
         "vay_packed": (b2["bench", "vay_packed"],
@@ -1417,11 +1889,17 @@ def main(argv=None) -> int:
                                   "packed layout, Boris, deposit off"),
     }
 
-    def row(form):
-        (err, ms, plain_ms, bound_ms, bound_by, call_ms), label = timed[form]
+    # a form timed at a second shape of its paths, with that path's
+    # launches
+    other_shapes = {"vay_full (bench --no-lite shape)": {
+        "bench --no-lite": qtwin["bench --no-lite"][0]}}
+
+    def row(key):
+        (err, ms, plain_ms, bound_ms, bound_by, call_ms), label = timed[key]
+        form = key.split()[0]
         if form == "vay":
             err = max(err, err_vay)
-        paths = by_path.get(form, {})
+        paths = by_path.get(key, other_shapes.get(key, {}))
         kernel = KERNEL_PACKED if "packed" in form else KERNEL
         name = "fused_push_deposit_packed" if "packed" in form else \
             "fused_push_deposit"
@@ -1435,7 +1913,9 @@ def main(argv=None) -> int:
     # plain versions all the same, and listed apart
     print(json.dumps({
         "kernels": [row(f) for f in by_path],
-        "forms_off_path": [row(f) for f in timed if f not in by_path],
+        "other_shapes": [row(f) for f in other_shapes],
+        "forms_off_path": [row(f) for f in timed
+                           if f not in by_path and f not in other_shapes],
     }))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """opal_tpu_torch: the PyTorch/CUDA port of opal_tpu.
 
-The non-QED, single-device, periodic electron particle-in-cell step
-of ``opal_tpu`` rebuilt on PyTorch tensors, with the fused
-gather + Vay push + deposit kernel written in CUDA C++ for Hopper
-(``csrc/fused_push_deposit.cu``).  Module names mirror ``opal_tpu`` so
+The single-device particle-in-cell step of ``opal_tpu`` (electrons,
+ions and photons; laser, absorbing and conducting boundaries; QED
+photon emission, absorption and stimulated emission) rebuilt on PyTorch
+tensors, with the fused gather + push + deposit kernel written in CUDA
+C++ for Hopper (``csrc/fused_push_deposit.cu``).  Module names mirror ``opal_tpu`` so
 each counterpart is easy to find; the package imports no JAX and
 nothing from ``opal_tpu`` (the two meet only in the tests).
 """

@@ -1,33 +1,43 @@
 """Benchmark of the port: macroparticle pushes per second of the full
 PIC step on one CUDA device.
 
-    python -m opal_tpu_torch.bench [--packed] [flags]
+    python -m opal_tpu_torch.bench [--packed | --no-lite | --qed] [flags]
 
-The twin of the JAX package's ``bench.py``: the same deck (a periodic
+The twin of the JAX package's ``bench.py``: the same decks (a periodic
 two-stream plasma, 8*2**20 electrons over nx 1024, all-f32, Vay push,
-deposition and migration on), the same auto-sizing of the fused
-kernel's block, window, sort and exchange cadences and capacities, the
-same timed block (two warm-up blocks, then one timed block of the same
-step count, the device synchronised at both ends of it), and ONE json
-line on standard output:
+deposition and migration on; or with ``--qed`` a gamma-1000 beam in a
+static transverse B field of the ``--chi`` it asks for, with photon
+emission and absorption, over nx max(1024, N/128) cells of 10 nm), the
+same auto-sizing of the fused kernel's block, window, sort and exchange
+cadences and capacities and of the QED working sets, the same timed
+block (two warm-up blocks, then one timed block of the same step count,
+the device synchronised at both ends of it), and ONE json line on
+standard output:
 
     {"metric": ..., "value": ..., "unit": ..., "vs_baseline": ...,
      "vs_node_proxy": ..., "device": ...}
 
 (``device`` names the card, or ``cpu``).
 
-Any counted loss (migration, misfit or deposit-reach overflow) voids
-the run: the line then carries ``"value": 0.0`` and an ``error``.  The
-bench runs on the CUDA device unless ``--device cpu`` asks for the CPU
-(the kernels' plain versions); without a card it exits 1 and never
-falls back.  Flags of ``bench.py`` that the port does not have (QED,
-several devices, the TPU-only knobs) are refused with exit code 1.
+Any counted loss (migration, misfit or deposit-reach overflow, a
+photon that found no slot) voids the run: the line then carries
+``"value": 0.0`` and an ``error``; QED work deferred to later steps is
+a delay, noted on standard error.  As in ``bench.py``, ``--qed`` runs
+the fused kernel (its full Vay form with the deposit) only below 4e6
+particles, and ``--no-lite`` runs the non-QED deck through the full
+form.  The bench runs on the CUDA device unless ``--device cpu`` asks
+for the CPU (the kernels' plain versions); without a card it exits 1
+and never falls back.  Flags of ``bench.py`` that the port does not
+have (several devices, the TPU-only knobs) are refused with exit code
+1.
 
 Differences from ``bench.py``: the initial state is drawn on the host
 by ``species.initialize`` (``bench.py`` draws it on the device with
-another generator), and the chunks of ``--steps-per-program`` are
-balanced with the ceiling of steps / steps-per-program, so no chunk
-exceeds it.
+another generator); the chunks of ``--steps-per-program`` are balanced
+with the ceiling of steps / steps-per-program, so no chunk exceeds it;
+and the QED deck's exchange window is twice ``bench.py``'s, whose
+window loses the beam's re-entering electrons within a 50-step
+program.
 """
 
 from __future__ import annotations
@@ -53,12 +63,6 @@ BENCH_DRIFT_CELLS = 0.0095
 
 #: flags of bench.py the port refuses, with the reason
 REFUSED = {
-    "qed": "QED decks need photon absorption, not yet ported",
-    "no_absorption": "a --qed flag; QED decks are not yet ported",
-    "chi": "a --qed flag; QED decks are not yet ported",
-    "absorption_block": "a --qed flag; QED decks are not yet ported",
-    "absorption_active": "a --qed flag; QED decks are not yet ported",
-    "emission_active": "a --qed flag; QED decks are not yet ported",
     "devices": "only one device is ported",
     "aot": "a TPU ahead-of-time compile; nothing to compile on a GPU",
     "mxu_gather": "a TPU gather variant; the kernel gathers 4 taps",
@@ -66,7 +70,6 @@ REFUSED = {
     "sort_rowgather": "a TPU sort variant; the port has one sort",
     "fused_subblocks": "a TPU grid-program knob; a GPU runs one block a CTA",
     "sorted_pipeline": "a TPU pipeline of the unfused species",
-    "no_lite": "the full outputs serve QED decks only",
 }
 
 
@@ -94,14 +97,15 @@ def _parser():
                     "step (the twin of bench.py)")
     p.add_argument("--particles", type=float, default=8.0 * 2**20)
     p.add_argument("--nx", type=int, default=0,
-                   help="grid cells (0 = auto: 1024)")
+                   help="grid cells (0 = auto: 1024, or max(1024, "
+                        "particles / 128) for --qed)")
     p.add_argument("--steps", type=int, default=0,
                    help="steps of each block (0 = auto: 1024, or 400 at "
-                        ">= 5e7 particles)")
+                        ">= 5e7 particles, or 50 for --qed)")
     p.add_argument("--steps-per-program", type=int, default=-1,
                    help="max steps of one Simulation.run call (-1 = auto, "
-                        "as bench.py: max(64, 1.92e10 / particles); 0 = "
-                        "one call a block)")
+                        "as bench.py: max(64, 1.92e10 / particles), or 50 "
+                        "for --qed; 0 = one call a block)")
     p.add_argument("--f64", action="store_true",
                    help="f64 state and fields (the unfused ops)")
     p.add_argument("--deposition", action="store_true", default=True)
@@ -111,25 +115,30 @@ def _parser():
                    default=True, help="skip the edge exchange (the kernel "
                    "then serves no species)")
     p.add_argument("--fused", dest="fused", action="store_true",
-                   default=True, help="the fused kernel (default)")
+                   default=None, help="the fused kernel (default, except "
+                   "for --qed at >= 4e6 particles, as in bench.py)")
     p.add_argument("--no-fused", dest="fused", action="store_false")
     p.add_argument("--packed", dest="packed", action="store_true",
                    default=False, help="the packed layout and its kernel "
                    "instead of the column layout")
     p.add_argument("--no-packed", dest="packed", action="store_false")
+    p.add_argument("--no-lite", dest="lite", action="store_false",
+                   default=True, help="the kernel's full output set (prev_x, "
+                   "gh, chi) on the non-QED deck instead of its lite form")
     p.add_argument("--fused-window", type=int, default=0,
                    help="window cells per block (0 = auto)")
     p.add_argument("--fused-block", type=int, default=0,
-                   help="particles per kernel block (0 = auto: 8192)")
+                   help="particles per kernel block (0 = auto: 8192, or "
+                        "2048 for --qed)")
     p.add_argument("--fused-resort", type=int, default=0,
                    help="maintenance-sort cadence in steps (0 = auto: 320, "
                         "384 at >= 3.2e7 particles, 256 with "
-                        "--migrate-every)")
+                        "--migrate-every, 64 for --qed)")
     p.add_argument("--misfit-capacity", type=int, default=0,
                    help="misfit-fallback rows per step (0 = auto)")
     p.add_argument("--migrate-every", type=int, default=0,
                    help="exchange cadence in steps (0 = auto: half the "
-                        "sort cadence)")
+                        "sort cadence, or 3 for --qed)")
     p.add_argument("--capacity-factor", type=float, default=0.0,
                    help="buffer slack over the population (0 = auto: 1.25, "
                         "1.1 at >= 5e7 particles)")
@@ -139,17 +148,25 @@ def _parser():
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="the CUDA device (default) or the CPU")
+    p.add_argument("--qed", action="store_true",
+                   help="QED emission and absorption on a beam deck (adds a "
+                        "photon population)")
+    p.add_argument("--no-absorption", dest="absorption",
+                   action="store_false", default=True,
+                   help="with --qed: emission only (colliding_beams.yaml's "
+                        "physics)")
+    p.add_argument("--chi", type=float, default=0.02,
+                   help="with --qed: the quantum parameter of the gamma-1000 "
+                        "beam in the static B field")
+    p.add_argument("--absorption-block", type=int, default=32,
+                   help="with --qed: candidates examined a walk pass")
+    p.add_argument("--absorption-active", type=int, default=-1,
+                   help="photons walked a step (-1 = auto: photon capacity "
+                        "/ 4; 0 = every photon)")
+    p.add_argument("--emission-active", type=int, default=-1,
+                   help="emitters sampled a step (-1 = auto: electron "
+                        "capacity / 32; 0 = every electron)")
     # refused: parsed only to name them in the refusal
-    p.add_argument("--qed", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--no-absorption", action="store_true",
-                   help=argparse.SUPPRESS)
-    p.add_argument("--chi", type=float, default=None, help=argparse.SUPPRESS)
-    p.add_argument("--absorption-block", type=int, default=None,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--absorption-active", type=int, default=None,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--emission-active", type=int, default=None,
-                   help=argparse.SUPPRESS)
     p.add_argument("--devices", type=int, default=None,
                    help=argparse.SUPPRESS)
     p.add_argument("--aot", action="store_true", help=argparse.SUPPRESS)
@@ -163,7 +180,6 @@ def _parser():
                    help=argparse.SUPPRESS)
     p.add_argument("--sorted-pipeline", action="store_true",
                    help=argparse.SUPPRESS)
-    p.add_argument("--no-lite", action="store_true", help=argparse.SUPPRESS)
     return p
 
 
@@ -179,86 +195,129 @@ def _refusal(args) -> str | None:
 
 
 def build(args):
-    """The deck of ``bench.py:296-525`` with its auto-sizing applied to
+    """The deck of ``bench.py:326-560`` with its auto-sizing applied to
     ``args`` in place.  Returns (sim, fields, species, n_particles)."""
     from . import constants as const
     from .grid import GridGeometry
     from .sim import SimOptions, Simulation
     from .species import SpeciesSpec, initialize
 
+    qed = args.qed
+    if args.fused is None:
+        # the fused kernel only below 4e6 particles on the QED deck
+        # (bench.py:334)
+        args.fused = not (qed and args.particles >= 4e6)
     if not args.nx:
-        args.nx = 1024
+        # the QED deck's beam geometry: npc 128
+        args.nx = max(1024, int(args.particles) // 128) if qed else 1024
     if not args.steps:
-        args.steps = 1024 if args.particles < 5e7 else 400
+        args.steps = 50 if qed else (1024 if args.particles < 5e7 else 400)
     if not args.capacity_factor:
         args.capacity_factor = 1.25 if args.particles < 5e7 else 1.1
     if not args.fused_resort:
-        args.fused_resort = 256 if args.migrate_every else (
+        args.fused_resort = 64 if qed else 256 if args.migrate_every else (
             320 if args.particles < 3.2e7 else 384)
     if not args.migrate_every:
         # one exchange a half sort period: 160 * 0.0095 = 1.5 cells of
-        # drift stay inside the 2-cell deposit and gather reach
-        args.migrate_every = max(1, args.fused_resort // 2)
+        # drift stay inside the 2-cell deposit and gather reach; the QED
+        # beam marches at ~c
+        args.migrate_every = 3 if qed else max(1, args.fused_resort // 2)
     if not args.fused_block:
-        args.fused_block = 8192
+        args.fused_block = 2048 if qed else 8192
     if not args.misfit_capacity:
         args.misfit_capacity = min(2048, max(256, int(args.particles) // 32768))
     nx = args.nx
     npc = max(1, int(args.particles) // nx)
     n_particles = nx * npc
 
-    dx = 500.0
+    dx = 1.0e-8 if qed else 500.0
     dt = 0.95 * dx / const.SPEED_OF_LIGHT
     geom = GridGeometry(nx=nx, dx=dx, xmin=0.0, n_devices=1)
     cap = int(n_particles * args.capacity_factor)
     if args.fused:
         cap = -(-cap // args.fused_block) * args.fused_block
+    # the QED working sets (bench.py:418-429; the photon capacity equals
+    # the electron capacity)
+    if args.emission_active < 0:
+        args.emission_active = max(4096, cap // 32) if qed else 0
+    if args.absorption_active < 0:
+        args.absorption_active = max(4096, cap // 4) if qed else 0
     # the deck's drift momentum in units of m_e c
     drift = 2.5e-24 / (const.ELECTRON_MASS * const.SPEED_OF_LIGHT)
+    drift_cells = 0.95 if qed else BENCH_DRIFT_CELLS
     ceil8 = lambda v: -(-int(v) // 8) * 8
     opts = SimOptions(
         dt=dt, current_deposition=args.deposition, migration=args.migration,
+        photon_emission=qed, photon_absorption=qed and args.absorption,
         # the leaver flux: npc x the drift (cells a step) a side x the
         # exchange cadence, with slack
         migration_capacity=ceil8(
+            npc * args.migrate_every * 1.5 + 128 if qed else
             npc * args.migrate_every * BENCH_DRIFT_CELLS * 1.5 + 384),
         fused_misfit_capacity=args.misfit_capacity,
+        absorption_candidates=64,
+        absorption_block=args.absorption_block,
+        absorption_active_capacity=args.absorption_active,
+        emission_active_capacity=args.emission_active,
         fused_pusher=args.fused,
         packed_fused=args.packed,
+        fused_lite=-1 if args.lite else 0,
+        # the QED beam is one-directional at ~c: no velocity spread
         fused_window=args.fused_window or _auto_window(
-            args.fused_block, npc, args.fused_resort, 2.0 * drift),
+            args.fused_block, npc, args.fused_resort,
+            0.0 if qed else 2.0 * drift),
         fused_block=args.fused_block,
         fused_resort_every=args.fused_resort,
         migration_every=args.migrate_every,
-        max_drift_cells_per_step=BENCH_DRIFT_CELLS,
-        # the exchange window covers the leaver front over a sort period
-        migration_window=max(
-            4096, ceil8(npc * (BENCH_DRIFT_CELLS * args.fused_resort + 3))),
+        max_drift_cells_per_step=drift_cells,
+        # the exchange window covers the leaver front over a sort period;
+        # the QED beam's leavers all re-enter on one side, into the free
+        # half of the tail window, so there it is doubled (bench.py's
+        # window fills that half after 11 exchanges and voids its own
+        # 50-step programs: ROADMAP C12)
+        migration_window=max(4096, (2 if qed else 1) * ceil8(
+            npc * (drift_cells * args.fused_resort + 3))),
     )
     dtype = torch.float64 if args.f64 else torch.float32
+    np_dtype = np.float64 if args.f64 else np.float32
     espec = SpeciesSpec.electron()
-    sim = Simulation(geom, opts, {"electron": espec}, device=args.device,
-                     dtype=dtype)
-    state = initialize(
+    specs = {"electron": espec}
+    if qed:
+        specs["photon"] = SpeciesSpec.photon()
+    sim = Simulation(geom, opts, specs, device=args.device, dtype=dtype)
+    zeros = lambda x, u, n: np.zeros_like(x)
+    if qed:
+        ux = lambda x, u, n: -1000.0 * (1.0 + 0.01 * n)
+    else:
+        ux = lambda x, u, n: drift * (1.0 + 0.001 * n) * np.sign(u - 0.5)
+    species = {"electron": initialize(
         espec, geom, npc,
         density=lambda x: np.full_like(np.asarray(x, float), 20.0),
-        ux=lambda x, u, n: drift * (1.0 + 0.001 * n) * np.sign(u - 0.5),
-        uy=lambda x, u, n: np.zeros_like(x),
-        uz=lambda x, u, n: np.zeros_like(x),
-        dt=dt, capacity_per_device=cap, seed=0,
-        dtype=np.float64 if args.f64 else np.float32, device=args.device,
-    )
-    return sim, sim.init_fields(), {"electron": state}, n_particles
+        ux=ux, uy=zeros, uz=zeros, dt=dt, capacity_per_device=cap, seed=0,
+        dtype=np_dtype, device=args.device,
+    )}
+    E, B, J, rho = sim.init_fields()
+    if qed:
+        species["photon"] = initialize(
+            specs["photon"], geom, 0, lambda x: x * 0, None, None, None, dt,
+            cap, seed=1, dtype=np_dtype, device=args.device)
+        # the static transverse field that gives the gamma-1000 beam the
+        # quantum parameter chi = gamma B / B_crit (bench.py:535-548)
+        B[:, 2] = args.chi * const.CRITICAL_FIELD / (
+            1000.0 * const.SPEED_OF_LIGHT)
+    return sim, (E, B, J, rho), species, n_particles
 
 
-def chunk_steps(steps: int, steps_per_program: int, n_particles: int) -> int:
+def chunk_steps(steps: int, steps_per_program: int, n_particles: int,
+                qed: bool = False) -> int:
     """Steps of one ``Simulation.run`` call: at most
     ``steps_per_program`` (-1: ``bench.py``'s auto, ``max(64, 1.92e10 /
-    n)``; 0: the whole block), the chunks balanced with the ceiling of
-    steps / steps-per-program so that none exceeds it."""
+    n)``, or 50 for the QED deck; 0: the whole block), the chunks
+    balanced with the ceiling of steps / steps-per-program so that none
+    exceeds it."""
     spp = steps_per_program
     if spp < 0:
-        spp = max(64, int(1.92e10 / max(1, n_particles)))
+        spp = 50 if qed else max(64, int(1.92e10 / max(1, n_particles)))
     spp = min(spp or steps, steps)
     nchunks = -(-steps // max(1, spp))
     return -(-steps // nchunks)
@@ -282,14 +341,17 @@ def main(argv=None) -> int:
     sim, (E, B, J, rho), species, n_particles = build(args)
     setup_s = time.perf_counter() - t0
     counters = sim.zero_counters()
-    spp = chunk_steps(args.steps, args.steps_per_program, n_particles)
+    spp = chunk_steps(args.steps, args.steps_per_program, n_particles,
+                      args.qed)
+    # the QED draws: one generator on the device
+    rng = torch.Generator(device=device).manual_seed(0) if args.qed else None
 
     def run_block(E, B, J, rho, species, t, counters):
         done = 0
         while done < args.steps:
             n = min(spp, args.steps - done)
             E, B, J, rho, species, t, counters = sim.run(
-                E, B, J, rho, species, t, counters, n)
+                E, B, J, rho, species, t, counters, n, rng=rng)
             done += n
         return E, B, J, rho, species, t, counters
 
@@ -313,6 +375,7 @@ def main(argv=None) -> int:
 
     pushes_per_sec = n_particles * args.steps / elapsed
     counts = {k: int(v) for k, v in out[6].items()}
+    deferred = counts.pop("qed_deferred", 0)
     if any(counts.values()):
         # the step did not do the reference's work (every particle
         # pushed every step): the number is void
@@ -323,13 +386,18 @@ def main(argv=None) -> int:
             f"{3 * args.steps} steps at {pushes_per_sec:.4g} pushes/s/chip "
             "(number void: lost particles were not pushed/deposited)"))
         return 0
+    if deferred:
+        print(f"# note: QED active-set backlog: {deferred} particle-steps "
+              "deferred (delays, not losses)", file=sys.stderr)
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     if args.verbose:
+        photons = (f" photons={int(out[4]['photon'].alive.sum())}"
+                   if args.qed else "")
         print(f"# device={kind} x1 N={n_particles:.3g} steps={args.steps} "
               f"chunk={spp} setup={setup_s:.1f}s warmup={warm_s:.1f}s "
-              f"run={elapsed:.2f}s steps/s={args.steps / elapsed:.2f}",
-              file=sys.stderr)
+              f"run={elapsed:.2f}s steps/s={args.steps / elapsed:.2f}"
+              f"{photons}", file=sys.stderr)
     print(json.dumps({
         "metric": METRIC,
         "value": pushes_per_sec,

@@ -3,19 +3,20 @@
 The single-device path of ``opal_tpu/cli.py``: read the YAML deck,
 build the grid (periodic, or a laser injector on the left and an
 absorbing boundary on the right when the deck has a ``laser`` section)
-and the electron, ion and (with QED photon emission) photon
-populations, then alternate output dumps with blocks of simulation
-steps, printing the same banner, progress lines, loss warnings, QED
-backlog notes and output files.  The fused-kernel block, window,
+and the electron, ion and (with QED photon emission or absorption)
+photon populations, then alternate output dumps with blocks of
+simulation steps, printing the same banner, progress lines, loss
+warnings, QED backlog notes, output files and, with the
+``extra_*_output`` features, the absorption events on standard
+error.  The fused-kernel block, window,
 resort and migration cadences and the capacities are auto-sized by the
 same rules, so one deck runs the same schedule in both packages; as
 there, mixed-precision QED decks run the unfused push with f64
 arithmetic, and ``--f32`` (or ``tpu: fused_pusher: 1``) the kernel;
 ``tpu: packed_fused: 1`` carries the fused species in the packed layout
-through the packed kernel (never with QED emission).
-Decks that need what is not ported (photon absorption, several
-devices, electrostatic initialization, checkpoints) are refused with
-exit code 1.
+through the packed kernel (never with QED).
+Decks that need what is not ported (several devices, electrostatic
+initialization, checkpoints) are refused with exit code 1.
 
 It runs on the CUDA device unless ``--device cpu`` asks for the CPU;
 without a card it exits 1 and never falls back.
@@ -94,8 +95,6 @@ def _refuse_unported(cfg: Config, n_devices: int):
         except ConfigError:
             return False
 
-    if flag("qed", "photon_absorption"):
-        raise NotPorted("QED photon absorption is not yet ported")
     if n_devices != 1:
         raise NotPorted(
             f"{n_devices}-device runs are not yet ported (one device only)"
@@ -138,6 +137,8 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
     current_deposition = input_cfg.read_bool("control", "current_deposition")
     n_outputs = input_cfg.read_usize("control", "n_outputs")
     photon_emission = input_cfg.read_bool("qed", "photon_emission")
+    photon_absorption = input_cfg.read_bool("qed", "photon_absorption")
+    qed_on = photon_emission or photon_absorption
 
     # the reference's cargo features (Cargo.toml:24-31) as an optional
     # `features` section of booleans
@@ -151,14 +152,26 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
     pe_min = input_cfg.read_opt_f64("qed", "photon_energy_min")
     qed_opts = dict(
         photon_emission=photon_emission,
+        photon_absorption=photon_absorption,
         radiation_reaction=not feature("no_radiation_reaction"),
         beaming=not feature("no_beaming"),
+        stimulated_emission=not feature("no_stimulated_emission"),
         immobile_photons=feature("immobile_photons"),
+        extra_absorption_output=feature("extra_absorption_output"),
+        extra_stimulated_emission_output=feature(
+            "extra_stimulated_emission_output"),
         photon_energy_min=(None if pe_min is None
                            else 1.0e-6 * pe_min / const.ELEMENTARY_CHARGE),
         photon_angle_max=input_cfg.read_opt_f64("qed", "photon_angle_max"),
         max_formation_length=input_cfg.read_opt_f64(
             "qed", "max_formation_length"),
+        # NOTE: as in opal_tpu (cli.py:138-142), the reference passes
+        # disable_qed_after into absorb()'s max_displacement (metres)
+        # and disable_absorption_after into its stop time
+        # (main.rs:84-85, 246-248); the mapping is kept
+        max_displacement=input_cfg.read_opt_f64("qed", "disable_qed_after"),
+        absorption_stop_time=input_cfg.read_opt_f64(
+            "qed", "disable_absorption_after"),
     )
 
     # laser section present -> laser/absorbing boundaries (main.rs:95-101)
@@ -177,20 +190,23 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
     seed = int(tpu_opt("seed", 0))
     emission_active = int(tpu_opt("emission_active_capacity", -1))
     emission_insert = int(tpu_opt("emission_insert_capacity", -1))
+    absorption_candidates = int(tpu_opt("absorption_candidates", 256))
+    # photons walked a step: -1 auto (photon capacity / 4), 0 all
+    absorption_active = int(tpu_opt("absorption_active_capacity", -1))
+    absorption_events = int(tpu_opt("absorption_event_capacity", 4096))
     # the fused kernel serves f32 particle state; f64 runs use the
     # unfused ops, and so do mixed-precision QED decks, with an f64
     # push: the f32 push's field-phase-correlated energy bias kept their
     # radiated-energy ledger above 1e-5 (opal_tpu/cli.py:243-259)
     mixed = dtype == torch.float32 and field_dtype == torch.float64
-    fused_default = int(dtype == torch.float32
-                        and not (photon_emission and mixed))
+    fused_default = int(dtype == torch.float32 and not (qed_on and mixed))
     fused_pusher = bool(tpu_opt("fused_pusher", fused_default))
-    push_f64_compute = not fused_pusher and photon_emission and mixed
+    push_f64_compute = not fused_pusher and qed_on and mixed
     block_explicit = int(tpu_opt("fused_block", -1))
     # QED decks keep the block of 2048 that opal_tpu's QED kernel form
     # fits its VMEM with
     fused_block = (block_explicit if block_explicit > 0
-                   else 2048 if photon_emission else 8192)
+                   else 2048 if qed_on else 8192)
     _r_opt = int(tpu_opt("fused_resort_every", 0))
     r_pinned = _r_opt > 0
     fused_resort_every = _r_opt if r_pinned else 64
@@ -284,7 +300,7 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
         states["ion"], capacities["ion"] = init_species(
             ispecs, "ions", ipc, input_cfg.func("ions", "ni", "x"), seed + 1,
         )
-    if photon_emission:
+    if qed_on:
         # the photon buffer holds the emitted photons: 4x the electrons'
         pspecs = SpeciesSpec.photon(input_cfg.read_strings("photons", "output"))
         specs["photon"] = pspecs
@@ -309,6 +325,13 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
         emission_active = (
             _round_up(max(4096, capacities["electron"] // 32))
             if photon_emission else 0
+        )
+    # photons walked a step: capacity / 4 of the photons, at least 4096
+    # (opal_tpu/cli.py:484-487)
+    if absorption_active < 0:
+        absorption_active = (
+            _round_up(max(4096, capacities.get("photon", 0) // 4))
+            if photon_absorption else 0
         )
 
     # ---- fused window / cadence sizing (needs the initial momenta) ---
@@ -364,6 +387,9 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
         **qed_opts,
         emission_active_capacity=emission_active,
         emission_insert_capacity=emission_insert,
+        absorption_candidates=absorption_candidates,
+        absorption_active_capacity=absorption_active,
+        absorption_event_capacity=absorption_events,
         push_f64_compute=push_f64_compute,
         seed=seed,
         migration_capacity=migration_capacity,
@@ -392,7 +418,8 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
 
 
 #: the named ranges of the step that a profile reports on their own
-PROFILE_RANGES = ("tau_decrement", "emit_radiation", "emission_sample")
+PROFILE_RANGES = ("tau_decrement", "absorb", "emit_radiation",
+                  "emission_sample")
 
 
 def _profiled(fn, out_dir: Path, device: torch.device):
@@ -499,7 +526,7 @@ def main(argv=None) -> int:
     # so the sort/migrate schedule (which restarts per call) matches
     spb = rp.get("steps_per_block", 0)
     if spb == 0:
-        spb = 50 if opt.photon_emission else 200 if (
+        spb = 50 if sim._qed_on else 200 if (
             sim.dtype == torch.float64 or not opt.fused_pusher) else 1000
     if spb > 0 and steps_bt_output > spb + spb // 2:
         nchunks = -(-steps_bt_output // spb)
@@ -507,18 +534,24 @@ def main(argv=None) -> int:
     else:
         run_chunk = steps_bt_output
 
-    # emission draws: one generator on the device, seeded from the deck
+    # QED draws: one generator on the device, seeded from the deck
     rng = torch.Generator(device=sim.device).manual_seed(opt.seed)
 
     def run_span(E, B, J, rho, species, t, counters, nsteps):
+        """``nsteps`` steps in calls of at most ``run_chunk``, threading
+        the event ring of the span through them (opal_tpu/cli.py:
+        784-807)."""
+        events = sim.zero_events() if sim._event_log else None
         done = 0
         while done < nsteps:
             n = min(run_chunk, nsteps - done)
-            E, B, J, rho, species, t, counters = sim.run(
-                E, B, J, rho, species, t, counters, n, rng=rng
-            )
+            res = sim.run(E, B, J, rho, species, t, counters, n, rng=rng,
+                          events=events)
+            E, B, J, rho, species, t, counters = res[:7]
+            if sim._event_log:
+                events = res[7]
             done += n
-        return E, B, J, rho, species, t, counters
+        return E, B, J, rho, species, t, counters, events
 
     kind = (
         torch.cuda.get_device_name(sim.device)
@@ -529,6 +562,8 @@ def main(argv=None) -> int:
         print("[radiation reaction disabled, using classical emission rates]")
     if not opt.beaming:
         print("[neglecting angular component of photon spectrum]")
+    if not opt.stimulated_emission and opt.photon_absorption:
+        print("[stimulated emission disabled, running with absorption only]")
     if opt.immobile_photons:
         print("[photon push disabled]")
     if opt.fused_pusher:
@@ -545,9 +580,10 @@ def main(argv=None) -> int:
             species["electron"] = sim.refresh_electron_chi(
                 E, B, species["electron"]
             )
-        if "photon" in species and not opt.immobile_photons:
-            # the step leaves photon chi stale (no absorption pass reads
-            # it): refresh it for the chi outputs
+        if ("photon" in species and not opt.photon_absorption
+                and not opt.immobile_photons):
+            # without an absorption pass the step leaves photon chi
+            # stale: refresh it for the chi outputs
             species["photon"] = sim.refresh_photon_chi(
                 E, B, species["photon"]
             )
@@ -584,10 +620,12 @@ def main(argv=None) -> int:
         if args.profile and i == n_outputs - 1:
             # the last block: the first builds the kernels, and the late
             # blocks carry the most particle traffic
-            E, B, J, rho, species, t, counters = _profiled(
+            E, B, J, rho, species, t, counters, events = _profiled(
                 lambda: run_span(*span), Path(args.profile), sim.device)
         else:
-            E, B, J, rho, species, t, counters = run_span(*span)
+            E, B, J, rho, species, t, counters, events = run_span(*span)
+        if events is not None:
+            out.write_event_log(sys.stderr, to_numpy(events), opt)
         counts = {k: int(v) for k, v in counters.items()}
         deferred = counts.pop("qed_deferred", 0)
         lost = {k: v for k, v in counts.items() if v > 0}

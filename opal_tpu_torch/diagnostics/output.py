@@ -11,6 +11,9 @@ pipelines carry over unchanged:
 * ``{i}_{species}_{spec}[.][_weight][_log].fits`` — distribution
   functions per output-spec string (``src/particle/mod.rs:383-568``),
   grammar ``f[:g][:(bspec;weight)]``.
+* the absorption and stimulated-emission events, one line each on a
+  stream (standard error in the CLI), from the event ring
+  (``interactions.rs:267-289``).
 
 The writers read host numpy copies of the port's tensors: particle
 columns come as a dict of numpy arrays by column name
@@ -221,3 +224,33 @@ def write_energies(
         f.write(f"electrons {electron_energy:.6e}\n")
         f.write(f"ions {ion_energy:.6e}\n")
         f.write(f"photons {photon_energy:.6e}\n")
+
+
+def write_event_log(stream, events, options) -> int:
+    """Drain the event ring ``events = (ring, count)`` (host arrays of
+    ``Simulation.zero_events``'s shapes) to ``stream`` in the
+    reference's dump format (``interactions.rs:267-289``;
+    ``opal_tpu/diagnostics/output.py:172-206``): ``x t birth_time chi_g
+    k0 k1 k2 k3 chi_e p0 p1 p2 p3 abs|stim``.  Events past the ring's
+    capacity are counted in a closing warning line, never dropped
+    silently.  Returns the number of rows written."""
+    ring, count = np.asarray(events[0]), int(np.asarray(events[1]))
+    cap = ring.shape[0]
+    written = 0
+    for r in ring[:min(count, cap)]:
+        kind = "abs" if r[13] == 1.0 else "stim"
+        if kind == "abs" and not options.extra_absorption_output:
+            continue
+        if kind == "stim" and not options.extra_stimulated_emission_output:
+            continue
+        head = " ".join(f"{v:.6e}" for v in r[:3])
+        body = " ".join(f"{v:.3e}" for v in r[3:13])
+        stream.write(f"{head} {body} {kind}\n")
+        written += 1
+    dropped = max(0, count - cap)
+    if dropped:
+        stream.write(
+            f"# WARNING: event ring overflow: {dropped} events dropped "
+            f"(capacity {cap}/device; raise control:event_log_capacity)\n"
+        )
+    return written

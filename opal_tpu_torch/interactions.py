@@ -1,22 +1,33 @@
-"""QED photon emission: the emission pass of ``opal_tpu/interactions.py``
-(``emit_radiation``, ``:56-295``; reference
-``src/particle/interactions.rs:45-107``, ``electron.rs:208-251``).
+"""QED interactions coupling particle populations
+(``opal_tpu/interactions.py``; reference
+``src/particle/interactions.rs``).
 
-Every electron whose optical depth fell below zero samples the quantum
-(or classical) synchrotron spectrum, recoils, draws a new optical depth,
+Photon emission (``emit_radiation``, ``opal_tpu/interactions.py:56-295``;
+reference ``interactions.rs:45-107``, ``electron.rs:208-251``): every
+electron whose optical depth fell below zero samples the quantum (or
+classical) synchrotron spectrum, recoils, draws a new optical depth,
 and its photon goes into a dead slot of the photon buffer.  As in
 opal_tpu, at most ``emission_active_capacity`` emitters a step are
 served, in buffer order (the rest keep their negative depth and emit
 later, counted as deferred), and at most ``emission_insert_capacity``
 photons a step are inserted (the emitters beyond are deferred too,
-without recoil).
+without recoil).  The sampler runs on the emitters alone: one host read
+a step gives their count (and the photon buffer's high-water mark), and
+a step without emitters launches nothing more.
 
-The sampler runs on the emitters alone: one host read a step gives their
-count (and the photon buffer's high-water mark), and a step without
-emitters launches nothing more.  The random numbers come from a
-``torch.Generator``, or, to replay opal_tpu's draws, from a dict of its
-per-step arrays: emitter j of the compacted table takes draw j, as
-there.
+Photon absorption and stimulated emission (``absorb``,
+``opal_tpu/interactions.py:321-1096``; reference
+``interactions.rs:145-340``): each photon walks the electrons of its
+cell, at most ``absorption_candidates`` of them, in blocks of
+``absorption_block``, and the first crossing of either optical depth
+wins.  The walk runs on the photons that can pair alone (one host read
+a step gives their count), and the event space on the events alone.
+
+The random numbers come from a ``torch.Generator``, or, to replay
+opal_tpu's draws, from a dict of its per-step arrays: emitter j of the
+compacted table takes draw j, and the walk's photon in working slot i
+(its rank in opal_tpu's active table, or its buffer row without the
+compaction) takes draw i, as there.
 """
 
 from __future__ import annotations
@@ -26,11 +37,22 @@ import dataclasses
 import torch
 
 from . import constants as const
+from .grid import HALO
 from .ops.fused import misfit_compact
 from .parallel.migrate import _put, insert
-from .qed import emission
+from .qed import cross_sections, emission
 from .species import ParticleState
 from .vec3 import orthogonal, rotate_around
+
+
+#: the per-cell candidate table of the absorption walk, a persistent
+#: (cells, ceil(K/B)*B, 7) tensor, up to this many bytes; above it the
+#: walk gathers each pass's rows per photon (``opal_tpu/interactions.py:
+#: 44, 503-545``)
+CAND_TABLE_MAX_BYTES = 256 * 2**20
+#: photons whose chi over energy is below this never pair
+#: (``interactions.rs:176-192``)
+PHOTON_E_ECRIT_CUTOFF = 1.0e-8
 
 
 def _tiny(dtype) -> float:
@@ -185,3 +207,371 @@ def emit_radiation(sim, species, t, rng):
     return ({**species, "electron": e, "photon": ph}, lost,
             eovf + n_defer)
 
+
+
+def _cummax(v):
+    """Inclusive running maximum along dim 0 (opal_tpu's
+    ``_blocked_cummax``; the TPU's two-level blocking is not needed)."""
+    return torch.cummax(v, dim=0).values
+
+
+def _suffix_min(v):
+    """min(v[i:]) for each i (nondecreasing)."""
+    return torch.flip(torch.cummin(torch.flip(v, [0]), dim=0).values, [0])
+
+
+def _abs_draw(rng, name, index, dtype, lead=()):
+    """Absorption draws ``name`` for the rows whose draw index is
+    ``index``: from opal_tpu's arrays (a dict: ``abs_r`` (passes, nw)
+    uniform, ``abs_exp`` (passes, 2, nw), ``abs_tau_abs`` and
+    ``abs_tau_st`` (event capacity,) exponential, over the working
+    slots or the event slots), or fresh from the generator ``rng``.
+    ``lead`` is the array's leading index (the pass)."""
+    dev = index.device
+    if isinstance(rng, dict):
+        a = torch.tensor(rng[name][lead], dtype=dtype, device=dev)
+        return a[..., index]
+    n = index.shape[0]
+    if name == "abs_r":
+        return torch.rand(n, generator=rng, dtype=dtype, device=dev)
+    shape = (2, n) if name == "abs_exp" else (n,)
+    return torch.empty(shape, dtype=dtype, device=dev).exponential_(
+        generator=rng)
+
+
+def _abs_rotation(rng, n_ph, device):
+    """The scan origin of the active-set compaction: opal_tpu's
+    ``randint(fold_in(key, 3_000_017), (), 0, n_ph)`` (dict key
+    ``abs_rot``), or a generator draw; a 0-d device tensor."""
+    if isinstance(rng, dict):
+        return torch.tensor(int(rng["abs_rot"]), device=device)
+    return torch.randint(0, n_ph, (), generator=rng, device=device)
+
+
+def absorb_widths(options, n_e: int, n_ph: int):
+    """(nb, nw, EVC): the walk's passes, its working length (the active
+    capacity, or the whole photon buffer without the compaction) and the
+    event capacity of opal_tpu's absorption pass: the shapes of its draw
+    arrays."""
+    K = min(options.absorption_candidates, n_e)
+    B = max(1, min(options.absorption_block, K))
+    A = int(options.absorption_active_capacity or 0)
+    nw = A if 0 < A < n_ph else n_ph
+    evc = min(int(options.absorption_event_capacity or 0) or 4096, nw)
+    return -(-K // B), nw, evc
+
+
+def absorb(sim, species, t, rng, presorted=False, bracketed=False):
+    """Photon absorption and stimulated emission pass
+    (``opal_tpu/interactions.py:321-1096``, without its ``replicated``
+    mode).
+
+    The electrons are viewed by cell: sorted every step, already sorted
+    (``presorted``: alive rows cell-ascending, as after the maintenance
+    sort), or, on the nearly sorted state of the fused path
+    (``bracketed``), bracketed by monotone envelopes of their cells, each
+    candidate masked by exact cell equality.  Each photon walks the first
+    ``absorption_candidates`` electrons of its cell (over the halo-
+    extended cells) in passes of ``absorption_block``; within a pass the
+    optical-depth decrements are cumulative sums, and the first crossing
+    of either depth is the photon's event (absorbed when only its
+    absorption depth crosses there, stimulated when only the other, and
+    by a draw weighted by the two probabilities when both do).  Absorbed
+    photons die and kick their electron by (w_ph / w_e) k; a stimulated
+    event kicks it by -k and appends a copy of the photon with the
+    electron's weight, fresh depths and the seed's polarization.
+
+    Returns ``(species, lost, deferred)``, or ``(species, lost, deferred,
+    events)`` with either extra-output feature on: ``lost`` counts the
+    stimulated copies that found no free slot; ``deferred`` the photon-
+    steps delayed (photons past the active capacity, photons whose cell
+    holds more than the candidate bound, events past the event
+    capacity, whose depths are restored); ``events`` is ``(rec, want)``,
+    the (rows, 14) records ``x t birth_time chi_g k0 k1 k2 k3 chi_e p0
+    p1 p2 p3 kind`` (kind 1 absorbed, 2 stimulated) of the walked
+    photons in working order and the mask of those to log."""
+    opt, geom = sim.options, sim.geom
+    e, ph = species["electron"], species["photon"]
+    n_e, n_ph = e.alive.shape[0], ph.alive.shape[0]
+    dev = e.x.device
+    dtype = e.x.dtype
+    tiny = _tiny(dtype)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    K = min(opt.absorption_candidates, n_e)
+    B = max(1, min(opt.absorption_block, K))
+    nb, nw_len, EVC = absorb_widths(opt, n_e, n_ph)
+    want_events = (opt.extra_absorption_output
+                   or opt.extra_stimulated_emission_output)
+    # pairing over the halo-extended cells [-HALO, n_loc + HALO): rows
+    # that roam past the domain between exchanges keep their partners
+    pad = HALO
+    n_cells = geom.n_loc + 2 * pad
+    cells = torch.arange(n_cells, dtype=torch.int32, device=dev)
+
+    # ---- the electrons by cell ----------------------------------------
+    cols = (e.gamma, e.ux, e.uy, e.uz, e.chi, e.weight)
+    order = cell_mask = None  # the identity; no per-candidate cell test
+    if bracketed:
+        # dead rows keep in-range placeholder cells and weight 0: an
+        # admitted dead candidate has zero probability
+        cell_mask = (e.cell + pad).to(torch.int32)
+        seg_start = torch.searchsorted(_cummax(cell_mask), cells)
+        seg_end = torch.searchsorted(_suffix_min(cell_mask), cells,
+                                     right=True)
+    else:
+        key = torch.where(e.alive, e.cell + pad, n_cells).to(torch.int32)
+        if not presorted:
+            order = torch.argsort(key, stable=True)
+            key = key[order]
+            cols = tuple(c[order] for c in cols)
+        seg_start = torch.searchsorted(key, cells)
+        seg_end = torch.searchsorted(key, cells, right=True)
+    seg_len = seg_end - seg_start
+    # (n_e, 6) [p4 | chi | w], with the row's cell when bracketed
+    e_table = torch.stack(
+        [c.to(dtype) for c in cols]
+        + ([cell_mask.to(dtype)] if cell_mask is not None else []), dim=-1)
+    unsort = (lambda i: i) if order is None else (lambda i: order[i])
+
+    # ---- which photons can pair (interactions.rs:176-192) -------------
+    energy = ph.gamma * const.ELECTRON_MASS_MEV
+    active = ph.alive & (
+        ph.chi * const.ELECTRON_MASS_MEV / torch.clamp(energy, min=tiny)
+        >= PHOTON_E_ECRIT_CUTOFF)
+    if opt.absorption_stop_time is not None:
+        active = active & (t - ph.birth_time <= opt.absorption_stop_time)
+    if opt.max_displacement is not None:
+        active = active & (torch.hypot(ph.y, ph.z) <= opt.max_displacement)
+    pcell = torch.clamp(ph.cell.long() + pad, 0, n_cells - 1)
+    # the cell-mate screen: photons inside the occupied cell range (a
+    # superset of those with cell-mates; the rest have an empty segment
+    # and can never fire)
+    occ = seg_len > 0
+    cmin = torch.min(torch.where(occ, cells, n_cells))
+    cmax = torch.max(torch.where(occ, cells, -1))
+    has_mates = active & (pcell >= cmin) & (pcell <= cmax)
+
+    # ---- the working set ----------------------------------------------
+    compact = nw_len < n_ph
+    if compact:
+        # the first A photons with cell-mates from a random scan origin,
+        # so that under sustained overflow none starves
+        rot = _abs_rotation(rng, n_ph, dev)
+        rows_rot = (torch.arange(n_ph, device=dev) + rot) % n_ph
+        R = torch.cumsum(has_mates[rows_rot].long(), dim=0)
+        total = int(R[-1])  # the one host read before the walk
+        n_w = min(total, nw_len)
+        aovf = total - n_w
+        sel = torch.searchsorted(R, torch.arange(1, n_w + 1, device=dev))
+        # the walked photons in buffer order
+        idx = torch.sort((sel + rot) % n_ph).values
+        didx = torch.arange(n_w, device=dev)
+    else:
+        idx = torch.nonzero(has_mates)[:, 0]
+        n_w, aovf = idx.shape[0], 0
+        didx = idx
+    if n_w == 0:
+        res = (species, zero, zero + aovf)
+        return res + ((torch.zeros((0, 14), dtype=dtype, device=dev),
+                       torch.zeros(0, dtype=torch.bool, device=dev)),
+                      ) if want_events else res
+
+    k4_ph = torch.stack([ph.gamma, ph.ux, ph.uy, ph.uz], dim=1)
+    w_k4 = k4_ph[idx].to(dtype)
+    w_chi = ph.chi[idx].to(dtype)
+    w_tau_abs0, w_tau_st0 = ph.tau_abs[idx], ph.tau_st[idx]
+    w_weight = ph.weight[idx]
+    w_cell = pcell[idx]
+    w_start = seg_start[w_cell]
+    w_end = w_start + seg_len[w_cell]
+    # photons whose cell holds more than K electrons walk only K: a delay
+    overflow_pairs = torch.sum(w_end - w_start > K)
+
+    # ---- the per-cell candidate table: every photon of a cell walks
+    # the same first K rows of its segment -----------------------------
+    CC = 7
+    isz = e_table.element_size()
+    use_cell_table = n_cells * nb * B * CC * isz <= CAND_TABLE_MAX_BYTES
+    if use_cell_table:
+        karr = torch.arange(nb * B, device=dev)
+        cand_idx = seg_start[:, None] + karr[None, :]
+        cand_ok = (karr[None, :] < K) & (cand_idx < seg_end[:, None])
+        rows = e_table[torch.clamp(cand_idx, 0, n_e - 1)]
+        if bracketed:
+            # neighbour-cell rows inside a bracket are masked exactly
+            cand_ok = cand_ok & (rows[..., 6] == cells[:, None].to(dtype))
+        cand = torch.cat([
+            rows[..., :5],
+            torch.where(cand_ok, rows[..., 5], 0.0)[..., None],
+            cand_ok.to(dtype)[..., None]], dim=-1)  # (n_cells, nb*B, CC)
+
+    cdt_dx = const.SPEED_OF_LIGHT * opt.dt / geom.dx
+    ar = torch.arange(B, device=dev)
+    tau_abs, tau_st = w_tau_abs0.clone(), w_tau_st0.clone()
+    done = torch.zeros(n_w, dtype=torch.bool, device=dev)
+    ev_kind = torch.zeros(n_w, dtype=torch.int32, device=dev)
+    ev_idx = torch.zeros(n_w, dtype=torch.int64, device=dev)
+    for bi in range(nb):
+        if use_cell_table:
+            # this pass's rows of each photon's cell
+            rows = cand[w_cell, bi * B:(bi + 1) * B]
+            valid = (~done)[:, None] & (rows[..., 6] > 0.5)
+            w_e = rows[..., 5]
+        else:
+            # transient gathers of the photons' own segment rows
+            cidx = w_start[:, None] + bi * B + ar[None, :]
+            in_seg = (cidx < w_end[:, None]) & (bi * B + ar < K)[None, :]
+            rows = e_table[torch.clamp(cidx, 0, n_e - 1)]
+            if bracketed:
+                in_seg = in_seg & (rows[..., 6] == w_cell[:, None].to(dtype))
+            valid = (~done)[:, None] & in_seg
+            w_e = torch.where(valid, rows[..., 5], 0.0)
+        p4, chi_e = rows[..., 0:4], rows[..., 4]
+        if opt.stimulated_emission:
+            sig_abs, sig_st = cross_sections.pair_cross_sections(
+                w_k4[:, None, :], p4, w_chi[:, None], chi_e)
+            p_abs = torch.where(valid, w_e * cdt_dx * sig_abs, 0.0)
+            p_st = torch.where(valid, w_e * cdt_dx * sig_st, 0.0)
+        else:
+            sig_abs, _ = cross_sections.photon_absorption(
+                w_k4[:, None, :], p4, w_chi[:, None], chi_e)
+            p_abs = torch.where(valid, w_e * cdt_dx * sig_abs, 0.0)
+            p_st = torch.zeros_like(p_abs)
+        cum_abs = torch.cumsum(p_abs, dim=1)
+        cum_st = torch.cumsum(p_st, dim=1)
+        # only a valid candidate can fire: a finished photon's negative
+        # depth must not fire again
+        abs_fire = valid & ((tau_abs[:, None] - cum_abs) < 0.0)
+        st_fire = valid & ((tau_st[:, None] - cum_st) < 0.0)
+        # the first firing column of each, B for none
+        k_abs = torch.where(abs_fire, ar, B).min(dim=1).values
+        k_st = torch.where(st_fire, ar, B).min(dim=1).values
+        k_ev = torch.minimum(k_abs, k_st)
+        event = k_ev < B
+        both = event & (k_abs == k_st)
+        kc = torch.clamp(k_ev, 0, B - 1)[:, None]
+        take = lambda m: m.gather(1, kc)[:, 0]
+        pa_k, ps_k = take(p_abs), take(p_st)
+        r = _abs_draw(rng, "abs_r", didx, dtype, bi)
+        choose_abs = r < pa_k / torch.clamp(pa_k + ps_k, min=tiny)
+        absorbed_now = event & ((both & choose_abs) | (~both & (k_abs < k_st)))
+        stim_now = event & ~absorbed_now
+        # the depths fall by the whole pass without an event, else up to
+        # the event's column (the reference stops scanning there)
+        new_abs = (tau_abs - torch.where(event, take(cum_abs), cum_abs[:, -1])
+                   ).to(tau_abs.dtype)
+        new_st = (tau_st - torch.where(event, take(cum_st), cum_st[:, -1])
+                  ).to(tau_st.dtype)
+        exp1 = _abs_draw(rng, "abs_exp", didx, dtype, bi)
+        tau_abs = torch.where(stim_now & both, exp1[0].to(tau_abs.dtype),
+                              new_abs)
+        tau_st = torch.where(stim_now, exp1[1].to(tau_st.dtype), new_st)
+        ev_kind = torch.where(event, torch.where(absorbed_now, 1, 2),
+                              ev_kind).to(torch.int32)
+        # the event's electron, as a row of the cell-sorted view
+        ev_idx = torch.where(
+            event, torch.clamp(w_start + bi * B + kc[:, 0], 0, n_e - 1),
+            ev_idx)
+        done = done | event
+
+    # ---- the event capacity: events past EVC are cancelled (depths
+    # restored; the photon walks again next step), a counted delay ------
+    ev_live = ev_kind > 0
+    ev_over = ev_live & (torch.cumsum(ev_live.long(), dim=0) - 1 >= EVC)
+    tau_abs = torch.where(ev_over, w_tau_abs0, tau_abs)
+    tau_st = torch.where(ev_over, w_tau_st0, tau_st)
+    ev_kind = torch.where(ev_over, 0, ev_kind)
+    n_ev_deferred = ev_over.sum()
+    absorbed, stimulated = ev_kind == 1, ev_kind == 2
+    deferred = overflow_pairs + aovf + n_ev_deferred
+
+    events = None
+    if want_events:
+        want = torch.zeros_like(absorbed)
+        if opt.extra_absorption_output:
+            want = want | absorbed
+        if opt.extra_stimulated_emission_output:
+            want = want | stimulated
+        x_glob = geom.xmin + (
+            (ph.cell[idx] - geom.interior_start).to(dtype) + ph.x[idx]
+        ) * geom.dx
+        er = unsort(ev_idx)  # the electron's buffer row
+        p4_ev = torch.stack([e.gamma[er], e.ux[er], e.uy[er], e.uz[er]],
+                            dim=1)
+        rec = torch.cat([
+            x_glob[:, None].to(dtype),
+            torch.full((n_w, 1), t, dtype=dtype, device=dev),
+            ph.birth_time[idx][:, None].to(dtype),
+            w_chi[:, None], w_k4,
+            e.chi[er][:, None].to(dtype), p4_ev.to(dtype),
+            ev_kind[:, None].to(dtype),
+        ], dim=1)
+        events = (rec, want)
+
+    tau_cols = dict(tau_abs=_put(ph.tau_abs, idx, tau_abs),
+                    tau_st=_put(ph.tau_st, idx, tau_st))
+    # the one host read after the walk
+    n_abs, n_st = torch.stack([absorbed.sum(), stimulated.sum()]).tolist()
+    absorb.events["absorbed"] += n_abs
+    absorb.events["stimulated"] += n_st
+    n_ev = n_abs + n_st
+    if n_ev == 0:
+        out = ({**species, "photon": dataclasses.replace(ph, **tau_cols)},
+               zero, deferred)
+        return out + (events,) if want_events else out
+
+    # ---- event space: the events' rows alone ---------------------------
+    j, _ = misfit_compact((absorbed | stimulated).to(torch.float32), n_ev)
+    abs_j, stim_j = absorbed[j], stimulated[j]
+    tgt = unsort(ev_idx[j])  # the electron's buffer row
+    w_e_j = e.weight[tgt]
+    k_u_j = w_k4[j, 1:4]
+    scale_abs = w_weight[j] / torch.clamp(w_e_j, min=_tiny(w_e_j.dtype))
+    du = torch.where(abs_j[:, None], scale_abs[:, None] * k_u_j,
+                     torch.where(stim_j[:, None], -k_u_j, 0.0))
+
+    # the kicks (electron.rs:256-262, interactions.rs:322-334): absorbed
+    # du = (w_ph / w_e) k, stimulated du = -k; then gamma at the kicked
+    # rows (duplicate targets take the same value)
+    ux = e.ux.index_add(0, tgt, du[:, 0].to(e.ux.dtype))
+    uy = e.uy.index_add(0, tgt, du[:, 1].to(e.uy.dtype))
+    uz = e.uz.index_add(0, tgt, du[:, 2].to(e.uz.dtype))
+    gx, gy, gz = ux[tgt], uy[tgt], uz[tgt]
+    gamma = e.gamma.clone()
+    gamma[tgt] = torch.sqrt(1.0 + gx * gx + gy * gy + gz * gz).to(
+        gamma.dtype)
+    e = dataclasses.replace(e, ux=ux, uy=uy, uz=uz, gamma=gamma)
+
+    # absorbed photons die
+    kill = torch.zeros(n_ph, dtype=torch.bool, device=dev)
+    kill[idx[absorbed]] = True
+    ph = dataclasses.replace(
+        ph, **tau_cols, alive=ph.alive & ~kill,
+        **{k: torch.where(kill, 0.0, getattr(ph, k)).to(getattr(ph, k).dtype)
+           for k in ("weight", "ux", "uy", "uz")},
+        cell=torch.where(kill, 0, ph.cell).to(ph.cell.dtype))
+
+    lost = zero
+    if opt.stimulated_emission:
+        # the copies: the seed's momentum and polarization, the
+        # electron's weight, fresh depths
+        src = idx[j]
+        cidx = torch.arange(n_ev, device=dev)
+        buf = ParticleState(
+            cell=ph.cell[src], x=ph.x[src], prev_x=ph.prev_x[src],
+            y=ph.y[src], z=ph.z[src], weight=w_e_j.to(dtype),
+            ux=k_u_j[:, 0], uy=k_u_j[:, 1], uz=k_u_j[:, 2],
+            gamma=w_k4[j, 0], chi=w_chi[j], tau=None,
+            tau_abs=_abs_draw(rng, "abs_tau_abs", cidx, dtype),
+            tau_st=_abs_draw(rng, "abs_tau_st", cidx, dtype), work=None,
+            birth_time=torch.full((n_ev,), t, dtype=dtype, device=dev),
+            alive=stim_j, pol=ph.pol[src], basis=ph.basis[src],
+        )
+        ph, lost = insert(ph, buf, stim_j, width=EVC)
+    out = ({**species, "electron": e, "photon": ph}, lost, deferred)
+    return out + (events,) if want_events else out
+
+
+#: the events that ``absorb`` applied since the counts were last set to
+#: 0, by kind (a diagnostic read by the smoke run on the card)
+absorb.events = {"absorbed": 0, "stimulated": 0}

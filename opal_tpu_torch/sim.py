@@ -1,5 +1,6 @@
 """The particle-in-cell simulation core: the step of electrons, ions
-and photons, with QED photon emission.
+and photons, with QED photon emission, absorption and stimulated
+emission.
 
 One step, in the reference's hot-loop order (``src/main.rs:238-267``)
 and ``opal_tpu/sim.py``'s (``:1020-1247``), on one device:
@@ -10,12 +11,15 @@ and ``opal_tpu/sim.py``'s (``:1020-1247``), on one device:
    electrons or Boris push for ions [+ deposit]) plus the compacted
    unfused fallback for rows outside their block window, on the column
    layout or, with ``packed_fused``, on the packed one, or the unfused
-   ops for species the kernel cannot take (photons fly ballistically);
-   with emission on, the electrons' optical depths fall by the emission
-   rate at the half-step chi and gamma;
+   ops for species the kernel cannot take (photons fly ballistically,
+   and with absorption on update their chi from the fields); with
+   emission on, the electrons' optical depths fall by the emission rate
+   at the half-step chi and gamma;
 3. migrate leavers when the exchange runs every step (on a non-periodic
    grid, rows that leave the interior are deleted);
-4. photon emission (``interactions.emit_radiation``);
+4. photon absorption and stimulated emission (``interactions.absorb``:
+   bracketed on the fused electron path, else over a per-step sort),
+   then photon emission (``interactions.emit_radiation``);
 5. deposit the unfused species and fold the halo currents;
 6. load the boundaries (laser injection, absorbing ramp, conducting
    mirror) and the Yee field advance.
@@ -23,8 +27,10 @@ and ``opal_tpu/sim.py``'s (``:1020-1247``), on one device:
 ``run`` is an eager Python loop over the same static phase schedule as
 ``opal_tpu``: a maintenance sort opens every R-step period and a
 migration phase closes every M-step block.  Loss counters are device
-int64 tensors.  Emission takes its random numbers from the ``rng`` that
-``run`` is given.
+int64 tensors.  The QED passes take their random numbers from the
+``rng`` that ``run`` is given.  With an extra-output feature on, the
+absorption events go into a ring (``zero_events``) that ``run`` threads
+and returns.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from typing import NamedTuple
 import torch
 
 from . import constants as const
-from .interactions import emit_radiation
+from .interactions import absorb, emit_radiation
 from .fields import sm_mask, zero_fields
 from .grid import HALO, GridGeometry, apply_boundaries, em_field_energy_local
 from .ops import fused as F
@@ -63,13 +69,35 @@ class SimOptions:
     # QED photon emission (the reference's cargo features become the
     # switches below, off = the feature flag set)
     photon_emission: bool = False
+    photon_absorption: bool = False
     radiation_reaction: bool = True  # no_radiation_reaction inverted
     beaming: bool = True  # no_beaming inverted
+    stimulated_emission: bool = True  # no_stimulated_emission inverted
     immobile_photons: bool = False
+    # per-event absorption/stimulated-emission records
+    # (interactions.rs:267-289) go into a ring of event_log_capacity
+    # rows that run() threads; the CLI drains it at each output
+    extra_absorption_output: bool = False
+    extra_stimulated_emission_output: bool = False
+    event_log_capacity: int = 4096
     # emission filters (main.rs:81-83): MeV, rad about -x, m
     photon_energy_min: float | None = None
     photon_angle_max: float | None = None
     max_formation_length: float | None = None
+    # absorption controls (main.rs:84-85): the transverse displacement
+    # (m) and photon age (s) past which a photon no longer pairs
+    max_displacement: float | None = None
+    absorption_stop_time: float | None = None
+    # absorption events (absorbed + stimulated) a step; the events past
+    # it are cancelled and walk again next step, counted as deferred
+    absorption_event_capacity: int = 4096
+    # electrons of its cell a photon walks a step, in passes of
+    # absorption_block; a photon of a fuller cell is counted as deferred
+    absorption_candidates: int = 64
+    absorption_block: int = 32
+    # photons walked a step (0: every photon with cell-mates); the rest
+    # walk later, counted as deferred
+    absorption_active_capacity: int = 0
     # emitters sampled per step (0: every electron row); the rest emit
     # on a later step, counted as deferred
     emission_active_capacity: int = 0
@@ -97,6 +125,10 @@ class SimOptions:
     fused_block: int = 4096
     fused_window: int = 32
     fused_misfit_capacity: int = 1024
+    # the lite kernel form (no prev_x, gh, chi outputs) where nothing
+    # reads them: ions, and electrons of decks without QED (-1: auto;
+    # 0: the full form for every species)
+    fused_lite: int = -1
     # the packed layout for fused species (ops.fused.PackedState): run()
     # packs them once on entry and unpacks them once on exit, and the
     # step runs the packed kernel on them; not with QED emission, whose
@@ -116,7 +148,8 @@ class SimOptions:
 
 class Carry(NamedTuple):
     """The state the step loop threads: fields, species, time, loss
-    counters and the per-species kernel window bases."""
+    counters, the per-species kernel window bases and the event ring
+    (``None`` without the event log)."""
 
     E: torch.Tensor
     B: torch.Tensor
@@ -126,6 +159,7 @@ class Carry(NamedTuple):
     t: float
     counters: dict
     anchors: dict
+    events: tuple | None = None
 
 
 class Simulation:
@@ -153,8 +187,9 @@ class Simulation:
         for name, spec in species.items():
             if spec.kind not in ("electron", "ion", "photon"):
                 raise ValueError(f"species {name!r} of unknown kind {spec.kind!r}")
-        if options.photon_emission and not {"electron", "photon"} <= set(species):
-            raise ValueError("photon emission needs electron and photon species")
+        qed_on = options.photon_emission or options.photon_absorption
+        if qed_on and not {"electron", "photon"} <= set(species):
+            raise ValueError("QED needs electron and photon species")
         self.geom = geom
         self.options = options
         self.specs = dict(species)
@@ -166,6 +201,15 @@ class Simulation:
     # ------------------------------------------------------------------
     # the push
     # ------------------------------------------------------------------
+
+    @property
+    def _qed_on(self) -> bool:
+        return self.options.photon_emission or self.options.photon_absorption
+
+    @property
+    def _event_log(self) -> bool:
+        return (self.options.extra_absorption_output
+                or self.options.extra_stimulated_emission_output)
 
     @property
     def _n_rows(self) -> int:
@@ -188,11 +232,10 @@ class Simulation:
 
     def _packed_applicable(self, name, st) -> bool:
         """Whether ``run`` packs this species (``opal_tpu/sim.py:
-        487-500``): fused-applicable, QED emission off, not packed
-        yet."""
+        487-500``): fused-applicable, QED off, not packed yet."""
         return (
             self.options.packed_fused
-            and not self.options.photon_emission
+            and not self._qed_on
             and not isinstance(st, F.PackedState)
             and self._fused_applicable(name, st)
         )
@@ -211,9 +254,9 @@ class Simulation:
             # mixed precision: the work column is field-dtype and the
             # kernel outputs bare increments accumulated here in f64
             work_inc=electron and self.field_dtype != self.dtype,
-            # chi and gamma at the half step feed the emission rate, so
-            # QED electrons take the full form (opal_tpu/sim.py:502-539)
-            lite=not (electron and opt.photon_emission),
+            # chi and gamma at the half step feed the QED passes, so QED
+            # electrons take the full form (opal_tpu/sim.py:502-539)
+            lite=(not (electron and self._qed_on)) and opt.fused_lite != 0,
             dep_skip=not opt.current_deposition,
         )
 
@@ -255,20 +298,27 @@ class Simulation:
 
     def _push_species(self, name, st: ParticleState, E_slab, B_slab):
         """The unfused push of a whole species
-        (``opal_tpu/sim.py:376-442``).  Photons fly ballistically and
-        keep a stale chi, refreshed at output time (nothing reads it
-        while stepping without an absorption pass)."""
+        (``opal_tpu/sim.py:376-442``).  Photons fly ballistically; with
+        absorption on they update chi from the fields at their old
+        position, which the absorption pass reads, and without it keep a
+        stale chi, refreshed at output time."""
         opt = self.options
         spec = self.specs[name]
         if spec.kind == "photon":
             if opt.immobile_photons:
                 return st
-            cell, x, prev_x, y, z, _ = photon_push(
-                st.cell, st.x, st.y, st.z, st.u, None, None,
+            Ep = Bp = None
+            if opt.photon_absorption:
+                Ep, Bp = fields_at(E_slab, B_slab, st.cell + HALO, st.x)
+                Ep, Bp = Ep.to(st.x.dtype), Bp.to(st.x.dtype)
+            cell, x, prev_x, y, z, chi = photon_push(
+                st.cell, st.x, st.y, st.z, st.u, Ep, Bp,
                 self.geom.dx, opt.dt,
             )
-            return dataclasses.replace(st, cell=cell, x=x, prev_x=prev_x,
-                                       y=y, z=z)
+            upd = dict(cell=cell, x=x, prev_x=prev_x, y=y, z=z)
+            if chi is not None:
+                upd["chi"] = chi
+            return dataclasses.replace(st, **upd)
         electron = spec.kind == "electron"
         return dataclasses.replace(st, **self._push_rows(
             name, st.cell, st.x, st.y, st.z, st.u, st.gamma, st.work,
@@ -502,9 +552,9 @@ class Simulation:
 
     def _device_step(self, c: Carry, inline_sort, inline_migrate,
                      rng=None) -> Carry:
-        """One step; ``rng`` gives the emission pass its draws (a
+        """One step; ``rng`` gives the QED passes their draws (a
         ``torch.Generator``, or a dict of opal_tpu's arrays for this
-        step, see ``interactions.emit_radiation``)."""
+        step, see ``interactions``)."""
         geom, opt = self.geom, self.options
         E = c.E
         species, counters, anchors = (
@@ -535,6 +585,20 @@ class Simulation:
                 counters[name] = counters[name] + ovf
             species[name] = st
 
+        events = c.events
+        if opt.photon_absorption:
+            # the fused electron path pairs over per-cell brackets of its
+            # nearly sorted state (opal_tpu/sim.py:1104-1136); the unfused
+            # path sorts inside the pass
+            bracketed = self._fused_applicable("electron",
+                                               species["electron"])
+            with torch.profiler.record_function("absorb"):
+                species, lost, deferred, *ev = absorb(
+                    self, species, c.t, rng, bracketed=bracketed)
+            counters["photon"] = counters["photon"] + lost
+            counters["qed_deferred"] = counters["qed_deferred"] + deferred
+            if ev:
+                events = self._log_events(events, *ev[0])
         if opt.photon_emission:
             with torch.profiler.record_function("emit_radiation"):
                 species, lost, deferred = emit_radiation(
@@ -574,22 +638,40 @@ class Simulation:
             sm_mask(geom, E.device),
         )
         return Carry(E_slab[HALO:-HALO], B_slab[HALO:-HALO], J, rho,
-                     species, c.t + opt.dt, counters, anchors)
+                     species, c.t + opt.dt, counters, anchors, events)
+
+    @staticmethod
+    def _log_events(events, rec, want):
+        """Append the records ``rec`` that ``want`` selects to the ring
+        ``events = (ring, count)`` (``opal_tpu/sim.py:1148-1160``):
+        ``count`` is every event seen, the ring keeps the first
+        ``len(ring)``, and the writer counts the rest as dropped."""
+        ring, count = events
+        cap = ring.shape[0]
+        rank = torch.cumsum(want.long(), dim=0) - 1 + torch.clamp(count, max=cap)
+        dest = torch.where(want & (rank < cap), rank, cap)
+        ring = torch.cat([ring, ring[:1]])
+        ring[dest] = rec.to(ring.dtype)
+        return ring[:cap], count + want.sum()
 
     def run(self, E, B, J, rho, species, t0, counters, nsteps: int,
-            rng=None):
+            rng=None, events=None):
         """Advance ``nsteps`` steps over the static phase schedule;
         returns (E, B, J, rho, species, t, counters) with J/rho from the
-        final step (for output parity).
+        final step (for output parity), and with the event log on the
+        event ring as an eighth item (``events`` carries it over from an
+        earlier call; default an empty ring, :meth:`zero_events`).
 
-        With photon emission on, ``rng`` is required: a
-        ``torch.Generator`` on the simulation's device, or a callable
-        that returns step ``i``'s draws (``i`` counted from 0 in this
-        call) as a dict of arrays, which replays another generator's
-        stream (``interactions.emit_radiation``)."""
+        With QED on, ``rng`` is required: a ``torch.Generator`` on the
+        simulation's device, or a callable that returns step ``i``'s
+        draws (``i`` counted from 0 in this call) as a dict of arrays,
+        which replays another generator's stream
+        (``interactions.emit_radiation``, ``interactions.absorb``)."""
         opt = self.options
-        if opt.photon_emission and rng is None:
-            raise ValueError("photon emission needs an rng")
+        if self._qed_on and rng is None:
+            raise ValueError("QED needs an rng")
+        if self._event_log and events is None:
+            events = self.zero_events()
         replay = callable(rng) and not isinstance(rng, torch.Generator)
         steps = iter(range(nsteps))
 
@@ -618,7 +700,7 @@ class Simulation:
             for n in self.specs if self._fused_applicable(n, species[n])
         }
         c = Carry(E, B, J, rho, dict(species), float(t0), dict(counters),
-                  anchors)
+                  anchors, events if self._event_log else None)
 
         def blocks(c, k):
             # k steps as M-step blocks, each closed by the exchange
@@ -638,7 +720,8 @@ class Simulation:
                 c = blocks(self._sort_phase(c), min(R_eff, nsteps - lo))
         species = {**c.species, **{n: F.unpack_fused(c.species[n], tmpl)
                                    for n, tmpl in templates.items()}}
-        return c.E, c.B, c.J, c.rho, species, c.t, c.counters
+        out = (c.E, c.B, c.J, c.rho, species, c.t, c.counters)
+        return out + (c.events,) if self._event_log else out
 
     # ------------------------------------------------------------------
     # public API
@@ -648,16 +731,24 @@ class Simulation:
         return zero_fields(self.geom, self.field_dtype, self.device)
 
     def zero_counters(self):
-        """Per-species loss counters, and with emission the QED backlog
+        """Per-species loss counters, and with QED the backlog
         ``qed_deferred`` (work delayed to a later step, not lost): device
         int64 scalars."""
         names = list(self.specs)
-        if self.options.photon_emission:
+        if self._qed_on:
             names.append("qed_deferred")
         return {
             name: torch.zeros((), dtype=torch.int64, device=self.device)
             for name in names
         }
+
+    def zero_events(self):
+        """An empty event ring: ``(ring, count)``, the (capacity, 14)
+        records in the particle dtype and the int64 count of events seen
+        (``opal_tpu/sim.py:1489-1501``, at one device)."""
+        cap = self.options.event_log_capacity if self._event_log else 0
+        return (torch.zeros((cap, 14), dtype=self.dtype, device=self.device),
+                torch.zeros((), dtype=torch.int64, device=self.device))
 
     def em_field_energy(self, E, B) -> float:
         return float(em_field_energy_local(E, B, self.geom))
@@ -671,8 +762,10 @@ class Simulation:
     @property
     def electron_chi_is_lazy(self) -> bool:
         """True when the step leaves electron chi stale: the lite fused
-        kernel (non-QED decks) skips the per-step chi diagnostic."""
-        return self.options.fused_pusher and not self.options.photon_emission
+        kernel (non-QED decks) skips the per-step chi diagnostic
+        (``opal_tpu/sim.py:1572-1583``)."""
+        opt = self.options
+        return opt.fused_pusher and opt.fused_lite != 0 and not self._qed_on
 
     def refresh_electron_chi(self, E, B, st: ParticleState) -> ParticleState:
         """Recompute electron chi from the current momenta and fields
@@ -688,8 +781,9 @@ class Simulation:
 
     def refresh_photon_chi(self, E, B, st: ParticleState) -> ParticleState:
         """Recompute photon chi from the current positions and fields
-        (``photon.rs:165-176``): the step skips the per-step photon field
-        gather, since nothing reads chi without an absorption pass."""
+        (``photon.rs:165-176``): without an absorption pass the step
+        skips the per-step photon field gather, since nothing reads
+        chi."""
         E_slab, B_slab = halo.exchange_fields(E, B, self.geom)
         Ep, Bp = fields_at(E_slab, B_slab, st.cell + HALO, st.x)
         chi = photon_chi(st.u, Ep.to(st.x.dtype), Bp.to(st.x.dtype))

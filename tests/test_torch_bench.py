@@ -122,17 +122,123 @@ def test_bench_loss_voids_the_run(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--qed"], ["--no-absorption"], ["--chi", "0.1"],
-    ["--absorption-block", "16"], ["--absorption-active", "64"],
-    ["--emission-active", "64"], ["--devices", "4"], ["--aot"],
+    ["--devices", "4"], ["--aot"],
     ["--mxu-gather"], ["--dynamic-gather"], ["--sort-rowgather"],
-    ["--fused-subblocks", "4"], ["--sorted-pipeline"], ["--no-lite"],
+    ["--fused-subblocks", "4"], ["--sorted-pipeline"],
 ])
 def test_bench_refuses_unported_flags(flag, capsys):
     assert bench.main(TINY + flag) == 1
     cap = capsys.readouterr()
     assert cap.out == ""
     assert cap.err.startswith(f"opal_tpu_torch.bench: {flag[0]} is not ported")
+
+
+@pytest.mark.parametrize("flag,attr,value", [
+    (["--qed"], "qed", True), (["--no-absorption"], "absorption", False),
+    (["--chi", "0.1"], "chi", 0.1), (["--absorption-block", "16"],
+                                     "absorption_block", 16),
+    (["--absorption-active", "64"], "absorption_active", 64),
+    (["--emission-active", "64"], "emission_active", 64),
+    (["--no-lite"], "lite", False),
+])
+def test_bench_takes_qed_and_lite_flags(flag, attr, value):
+    """bench.py's QED flags and ``--no-lite``, refused until the QED
+    deck and the full kernel form were ported, parse to bench.py's
+    destinations and pass the refusal check."""
+    args = bench._parser().parse_args(TINY + flag)
+    assert getattr(args, attr) == value
+    assert bench._refusal(args) is None
+
+
+@pytest.mark.parametrize("particles,fused,nx,cap", [
+    (2_097_152, True, 16_384, 2_621_440),
+    (8_388_608, False, 65_536, 10_485_760),
+])
+def test_bench_qed_sizing_follows_bench_py(particles, fused, nx, cap,
+                                           monkeypatch):
+    """The ``--qed`` deck's auto-sizing (``bench.py:326-548``): npc 128
+    over nx max(1024, N/128) cells of 10 nm, 50-step blocks, block 2048,
+    sort every 64 steps, exchange every 3, the fused kernel only below
+    4e6 particles, the emission and absorption working sets at capacity
+    / 32 and / 4, 64 candidates in passes of 32, no velocity spread in
+    the window, and the photon buffer at the electron capacity; the
+    exchange window twice bench.py's 8168 (ROADMAP C12)."""
+    import opal_tpu_torch.sim as S
+
+    args = bench._parser().parse_args(
+        ["--qed", "--particles", str(particles)])
+    sim_kw = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_sim(geom, opts, specs, **kw):
+        sim_kw.update(geom=geom, opts=opts, specs=specs, **kw)
+        raise Stop
+
+    monkeypatch.setattr(S, "Simulation", fake_sim)
+    with pytest.raises(Stop):
+        bench.build(args)
+    opts, geom = sim_kw["opts"], sim_kw["geom"]
+    assert (geom.nx, geom.dx, args.steps, args.fused_block,
+            args.fused_resort, args.migrate_every, args.misfit_capacity,
+            args.fused) == (nx, 1e-8, 50, 2048, 64, 3, 256, fused)
+    assert opts.photon_emission and opts.photon_absorption
+    assert (opts.emission_active_capacity, opts.absorption_active_capacity,
+            opts.absorption_candidates, opts.absorption_block) == (
+        cap // 32, cap // 4, 64, 32)
+    assert (opts.fused_window, opts.migration_window,
+            opts.migration_capacity, opts.max_drift_cells_per_step) == (
+        24, 2 * 8168, 704, 0.95)
+    assert opts.fused_pusher == fused and opts.fused_lite == -1
+    assert set(sim_kw["specs"]) == {"electron", "photon"}
+    assert bench.chunk_steps(args.steps, -1, particles, qed=True) == 50
+
+
+@pytest.mark.parametrize("argv,form", [
+    (["--qed", "--particles", "16384"], "vay_full"),
+    (["--qed", "--no-absorption", "--particles", "16384"], "vay_full"),
+    (TINY[2:] + ["--no-lite"], "vay_full"),
+], ids=["qed", "qed_no_absorption", "no_lite"])
+def test_bench_qed_and_no_lite_run(argv, form, capsys, monkeypatch):
+    """``--qed`` (emission and absorption), ``--qed --no-absorption`` and
+    ``--no-lite`` at tiny sizes: one JSON line with no error, every step
+    through the kernel's full Vay form with the deposit, and on the QED
+    deck photons emitted and the absorption pass run only when asked."""
+    from opal_tpu_torch import interactions
+    from opal_tpu_torch import sim as S
+    from opal_tpu_torch.ops import fused as F
+
+    forms, passes = [], []
+    real_k, real_a = F.fused_push_deposit, S.absorb
+
+    def kernel(*args):
+        forms.append(F.form_name(args[0]))
+        return real_k(*args)
+
+    def absorb(*args, **kw):
+        passes.append(kw)
+        return real_a(*args, **kw)
+
+    monkeypatch.setattr(F, "fused_push_deposit", kernel)
+    monkeypatch.setattr(S, "absorb", absorb)
+    steps = ["--steps", "4"] if "--qed" in argv else []
+    assert bench.main(["--device", "cpu", "--verbose"] + argv + steps) == 0
+    cap = capsys.readouterr()
+    out = cap.out.strip().splitlines()
+    assert len(out) == 1
+    line = json.loads(out[0])
+    assert "error" not in line and line["value"] > 0
+    assert forms and set(forms) == {form} and len(forms) == 3 * (
+        4 if "--qed" in argv else 8)
+    if "--qed" in argv:
+        photons = int(cap.err.split("photons=")[1].split()[0])
+        assert photons > 0
+        absorbing = "--no-absorption" not in argv
+        assert len(passes) == (12 if absorbing else 0)
+        assert all(p == {"bracketed": True}
+                   for p in passes)
+    assert interactions.absorb is real_a
 
 
 def test_bench_without_card_exits_1(capsys):

@@ -91,7 +91,7 @@ def test_two_stream_outputs_match(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("deck,args,what", [
-    ("colliding_beams.yaml", ["photon_absorption"], "absorption"),
+    ("two_stream.yaml", ["checkpoint"], "checkpoint"),
     ("two_stream.yaml", ["initialise_fields"], "electrostatic"),
     ("two_stream.yaml", ["--devices", "2"], "2-device"),
 ])
@@ -101,8 +101,7 @@ def test_refuses_unported_decks(deck, args, what, tmp_path, capsys):
         # the electrostatic field set-up, asked for by the deck
         "initialise_fields": ("control:\n",
                               "control:\n initialise_fields: true\n"),
-        "photon_absorption": ("photon_absorption: false",
-                              "photon_absorption: true"),
+        "checkpoint": ("control:\n", "control:\n checkpoint: true\n"),
     }
     if args and args[0] in edits:
         path = tmp_path / deck
@@ -354,3 +353,75 @@ def test_qed_cli_writes_photon_outputs(immobile, tmp_path, capsys):
     assert e0["photons"] == 0.0 and e2["photons"] > 0.0
     loss = e0["electrons"] - e2["electrons"]
     assert abs(loss - e2["photons"]) < 0.05 * e2["photons"]
+
+
+@pytest.mark.parametrize("precision", ["mixed", "f32"])
+def test_absorption_cli_runs(precision, tmp_path, capsys):
+    """The mini colliding-beams crossing with absorption (the deck of
+    tests/test_torch_absorption.py, 120 steps over 2 outputs) through
+    the port's CLI on the CPU: at the default mixed precision the
+    unfused push with the per-step sort of the absorption pass, at
+    ``--f32`` (blocks of 128 rows) the kernel's full Vay form without the
+    deposit with the bracketed pairing.  Both print the absorption and
+    stimulated-emission events on standard error in the reference's
+    format, count no loss, and end with photons alive."""
+    from opal_tpu_torch import sim as S
+    from test_torch_absorption import MINI
+
+    tpu = " fused_block: 128\n" if precision == "f32" else ""
+    (tmp_path / "deck.yaml").write_text(
+        MINI.format(steps=120, outputs=2, tpu=tpu))
+    modes = []
+    real = S.absorb
+
+    def absorb(*a, **kw):
+        modes.append(kw["bracketed"])
+        return real(*a, **kw)
+
+    S.absorb = absorb
+    try:
+        argv = [str(tmp_path / "deck.yaml"), "--device", "cpu"]
+        assert tcli.main(argv + (["--f32"] if precision == "f32" else [])) == 0
+    finally:
+        S.absorb = real
+    o = capsys.readouterr()
+    assert ("[fused pusher: electron]" in o.out) == (precision == "f32")
+    assert set(modes) == {precision == "f32"} and len(modes) == 120
+    assert "warning" not in o.err
+    ev = [l.split() for l in o.err.splitlines()
+          if l.endswith((" abs", " stim"))]
+    assert len(ev) > 20 and {l[-1] for l in ev} == {"abs", "stim"}
+    assert all(len(l) == 14 for l in ev)
+    e2 = _energies(tmp_path / "2_energy.dat")
+    assert e2["photons"] > 0 and np.isfinite(list(e2.values())).all()
+
+
+@pytest.mark.parametrize("emission,absorption,fused_lite", [
+    (False, False, -1), (False, False, 0), (True, False, -1),
+    (False, True, -1)], ids=["plain", "no_lite", "emission", "absorption"])
+def test_lite_rule_matches_opal_tpu(emission, absorption, fused_lite):
+    """The kernel's lite form (no prev_x, gh, chi) serves electrons only
+    without QED and with ``fused_lite`` not 0, and only then is electron
+    chi left stale between outputs, as in opal_tpu (sim.py:520-523,
+    1572-1583): an absorption-only deck takes the full form."""
+    import opal_tpu.sim as JS
+    import opal_tpu_torch.sim as TS
+    from opal_tpu.grid import GridGeometry as JGeom
+    from opal_tpu.species import SpeciesSpec as JSpec
+    from opal_tpu_torch.grid import GridGeometry
+    from opal_tpu_torch.species import SpeciesSpec
+
+    kw = dict(dt=1e-17, photon_emission=emission,
+              photon_absorption=absorption, fused_pusher=True,
+              fused_block=128, fused_lite=fused_lite)
+    specs = lambda S: {"electron": S.electron(), "photon": S.photon()}
+    jsim = JS.Simulation(JGeom(nx=64, dx=1e-8, xmin=0.0, n_devices=1),
+                         JS.SimOptions(**kw), specs(JSpec),
+                         dtype=np.float32)
+    tsim = TS.Simulation(GridGeometry(nx=64, dx=1e-8, xmin=0.0, n_devices=1),
+                         TS.SimOptions(**kw), specs(SpeciesSpec),
+                         device="cpu", dtype=torch.float32)
+    lite = jsim._fused_spec("electron").lite
+    assert tsim._fused_spec("electron").lite == lite
+    assert lite == (not (emission or absorption) and fused_lite != 0)
+    assert tsim.electron_chi_is_lazy == jsim.electron_chi_is_lazy == lite
