@@ -99,14 +99,33 @@ the port on the card, phase by phase, each printing one line or more:
     crossing (5 outputs of 473 steps): one launch of the full Vay form
     without the deposit and one bracketed absorption pass a step, no
     loss, absorbed and stimulated events both seen, and the ledger
-    closure with the laser's work within 1e-4.
+    closure with the laser's work within 1e-4;
+23. the electrostatic field set-up at f64, card against CPU:
+    ``electrostatic_init`` on random rho and J at the full hole_boring
+    grid and on a periodic one, and ``initialize_fields`` on
+    ``examples/hole_boring.yaml``'s full-width initial state with both
+    species and with its electrons alone, within 1e-12 of each field's
+    scale;
+24. the field set-up and checkpoint/resume path: phase 8's full-width
+    hole_boring deck with ``initialise_fields: true`` and ``checkpoint:
+    true`` through the CLI, runs A and A' over 4 outputs of 150 steps,
+    run B over the first 2, then B resumed with A's deck
+    (``--resume``): lite Vay and lite Boris on every step, no loss, the
+    resumed output 2 byte-equal to B's, outputs 3-4 within 1e-6 of A's
+    energies with equal alive counts, the grid's difference from A's
+    beside the same difference of A', and the checkpoint's size and the
+    seconds of its save and load;
+25. the generator across a resume: phase 10's small emission deck
+    through ``Simulation.run`` with a save and a load between its two
+    halves, against the continuous run: equal photons, energies within
+    1e-12, and whether every column is bitwise equal.
 
 Kernel times (``ms``) are device time: 20 calls queued behind a
 device-side spin run back to back between two CUDA events.  The
 wrapper's whole call (``call_ms``) and the plain version's
 (``plain_ms``) are timed by CUDA events around each call, host launch
-included.  Phases 1-22 take about ten to
-sixteen minutes.  Any failed check raises, so the
+included.  Phases 1-25 take about ten to
+eighteen minutes.  Any failed check raises, so the
 script exits non-zero without the final line.  Before the last line it
 prints one JSON object describing each kernel form of the paths, and
 ``nvidia-smi``'s name and power limit; the last line is
@@ -1751,6 +1770,297 @@ def cb_absorption_drive(tmp: Path, smi: str):
     return launches, steps / wall, closure_w
 
 
+def _field_err(got, want) -> float:
+    """max |got - want| over max |want|: the error in units of the
+    field's scale."""
+    got, want = got.cpu().double(), want.cpu().double()
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-300)
+
+
+def field_setup_card_vs_cpu():
+    """Phase 23: the electrostatic field set-up at f64, card against CPU:
+    ``fields.electrostatic_init`` on random rho and J at the full
+    hole_boring grid (laser and absorbing zones, 20,204 cells) and on a
+    periodic grid of as many interior cells, and
+    ``Simulation.initialize_fields`` on ``examples/hole_boring.yaml``'s
+    full-width initial state (500,000 electrons and as many carbon ions,
+    in 2 x 625,000 rows), with both species (a neutral slab: its fields
+    are the particles' noise) and with its electrons alone (the slab's
+    charge: fields of a real scale).  The deposit adds in another order
+    on the card, and the cumsum associates otherwise: every field within
+    1e-12 of its scale."""
+    from opal_tpu_torch.cli import build
+    from opal_tpu_torch.convert import state_from_numpy, to_numpy
+    from opal_tpu_torch.fields import electrostatic_init
+    from opal_tpu_torch.grid import GridGeometry
+    from opal_tpu_torch.sim import Simulation
+
+    f64 = torch.float64
+    rng = np.random.default_rng(23)
+    parts = []
+    for label, kw in (("hole_boring grid", dict(left_boundary="laser",
+                                                right_boundary="absorbing")),
+                      ("periodic grid", {})):
+        geom = GridGeometry(nx=20_000, dx=1e-9, xmin=-1e-5, n_devices=1, **kw)
+        rho = rng.standard_normal(geom.n_ext) * 1e3
+        J = rng.standard_normal((geom.n_ext, 3)) * 1e11
+        args = {dev: (torch.zeros((geom.n_ext, 3), dtype=f64, device=dev),
+                      torch.zeros((geom.n_ext, 3), dtype=f64, device=dev),
+                      torch.from_numpy(J).to(dev),
+                      torch.from_numpy(rho).to(dev), geom)
+                for dev in ("cuda", "cpu")}
+        out = {dev: electrostatic_init(*a) for dev, a in args.items()}
+        ms = cuda_ms(lambda: electrostatic_init(*args["cuda"]))
+        err = max(_field_err(a, b) for a, b in zip(out["cuda"], out["cpu"]))
+        assert err < 1e-12, (label, err)
+        parts.append(f"electrostatic_init on the {label} ({geom.n_ext} cells) "
+                     f"within {err:.2e} of scale, {ms:.3f} ms")
+
+    sim, sp, _ = build(ROOT / "examples" / "hole_boring.yaml", dtype=f64,
+                       field_dtype=f64, device="cpu")
+    card = Simulation(sim.geom, sim.options, sim.specs, device="cuda",
+                      dtype=f64, field_dtype=f64)
+    sp_card = {n: state_from_numpy(to_numpy(st), device="cuda")
+               for n, st in sp.items()}
+    for label, names in (("both species", ("electron", "ion")),
+                         ("electrons alone", ("electron",))):
+        got = card.initialize_fields(*card.init_fields(),
+                                     {n: sp_card[n] for n in names})
+        want = sim.initialize_fields(*sim.init_fields(),
+                                     {n: sp[n] for n in names})
+        errs = [_field_err(a, b) for a, b in zip(got, want)]
+        assert max(errs) < 1e-12, (label, errs)
+        ms = cuda_ms(lambda: card.initialize_fields(
+            *card.init_fields(), {n: sp_card[n] for n in names}), reps=5)
+        ex = float(want[0][:, 0].abs().max())
+        parts.append(
+            f"initialize_fields, {label} (max |Ex| {ex:.4e} V/m): E, B, J, "
+            f"rho within {', '.join(f'{e:.2e}' for e in errs)} of scale, "
+            f"{ms:.3f} ms on the card")
+    for p in parts:
+        log(23, p)
+    del sp_card, card
+    torch.cuda.empty_cache()
+
+
+#: phase 24's window: phase 8's deck (slab at -9..-4 um, from t = -17
+#: um/c) with the field set-up and a checkpoint at every output, cut to
+#: outputs of 150 steps
+RESUME_SPAN = 150
+
+
+def _timed(fn, into: list):
+    """``fn`` with the seconds of each call, the card synchronised at
+    both ends, appended to ``into``."""
+    def call(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        into.append(time.perf_counter() - t0)
+        return res
+    return call
+
+
+#: the grid file's columns by field (``diagnostics.output.interpolate_
+#: grid``): x, rho, J, E, B
+GRID_FIELDS = {"rho": [1], "J": [2, 3, 4], "E": [5, 6, 7], "B": [8, 9, 10]}
+#: the output files of a hole_boring output index
+HB_STEMS = ("grid.dat", "energy.dat", "electron_x-px.fits",
+            "electron_x-p_perp.fits", "electron_py-pz.fits",
+            "carbon_x-px.fits", "carbon_x-p_perp.fits", "carbon_py-pz.fits")
+
+
+def _grid_err(path_a: Path, path_b: Path) -> dict:
+    """Each field's largest difference between two grid files over its
+    largest magnitude in the first, its components together (phase 7's
+    measure)."""
+    a, b = np.loadtxt(path_a), np.loadtxt(path_b)
+    assert a.shape == b.shape and np.isfinite(b).all()
+    return {f: float(np.abs(b[:, c] - a[:, c]).max())
+            / max(float(np.abs(a[:, c]).max()), 1e-300)
+            for f, c in GRID_FIELDS.items()}
+
+
+def hb_resume_drive(tmp: Path, smi: str):
+    """Phase 24, this slice's main path: ``examples/hole_boring.yaml`` at
+    full width through the user's entry point with ``initialise_fields:
+    true`` and ``checkpoint: true``: runs A and A' over 4 outputs of 150
+    steps, run B over the first 2, then B's directory resumed with A's
+    deck (``--resume``).  Both species go through B1's lite Vay
+    (``work_inc``) and lite Boris forms on every step, with no loss.
+
+    The resume restores the state exactly: the resumed run's output 2,
+    written again from the loaded state, is byte for byte B's own.  The
+    slab's flush uses atomics (ROADMAP C4), so two runs of the deck part
+    after that: the resumed outputs 3 and 4 must agree with A's in the
+    energies within 1e-6 relative (they are printed to 7 digits) and in
+    the alive counts.  Each field's largest difference from A's grid is
+    reported beside the same difference of run A', the spread of two
+    continuous runs: the atomics' rounding, amplified by the deck's
+    thermal slab, takes that past 1e-5 of scale in this window, so no
+    bar is set on it.  Returns the launches of each form over the four
+    runs."""
+    from opal_tpu_torch import checkpoint, cli, constants as const
+    from opal_tpu_torch.config import Config
+
+    src = (ROOT / "examples" / "hole_boring.yaml").read_text()
+    for a, b in HB_CLI_EDITS + (
+            ("control:\n", "control:\n initialise_fields: true\n"
+                           " checkpoint: true\n"),):
+        assert src.count(a) == 1, a
+        src = src.replace(a, b)
+    cfg = Config.from_string(src)
+    cfg.with_context("constants")
+    dt = 0.95 * cfg.read_f64("control", "dx") / const.SPEED_OF_LIGHT
+    start = cfg.read_f64("control", "start")
+
+    def deck(outputs):
+        end = start + (outputs * RESUME_SPAN + 0.5) * dt
+        return src.replace("end: -8.0e-6/c", f"end: {end!r}").replace(
+            "n_outputs: 30", f"n_outputs: {outputs}")
+
+    def drive(run: Path, outputs: int, *flags):
+        run.mkdir(exist_ok=True)
+        (run / "deck.yaml").write_text(deck(outputs))
+        so, se = io.StringIO(), io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+            rc = cli.main([str(run / "deck.yaml"), *flags])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out, err = so.getvalue(), se.getvalue()
+        assert rc == 0, (rc, out, err)
+        assert "[fused pusher: electron, ion]" in out, out
+        assert "buffer-overflow particle losses" not in err, err
+        launches = launched()
+        steps = (outputs - (2 if flags else 0)) * RESUME_SPAN
+        assert launches == {"vay": steps, "boris": steps}, (launches, steps)
+        return out, launches, wall
+
+    run_a, run_a2, run_b = tmp / "resume_a", tmp / "resume_a2", tmp / "resume_b"
+    saves, loads = [], []
+    real = checkpoint.save, checkpoint.load
+    checkpoint.save, checkpoint.load = _timed(real[0], saves), _timed(
+        real[1], loads)
+    try:
+        runs = [drive(run_a, 4), drive(run_a2, 4), drive(run_b, 2)]
+        kept = {s: (run_b / f"2_{s}").read_bytes() for s in HB_STEMS}
+        runs.append(drive(run_b, 4, "--resume"))
+    finally:
+        checkpoint.save, checkpoint.load = real
+    assert "Resuming from output 2 (t =" in runs[3][0], runs[3][0]
+    assert len(saves) == 5 + 5 + 3 + 3 and len(loads) == 1, (saves, loads)
+    for s, data in kept.items():
+        assert (run_b / f"2_{s}").read_bytes() == data, s
+
+    spread = {"resumed": {}, "A'": {}}
+    worst_energy = 0.0
+    for i in (3, 4):
+        e_a = _energy_file(run_a / f"{i}_energy.dat")
+        assert e_a["electrons"] > 0 and e_a["ions"] > 0, e_a
+        e_r = _energy_file(run_b / f"{i}_energy.dat")
+        for k, v in e_a.items():
+            err = abs(e_r[k] - v) / max(abs(v), abs(e_r[k]), 1e-300)
+            assert err <= 1e-6, (i, k, e_r[k], v)
+            worst_energy = max(worst_energy, err)
+        for label, run in (("resumed", run_b), ("A'", run_a2)):
+            for f, err in _grid_err(run_a / f"{i}_grid.dat",
+                                    run / f"{i}_grid.dat").items():
+                spread[label][f] = max(spread[label].get(f, 0.0), err)
+    alive = {}
+    for run in (run_a, run_a2, run_b):
+        with np.load(run / checkpoint.FILENAME) as z:
+            alive[run.name] = [int(z[f"{n}/alive"].sum())
+                               for n in ("electron", "ion")]
+            assert json.loads(bytes(z["manifest"]))["step"] == 4
+    assert alive["resume_b"] == alive["resume_a"], alive
+    size = (run_a / checkpoint.FILENAME).stat().st_size
+    la, la2, lb, lr = (r[1] for r in runs)
+    walls = ", ".join(f"{w:.1f}" for w in (r[2] for r in runs))
+    log(24, f"python -m opal_tpu_torch hole_boring.yaml with initialise_fields "
+            f"and checkpoint (nx 20000, npc 100 a species, slab -9..-4 um, "
+            f"outputs of {RESUME_SPAN} steps): runs A and A' over 4 outputs, "
+            f"B over 2, B resumed to 4: {walls} s; launches vay "
+            f"{la['vay']} + {la2['vay']} + {lb['vay']} + {lr['vay']}, boris "
+            f"the same; no losses; the resumed output 2 byte-equal to B's; "
+            f"outputs 3-4 vs A: energies within {worst_energy:.2e} relative, "
+            f"alive {alive['resume_b']} (A {alive['resume_a']}, A' "
+            f"{alive['resume_a2']})")
+    log(24, "largest grid difference from A over outputs 3-4, of each "
+            "field's scale: resumed " + ", ".join(
+                f"{f} {e:.2e}" for f, e in spread["resumed"].items())
+        + "; A' (continuous) " + ", ".join(
+                f"{f} {e:.2e}" for f, e in spread["A'"].items()))
+    log(24, f"checkpoint.npz at this width: {size} bytes ({size / 2**20:.1f} "
+            f"MiB); save {statistics.median(saves):.3f} s median of "
+            f"{len(saves)} (min {min(saves):.3f}, max {max(saves):.3f}), load "
+            f"{loads[0]:.3f} s, on {smi}")
+    return {form: sum(r[1][form] for r in runs) for form in la}
+
+
+def _same(a, b) -> bool:
+    """Bitwise equality of two tensors, NaN where NaN."""
+    if a.is_floating_point():
+        nan = a.isnan()
+        return torch.equal(nan, b.isnan()) and torch.equal(a[~nan], b[~nan])
+    return torch.equal(a, b)
+
+
+def qed_resume_on_card(tmp: Path):
+    """Phase 25: the generator across a resume.  Phase 10's small
+    emission deck at ``--f32`` through ``Simulation.run`` on the card,
+    drawing from the CLI's ``torch.Generator``, with ``checkpoint.save``
+    and ``load`` between its two halves, against the continuous run made
+    of the same two calls: the same photons, and energies within 1e-12
+    relative.  This path runs no deposit, so it reports whether every
+    column is bitwise equal."""
+    from opal_tpu_torch import checkpoint
+    from opal_tpu_torch.cli import build
+
+    run = tmp / "qed_resume"
+    run.mkdir()
+    (run / "deck.yaml").write_text(QED_SMALL)
+    sim, sp, rp = build(run / "deck.yaml", dtype=torch.float32,
+                        field_dtype=torch.float32, device="cuda")
+    steps = rp["total_steps"]
+    n1 = steps // 2
+    rng = torch.Generator(device=sim.device).manual_seed(sim.options.seed)
+    reset_launches()
+    E, B, J, rho, sp1, t1, c1 = sim.run(
+        *sim.init_fields(), sp, rp["tstart"], sim.zero_counters(), n1, rng=rng)
+    checkpoint.save(run, 1, t1, E, B, J, rho, sp1, rng, c1, sim.geom.n_loc)
+    cont = sim.run(E, B, J, rho, sp1, t1, c1, steps - n1, rng=rng)
+    _, t2, *state, rng2, c2 = checkpoint.load(run, sim)
+    res = sim.run(*state, t2, c2, steps - n1, rng=rng2)
+    launches = launched()
+    assert launches == {"vay_full_dep_skip": steps + (steps - n1)}, launches
+    for out in (cont, res):
+        lost = {k: int(v) for k, v in out[6].items() if k != "qed_deferred"}
+        assert not any(lost.values()), lost
+    photons = [int(o[4]["photon"].alive.sum()) for o in (cont, res)]
+    assert photons[0] == photons[1] > 0, photons
+    energies = {}
+    for label, o in (("continuous", cont), ("resumed", res)):
+        energies[label] = [sim.em_field_energy(o[0], o[1])] + [
+            sim.total_kinetic_energy(n, o[4][n]) for n in ("electron", "photon")]
+    worst = max(abs(a - b) / abs(b) for a, b in
+                zip(energies["resumed"], energies["continuous"]))
+    assert worst <= 1e-12, energies
+    bitwise = all(_same(a, b) for a, b in zip(res[:4], cont[:4])) and all(
+        _same(a, b) for n in sim.specs
+        for a, b in zip(res[4][n].columns().values(),
+                        cont[4][n].columns().values()))
+    log(25, f"small emission deck at --f32 ({steps} steps, {launches} "
+            f"launches), saved and loaded after {n1} steps ("
+            f"{int(sp1['photon'].alive.sum())} photons) on the card: "
+            f"photons {photons[1]} vs {photons[0]} of the continuous run, "
+            f"energies within {worst:.2e} relative, every column bitwise "
+            f"equal: {bitwise}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -1844,6 +2154,9 @@ def main(argv=None) -> int:
         full_dep = full_deposit_kernels()
         qtwin = qed_bench_twin(smi)
         cb_abs_launches, _, _ = cb_absorption_drive(tmp, smi)
+        field_setup_card_vs_cpu()
+        resume = hb_resume_drive(tmp, smi)
+        qed_resume_on_card(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1851,8 +2164,10 @@ def main(argv=None) -> int:
     # lite Vay error covers the earlier shapes too
     err_vay = max(results[k][0] for k in results)
     by_path = {
-        "vay": {"two_stream": ts_launches, "hole_boring": hb_launches["vay"]},
-        "boris": {"hole_boring": hb_launches["boris"]},
+        "vay": {"two_stream": ts_launches, "hole_boring": hb_launches["vay"],
+                "hole_boring resume": resume["vay"]},
+        "boris": {"hole_boring": hb_launches["boris"],
+                  "hole_boring resume": resume["boris"]},
         "vay_full_dep_skip": {
             "colliding_beams": cb_launches["vay_full_dep_skip"],
             "colliding_beams with absorption":

@@ -2,7 +2,8 @@
 
 The single-device particle-in-cell step of ``opal_tpu`` (electrons,
 ions and photons; laser, absorbing and conducting boundaries; QED
-photon emission, absorption and stimulated emission) rebuilt on PyTorch
+photon emission, absorption and stimulated emission; the electrostatic
+field set-up; checkpoints in ``opal_tpu``'s format) rebuilt on PyTorch
 tensors, with the fused gather + push + deposit kernel written in CUDA
 C++ for Hopper (``csrc/fused_push_deposit.cu``).  Module names mirror ``opal_tpu`` so
 each counterpart is easy to find; the package imports no JAX and

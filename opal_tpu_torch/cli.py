@@ -14,9 +14,11 @@ same rules, so one deck runs the same schedule in both packages; as
 there, mixed-precision QED decks run the unfused push with f64
 arithmetic, and ``--f32`` (or ``tpu: fused_pusher: 1``) the kernel;
 ``tpu: packed_fused: 1`` carries the fused species in the packed layout
-through the packed kernel (never with QED).
-Decks that need what is not ported (several devices, electrostatic
-initialization, checkpoints) are refused with exit code 1.
+through the packed kernel (never with QED).  ``control:
+initialise_fields`` sets up the electrostatic fields of the initial
+particles, and ``control: checkpoint`` writes ``checkpoint.npz`` at
+every output, in opal_tpu's format, which ``--resume`` continues from.
+Decks that need several devices are refused with exit code 1.
 
 It runs on the CUDA device unless ``--device cpu`` asks for the CPU;
 without a card it exits 1 and never falls back.
@@ -32,6 +34,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import checkpoint
 from . import constants as const
 from .config import Config, ConfigError
 from .convert import to_numpy
@@ -88,21 +91,11 @@ def fused_auto_sizing(span_gap: int, w_max: int, resort: int,
     return max(8, min(512, auto_w, w_max)), resort
 
 
-def _refuse_unported(cfg: Config, n_devices: int):
-    def flag(section, field):
-        try:
-            return cfg.read_bool(section, field)
-        except ConfigError:
-            return False
-
+def _refuse_unported(n_devices: int):
     if n_devices != 1:
         raise NotPorted(
             f"{n_devices}-device runs are not yet ported (one device only)"
         )
-    if flag("control", "initialise_fields"):
-        raise NotPorted("electrostatic field initialization is not yet ported")
-    if flag("control", "checkpoint"):
-        raise NotPorted("checkpointing is not yet ported")
 
 
 def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
@@ -124,7 +117,7 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
 
     if n_devices is None:
         n_devices = int(tpu_opt("devices", 0)) or 1
-    _refuse_unported(input_cfg, n_devices)
+    _refuse_unported(n_devices)
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise NoDevice("no CUDA device (pass --device cpu to run on the CPU)")
 
@@ -136,6 +129,18 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
     tend = input_cfg.read_f64("control", "end")
     current_deposition = input_cfg.read_bool("control", "current_deposition")
     n_outputs = input_cfg.read_usize("control", "n_outputs")
+
+    def flag(section, field):
+        try:
+            return input_cfg.read_bool(section, field)
+        except ConfigError:
+            return False
+
+    # the electrostatic field set-up (yee.rs:644-747, gated off in the
+    # reference at main.rs:174) and checkpoints are opt-in, as in opal_tpu
+    # (cli.py:97-111)
+    initialise_fields = flag("control", "initialise_fields")
+    checkpoint_enabled = flag("control", "checkpoint")
     photon_emission = input_cfg.read_bool("qed", "photon_emission")
     photon_absorption = input_cfg.read_bool("qed", "photon_absorption")
     qed_on = photon_emission or photon_absorption
@@ -143,10 +148,7 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
     # the reference's cargo features (Cargo.toml:24-31) as an optional
     # `features` section of booleans
     def feature(name):
-        try:
-            return input_cfg.read_bool("features", name)
-        except ConfigError:
-            return False
+        return flag("features", name)
 
     # joules -> MeV (main.rs:81)
     pe_min = input_cfg.read_opt_f64("qed", "photon_energy_min")
@@ -413,6 +415,7 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
         tstart=tstart, tend=tend, n_outputs=n_outputs,
         total_steps=total_steps, capacities=capacities,
         steps_per_block=int(tpu_opt("steps_per_block", 0)),
+        initialise_fields=initialise_fields, checkpoint=checkpoint_enabled,
     )
     return sim, states, run_params
 
@@ -486,6 +489,8 @@ def main(argv=None) -> int:
                              "the unfused ops). Default is MIXED "
                              "precision: f32 particles on the fused "
                              "kernel + f64 fields/energy integration")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from checkpoint.npz in the output dir")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="run on the CUDA device (default) or, with "
                              "the kernels' plain PyTorch versions, on the "
@@ -571,8 +576,24 @@ def main(argv=None) -> int:
         print(f"[fused pusher: {', '.join(fused_on) if fused_on else 'no applicable species (unfused ops)'}]")
 
     E, B, J, rho = sim.init_fields()
+    if rp["initialise_fields"]:
+        E, B, J, rho = sim.initialize_fields(E, B, J, rho, species)
     counters = sim.zero_counters()
     t = rp["tstart"]
+    first_output = 0
+    if args.resume:
+        try:
+            first_output, t, E, B, J, rho, species, rng, counters = (
+                checkpoint.load(output_dir, sim))
+        except FileNotFoundError:
+            print(f"opal_tpu_torch: no {checkpoint.FILENAME} in {output_dir}",
+                  file=sys.stderr)
+            return 1
+        except ValueError as exc:
+            print(f"opal_tpu_torch: {exc}", file=sys.stderr)
+            return 1
+        print(f"Resuming from output {first_output} "
+              f"(t = {simulation_time(t)})")
     runtime = time.monotonic()
 
     def dump(index):
@@ -589,6 +610,11 @@ def main(argv=None) -> int:
             )
         E_h, B_h, J_h, rho_h = to_numpy((E, B, J, rho))
         species_h = {k: to_numpy(v) for k, v in species.items()}
+        if rp["checkpoint"]:
+            # after the chi refresh, so that the saved chi is current;
+            # the event ring is not saved (nor is it in opal_tpu)
+            checkpoint.save(output_dir, index, float(t), E_h, B_h, J_h,
+                            rho_h, species_h, rng, counters, geom.n_loc)
         out.write_grid_data(output_dir, index, E_h, B_h, J_h, rho_h, geom)
         for skey, spec in sim.specs.items():
             out.write_particle_outputs(
@@ -602,11 +628,11 @@ def main(argv=None) -> int:
         out.write_energies(output_dir, index, fe, ee, ie, pe)
 
     last_deferred = 0
-    for i in range(n_outputs):
+    for i in range(first_output, n_outputs):
         dump(i)
-        if i > 0:
-            done = i * steps_bt_output
-            total = n_outputs * steps_bt_output
+        if i > first_output:
+            done = (i - first_output) * steps_bt_output
+            total = (n_outputs - first_output) * steps_bt_output
             print(
                 f"Output {i: >4} at t = {simulation_time(t)}, "
                 f"RT = {pretty_duration(time.monotonic() - runtime)}, "

@@ -42,7 +42,7 @@ import torch
 
 from . import constants as const
 from .interactions import absorb, emit_radiation
-from .fields import sm_mask, zero_fields
+from .fields import electrostatic_init, sm_mask, zero_fields
 from .grid import HALO, GridGeometry, apply_boundaries, em_field_energy_local
 from .ops import fused as F
 from .ops import maxwell
@@ -613,17 +613,9 @@ class Simulation:
             for J_add, rho_add in fused_dep.values():
                 J_slab = J_slab + J_add.to(E.dtype)
                 rho_slab = rho_slab + rho_add.to(E.dtype)
-            for name, spec in self.specs.items():
-                if spec.charge == 0.0 or name in fused_dep:
-                    continue
-                st = species[name]
-                macrocharge = torch.where(
-                    st.alive, st.weight * spec.charge, 0.0
-                )
-                J_slab, rho_slab = deposit(
-                    J_slab, rho_slab, st.cell + HALO, st.x, st.prev_x,
-                    macrocharge, self._velocity(st), geom.dx, opt.dt,
-                )
+            J_slab, rho_slab = self._deposit(
+                J_slab, rho_slab,
+                {n: st for n, st in species.items() if n not in fused_dep})
         J, rho = halo.fold_currents(J_slab, rho_slab, geom)
         E_own, B_own = apply_boundaries(
             E_slab[HALO:-HALO], B_slab[HALO:-HALO], geom, 0, c.t, opt.dt,
@@ -639,6 +631,23 @@ class Simulation:
         )
         return Carry(E_slab[HALO:-HALO], B_slab[HALO:-HALO], J, rho,
                      species, c.t + opt.dt, counters, anchors, events)
+
+    def _deposit(self, J_slab, rho_slab, species):
+        """The scatter deposit of each charged species of ``species``, in
+        the order of ``specs``, into the halo-extended slabs: the
+        macrocharge in the particle dtype, the slabs in the field dtype.
+        Returns (J_slab, rho_slab)."""
+        for name, spec in self.specs.items():
+            if spec.charge == 0.0 or name not in species:
+                continue
+            st = species[name]
+            macrocharge = torch.where(st.alive, st.weight * spec.charge, 0.0)
+            J_slab, rho_slab = deposit(
+                J_slab, rho_slab, st.cell + HALO, st.x, st.prev_x,
+                macrocharge, self._velocity(st), self.geom.dx,
+                self.options.dt,
+            )
+        return J_slab, rho_slab
 
     @staticmethod
     def _log_events(events, rec, want):
@@ -729,6 +738,22 @@ class Simulation:
 
     def init_fields(self):
         return zero_fields(self.geom, self.field_dtype, self.device)
+
+    def initialize_fields(self, E, B, J, rho, species):
+        """Electrostatic and magnetostatic fields from the initial
+        particles (reference ``main.rs:174-183`` and ``yee.rs:644-747``;
+        ``opal_tpu/sim.py:1416-1460`` at one device): deposit every
+        charged species, fold the halos, then solve the Gauss/Ampère
+        prefix sweep (:func:`fields.electrostatic_init`).  Returns (E,
+        B, J, rho)."""
+        n_slab = self.geom.n_loc + 2 * HALO
+        J_slab, rho_slab = self._deposit(
+            torch.zeros((n_slab, 3), dtype=E.dtype, device=E.device),
+            torch.zeros((n_slab,), dtype=E.dtype, device=E.device),
+            species)
+        J, rho = halo.fold_currents(J_slab, rho_slab, self.geom)
+        E, B = electrostatic_init(E, B, J, rho, self.geom)
+        return E, B, J, rho
 
     def zero_counters(self):
         """Per-species loss counters, and with QED the backlog
