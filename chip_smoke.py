@@ -4,6 +4,7 @@
     python3 chip_smoke.py --profile DIR   # phases 1, 2 and a profiled phase 8
     python3 chip_smoke.py --profile DIR --profile-deck colliding_beams
                                           # ... and a profiled phase 11
+    python3 chip_smoke.py --ranks N       # the decks on N cards (phase 27)
 
 Builds the port's CUDA kernel from ``opal_tpu_torch/csrc`` and drives
 the port on the card, phase by phase, each printing one line or more:
@@ -35,7 +36,7 @@ the port on the card, phase by phase, each printing one line or more:
 8. hole_boring CLI drive (the hole_boring main path):
    ``opal_tpu_torch.cli.main`` on ``examples/hole_boring.yaml`` at its
    full width (nx 20,000, npc 100 a species), with the slab moved to
-   -9..-4 um and the run cut to t = -17..-8 um/c (9471 steps over 3
+   -9..-4 um and the run cut to t = -17..-8.5 um/c (8946 steps over 3
    outputs), so that the pulse's peak reaches the slab: the launches of
    each kernel form, the losses, the outputs and the ions' heating;
 9. colliding_beams kernels vs plain: the full Vay form without the
@@ -70,9 +71,9 @@ the port on the card, phase by phase, each printing one line or more:
     with and without ``--packed`` (and ``--packed --no-deposition`` at 64
     steps a block): one JSON line each with no loss, one launch of the
     layout's form a step;
-16. the two_stream CLI drive of phase 4 with ``tpu: packed_fused: 1``:
-    every step through the packed Vay form, no loss, energy drift below
-    1e-3;
+16. the two_stream CLI drive of phase 4 with ``tpu: packed_fused: 1``,
+    cut to 1000 steps: every step through the packed Vay form, no loss,
+    energy drift below 1e-3;
 17. the deposit on row orders that break its fast path: at the bench
     and two_stream CLI shapes, rows shuffled within each block, every
     row of a block in one cell, two cells alternating row by row, and
@@ -108,23 +109,37 @@ the port on the card, phase by phase, each printing one line or more:
     scale;
 24. the field set-up and checkpoint/resume path: phase 8's full-width
     hole_boring deck with ``initialise_fields: true`` and ``checkpoint:
-    true`` through the CLI, runs A and A' over 4 outputs of 150 steps,
+    true`` through the CLI, runs A and A' over 4 outputs of 150 steps
+    (A' as a world of 1 under an NCCL process group: ``--coordinator``),
     run B over the first 2, then B resumed with A's deck
     (``--resume``): lite Vay and lite Boris on every step, no loss, the
-    resumed output 2 byte-equal to B's, outputs 3-4 within 1e-6 of A's
-    energies with equal alive counts, the grid's difference from A's
-    beside the same difference of A', and the checkpoint's size and the
-    seconds of its save and load;
+    resumed output 2 byte-equal to B's, outputs 3-4 of B and all of A'
+    within 1e-6 of A's energies with equal alive counts, the grid's
+    difference from A's beside the same difference of A', and the
+    checkpoint's size and the seconds of its save and load;
 25. the generator across a resume: phase 10's small emission deck
     through ``Simulation.run`` with a save and a load between its two
     halves, against the continuous run: equal photons, energies within
-    1e-12, and whether every column is bitwise equal.
+    1e-12, and whether every column is bitwise equal;
+26. the distributed path on one card: phase 4's two_stream CLI drive
+    (2000 steps) again as a world of 1 under an NCCL group
+    (``--coordinator``), and the bench twin at its defaults under the
+    group beside phase 15's run without: energies to the printed digits
+    and alive counts equal to the runs without a group, every step
+    through the kernel, and the collectives each run issued with their
+    time a step (phase 24's run A' is the hole_boring deck's such run).
+
+``python3 chip_smoke.py --ranks N`` runs phases 1-2, then phase 27
+instead of 3-26: the two_stream deck (2000 steps) and phase 24's
+hole_boring deck (600 steps) through ``--devices N`` on N cards, each
+in the domain and the replicated-field mode, against the same deck on
+one card.  It exits 1 on a machine with fewer than N cards.
 
 Kernel times (``ms``) are device time: 20 calls queued behind a
 device-side spin run back to back between two CUDA events.  The
 wrapper's whole call (``call_ms``) and the plain version's
 (``plain_ms``) are timed by CUDA events around each call, host launch
-included.  Phases 1-25 take about ten to
+included.  Phases 1-26 take about ten to
 eighteen minutes.  Any failed check raises, so the
 script exits non-zero without the final line.  Before the last line it
 prints one JSON object describing each kernel form of the paths, and
@@ -143,6 +158,7 @@ import json
 import math
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -469,25 +485,38 @@ def card_vs_cpu(tmp: Path, packed=False):
         f"energy {fc:.6e} vs {fp:.6e} J, kinetic {kc:.6e} vs {kp:.6e} J")
 
 
-def cli_drive(tmp: Path, steps=2000, outputs=4, packed=False):
+def cli_drive(tmp: Path, steps=2000, outputs=4, packed=False, group=False):
     """The main path through the user's entry point (with ``packed``, the
-    deck with ``tpu: packed_fused: 1``: phase 16); returns (launches,
-    steps/s)."""
-    from opal_tpu_torch import cli, constants as const
+    deck with ``tpu: packed_fused: 1``: phase 16; with ``group``, as a
+    world of 1 under an NCCL group: phase 26).  Returns (launches,
+    steps/s, the alive counts of each output, the collectives)."""
+    from opal_tpu_torch import cli
 
-    dt = 0.95 * 500.0 / const.SPEED_OF_LIGHT
-    src = (ROOT / "examples" / "two_stream.yaml").read_text()
-    src = src.replace("end: 0.1", f"end: {(steps + 0.5) * dt!r}")
-    src = src.replace("n_outputs: 20", f"n_outputs: {outputs}")
-    run = tmp / ("two_stream_packed" if packed else "two_stream")
+    src = _two_stream_deck(steps, outputs)
+    run = tmp / ("two_stream_packed" if packed else
+                 "two_stream_group" if group else "two_stream")
     run.mkdir(parents=True)
     (run / "deck.yaml").write_text(src + (PACKED_DECK if packed else ""))
     so, se = io.StringIO(), io.StringIO()
     reset_launches()
+    alive = []
+    real_gather = cli._gather
+
+    def gather(*args):
+        res = real_gather(*args)
+        alive.append({n: int(c["alive"].sum()) for n, c in res[1].items()})
+        return res
+
+    cli._gather = gather
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
-        rc = cli.main([str(run / "deck.yaml")])
-    torch.cuda.synchronize()
+    try:
+        with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se), \
+                Collectives() as coll:
+            rc = cli.main([str(run / "deck.yaml"),
+                           *(coordinator() if group else ())])
+        torch.cuda.synchronize()
+    finally:
+        cli._gather = real_gather
     wall = time.perf_counter() - t0
     launches = launched()
     out, err = so.getvalue(), se.getvalue()
@@ -510,14 +539,15 @@ def cli_drive(tmp: Path, steps=2000, outputs=4, packed=False):
     drift = abs(totals[-1] - totals[0]) / totals[0]
     assert drift < 1e-3, drift
     banner = out.splitlines()[0]
-    log(16 if packed else 4,
+    log(26 if group else 16 if packed else 4,
         f"python -m opal_tpu_torch two_stream.yaml (nx 1000, npc 100, "
         f"{steps} steps, {outputs} outputs"
-        f"{', tpu: packed_fused: 1' if packed else ''}): '{banner}', "
-        f"launches of {form} {launches}, no losses, total energy drift "
-        f"{drift:.3e}, {steps / wall:.1f} steps/s over {wall:.2f} s incl. "
-        f"output dumps")
-    return launches, steps / wall
+        f"{', tpu: packed_fused: 1' if packed else ''}"
+        f"{', a world of 1 under an NCCL group' if group else ''}): "
+        f"'{banner}', launches of {form} {launches}, no losses, total "
+        f"energy drift {drift:.3e}, {steps / wall:.1f} steps/s over "
+        f"{wall:.2f} s incl. output dumps")
+    return launches, steps / wall, alive, coll
 
 
 def bench_scale(smi: str):
@@ -736,7 +766,10 @@ def hb_cli_drive(tmp: Path, smi: str, outputs=3, profile=None):
     from opal_tpu_torch.config import Config
 
     src = (ROOT / "examples" / "hole_boring.yaml").read_text()
-    for a, b in HB_CLI_EDITS + (("n_outputs: 30", f"n_outputs: {outputs}"),):
+    # ended 0.5 um/c after the pulse's peak meets the slab's front, to
+    # leave room for the later phases in the time limit
+    for a, b in HB_CLI_EDITS + (("n_outputs: 30", f"n_outputs: {outputs}"),
+                                ("end: -8.0e-6/c", "end: -8.5e-6/c")):
         assert src.count(a) == 1, a
         src = src.replace(a, b)
     run = tmp / "hole_boring"
@@ -1223,10 +1256,11 @@ def bench_twin(smi: str):
     steps), with and without ``--packed``, and ``--packed
     --no-deposition`` cut to blocks of 64 steps: each prints its one
     JSON line with no loss, and every step of the three blocks launches
-    the layout's kernel form once.  Returns {form: launches}."""
+    the layout's kernel form once.  Returns ({form: launches}, {form:
+    pushes/s})."""
     from opal_tpu_torch import bench
 
-    launches = {}
+    launches, values = {}, {}
     for argv, form, steps in (([], "vay", 1024),
                               (["--packed"], "vay_packed", 1024),
                               (["--packed", "--no-deposition", "--steps",
@@ -1244,10 +1278,11 @@ def bench_twin(smi: str):
         assert "error" not in line and line["value"] > 0, line
         assert got == {form: 3 * steps}, got
         launches[form] = got[form]
+        values[form] = line["value"]
         log(15, f"python -m opal_tpu_torch.bench {' '.join(argv)}: "
                 f"{lines[0]}; {se.getvalue().strip()}; launches of {form} "
                 f"{got[form]}; on {smi}")
-    return launches
+    return launches, values
 
 
 #: phase 17's row orders, each breaking the deposit's fast path (one
@@ -1887,8 +1922,10 @@ def hb_resume_drive(tmp: Path, smi: str):
     """Phase 24, this slice's main path: ``examples/hole_boring.yaml`` at
     full width through the user's entry point with ``initialise_fields:
     true`` and ``checkpoint: true``: runs A and A' over 4 outputs of 150
-    steps, run B over the first 2, then B's directory resumed with A's
-    deck (``--resume``).  Both species go through B1's lite Vay
+    steps (A' as a world of 1 under an NCCL group, whose energies and
+    alive counts must equal A's: phase 26's hole_boring run), run B over
+    the first 2, then B's directory resumed with A's deck
+    (``--resume``).  Both species go through B1's lite Vay
     (``work_inc``) and lite Boris forms on every step, with no loss.
 
     The resume restores the state exactly: the resumed run's output 2,
@@ -1928,7 +1965,8 @@ def hb_resume_drive(tmp: Path, smi: str):
         reset_launches()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
-            rc = cli.main([str(run / "deck.yaml"), *flags])
+            rc = cli.main([str(run / "deck.yaml"), *flags,
+                           *(coordinator() if run == run_a2 else ())])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         out, err = so.getvalue(), se.getvalue()
@@ -1936,7 +1974,7 @@ def hb_resume_drive(tmp: Path, smi: str):
         assert "[fused pusher: electron, ion]" in out, out
         assert "buffer-overflow particle losses" not in err, err
         launches = launched()
-        steps = (outputs - (2 if flags else 0)) * RESUME_SPAN
+        steps = (outputs - (2 if "--resume" in flags else 0)) * RESUME_SPAN
         assert launches == {"vay": steps, "boris": steps}, (launches, steps)
         return out, launches, wall
 
@@ -1946,7 +1984,10 @@ def hb_resume_drive(tmp: Path, smi: str):
     checkpoint.save, checkpoint.load = _timed(real[0], saves), _timed(
         real[1], loads)
     try:
-        runs = [drive(run_a, 4), drive(run_a2, 4), drive(run_b, 2)]
+        runs = [drive(run_a, 4)]
+        with Collectives() as coll:
+            runs.append(drive(run_a2, 4))
+        runs.append(drive(run_b, 2))
         kept = {s: (run_b / f"2_{s}").read_bytes() for s in HB_STEMS}
         runs.append(drive(run_b, 4, "--resume"))
     finally:
@@ -1957,10 +1998,16 @@ def hb_resume_drive(tmp: Path, smi: str):
         assert (run_b / f"2_{s}").read_bytes() == data, s
 
     spread = {"resumed": {}, "A'": {}}
-    worst_energy = 0.0
-    for i in (3, 4):
+    worst_energy = worst_group = 0.0
+    for i in range(5):
         e_a = _energy_file(run_a / f"{i}_energy.dat")
         assert e_a["electrons"] > 0 and e_a["ions"] > 0, e_a
+        # A' ran as a world of 1 under an NCCL group: the same energies
+        # to the printed digits (C4: the atomics part the grids)
+        worst_group = max(worst_group, _energy_err(
+            run_a2 / f"{i}_energy.dat", run_a / f"{i}_energy.dat"))
+        if i < 3:
+            continue
         e_r = _energy_file(run_b / f"{i}_energy.dat")
         for k, v in e_a.items():
             err = abs(e_r[k] - v) / max(abs(v), abs(e_r[k]), 1e-300)
@@ -1976,7 +2023,7 @@ def hb_resume_drive(tmp: Path, smi: str):
             alive[run.name] = [int(z[f"{n}/alive"].sum())
                                for n in ("electron", "ion")]
             assert json.loads(bytes(z["manifest"]))["step"] == 4
-    assert alive["resume_b"] == alive["resume_a"], alive
+    assert alive["resume_b"] == alive["resume_a"] == alive["resume_a2"], alive
     size = (run_a / checkpoint.FILENAME).stat().st_size
     la, la2, lb, lr = (r[1] for r in runs)
     walls = ", ".join(f"{w:.1f}" for w in (r[2] for r in runs))
@@ -1998,6 +2045,14 @@ def hb_resume_drive(tmp: Path, smi: str):
             f"MiB); save {statistics.median(saves):.3f} s median of "
             f"{len(saves)} (min {min(saves):.3f}, max {max(saves):.3f}), load "
             f"{loads[0]:.3f} s, on {smi}")
+    steps = 4 * RESUME_SPAN
+    log(26, f"hole_boring.yaml (phase 24's window, {steps} steps) as a world "
+            f"of 1 under an NCCL group (run A'): energies within "
+            f"{worst_group:.2e} of run A's without a group over outputs 0-4, "
+            f"alive {alive['resume_a2']} equal; {runs[1][2]:.1f} s against "
+            f"{runs[0][2]:.1f} s ({(runs[1][2] - runs[0][2]) / steps * 1e3:.3f} "
+            f"ms a step of wall, one host's speed varying); collectives "
+            f"{coll.report(steps)}; on {smi}")
     return {form: sum(r[1][form] for r in runs) for form in la}
 
 
@@ -2061,6 +2116,235 @@ def qed_resume_on_card(tmp: Path):
             f"equal: {bitwise}")
 
 
+def coordinator() -> list:
+    """The CLI flags of a world of 1 under a process group: rank 0 of 1,
+    its rendezvous on a free localhost port (NCCL on the card)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    return ["--coordinator", f"127.0.0.1:{port}",
+            "--num-processes", "1", "--process-id", "0"]
+
+
+class Collectives:
+    """Counts and times the ring's collectives (``Ring.shift``, ``psum``,
+    ``all_gather``, ``gather``) issued inside the ``with`` block, the card
+    synchronised around each (the time a collective holds the step).
+    A world of 1's shift is a local copy, not a collective: it is
+    counted apart and neither synchronised nor timed."""
+
+    NAMES = ("shift", "psum", "all_gather", "gather")
+
+    def __enter__(self):
+        from opal_tpu_torch.parallel import dist
+
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        self.local = 0
+        self.seconds = dict.fromkeys(self.NAMES, 0.0)
+        self.real = {n: getattr(dist.Ring, n) for n in self.NAMES}
+
+        def timed(name):
+            fn = self.real[name]
+
+            def call(ring, *args):
+                if ring.group is None:
+                    return fn(ring, *args)
+                if ring.world == 1 and name == "shift":
+                    self.local += 1
+                    return fn(ring, *args)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn(ring, *args)
+                torch.cuda.synchronize()
+                self.calls[name] += 1
+                self.seconds[name] += time.perf_counter() - t0
+                return res
+            return call
+
+        for n in self.NAMES:
+            setattr(dist.Ring, n, timed(n))
+        return self
+
+    def __exit__(self, *exc):
+        from opal_tpu_torch.parallel import dist
+
+        for n, fn in self.real.items():
+            setattr(dist.Ring, n, fn)
+
+    def total(self) -> float:
+        return sum(self.seconds.values())
+
+    def report(self, steps: int) -> str:
+        calls = ", ".join(f"{n} {c}" for n, c in self.calls.items())
+        return (f"{calls} calls, {self.total() * 1e3:.3f} ms in all, "
+                f"{self.total() / steps * 1e3:.4f} ms a step (and "
+                f"{self.local} shifts to the rank itself, local copies)")
+
+
+def _energy_err(path_a: Path, path_b: Path) -> float:
+    """The largest relative difference of two energy files' values (each
+    printed to 7 digits)."""
+    a, b = _energy_file(path_a), _energy_file(path_b)
+    assert a.keys() == b.keys(), (a, b)
+    return max(abs(a[k] - b[k]) / max(abs(a[k]), abs(b[k]), 1e-300)
+               for k in a)
+
+
+def _two_stream_deck(steps: int, outputs: int) -> str:
+    from opal_tpu_torch import constants as const
+
+    dt = 0.95 * 500.0 / const.SPEED_OF_LIGHT
+    src = (ROOT / "examples" / "two_stream.yaml").read_text()
+    return src.replace("end: 0.1", f"end: {(steps + 0.5) * dt!r}").replace(
+        "n_outputs: 20", f"n_outputs: {outputs}")
+
+
+def dist_world_one(tmp: Path, smi: str, ts_rate: float, ts_alive: list,
+                   twin_value: float):
+    """Phase 26: the distributed path on one card.  Phase 4's two_stream
+    CLI drive (full width, 2000 steps over 4 outputs) again as a world
+    of 1 under an NCCL group (``--coordinator``): the same energies to
+    the printed digits and alive counts at every output as phase 4's run
+    without a group (``ts_rate`` steps/s, ``ts_alive``), lite Vay on
+    every step, no loss, and the collectives it issued.  Then the bench
+    twin at its defaults under the group (``bench._bench`` with the
+    ring), beside phase 15's run without it (``twin_value``): no loss,
+    one launch a step.  Returns the launches of the two runs."""
+    from opal_tpu_torch import bench
+    from opal_tpu_torch.parallel import dist
+
+    steps, outputs = 2000, 4
+    launches, rate, alive, coll = cli_drive(tmp, steps, outputs, group=True)
+    assert alive == ts_alive, (alive, ts_alive)
+    worst = max(_energy_err(tmp / "two_stream_group" / f"{i}_energy.dat",
+                            tmp / "two_stream" / f"{i}_energy.dat")
+                for i in range(outputs + 1))
+    assert worst <= 1e-6, worst
+    log(26, f"two_stream.yaml as a world of 1 under an NCCL group against "
+            f"phase 4's run without a group: energies within {worst:.2e} at "
+            f"every output, alive {alive[-1]} equal; {rate:.1f} steps/s "
+            f"against {ts_rate:.1f}; collectives {coll.report(steps)}; on "
+            f"{smi}")
+
+    args = bench._parser().parse_args(["--verbose"])
+    ring = dist.init(0, 1, f"file://{tmp / 'rendezvous'}", "cuda")
+    so, se = io.StringIO(), io.StringIO()
+    reset_launches()
+    try:
+        with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se), \
+                Collectives() as coll:
+            rc = bench._bench(args, ring)
+    finally:
+        dist.close(ring)
+    torch.cuda.synchronize()
+    got = launched()
+    assert rc == 0, (rc, so.getvalue(), se.getvalue())
+    line = json.loads(so.getvalue().strip().splitlines()[-1])
+    assert "error" not in line and line["value"] > 0, line
+    assert got == {"vay": 3 * args.steps}, got
+    log(26, f"the bench twin at its defaults ({3 * args.steps} steps) as a "
+            f"world of 1 under an NCCL group: {line['value']:.4e} pushes/s "
+            f"against {twin_value:.4e} without a group (phase 15); "
+            f"{se.getvalue().strip()}; collectives "
+            f"{coll.report(3 * args.steps)}; on {smi}")
+    return launches, got["vay"]
+
+
+def ranks_drive(n: int, smi: str) -> list:
+    """Phase 27 (``--ranks N``): the two_stream deck (2000 steps over 4
+    outputs) and phase 24's hole_boring deck (600 steps over 4) through
+    ``python -m opal_tpu_torch deck.yaml --devices N`` on N cards, each
+    in the domain mode and in the replicated-field mode (``tpu:
+    replicate_fields``), against the same deck on one card: no loss,
+    the alive counts of the last output equal (from its checkpoint), and
+    the energies' largest relative difference printed beside the steps a
+    second.  The two_stream deck in either mode, and hole_boring in the
+    replicated mode, must agree with one card to 1e-6 (their printed
+    digits and the atomics' rounding, C4); hole_boring's domain mode
+    parts further (the halo's E at each slab edge is advanced without
+    the neighbour's current, as in opal_tpu: ROADMAP C13), so it is
+    reported only.  Then the bench twin at its defaults with
+    ``--devices N`` and on one card: no loss, pushes/s a card.  Returns
+    the rows as dicts."""
+    from opal_tpu_torch import checkpoint, constants as const
+    from opal_tpu_torch.config import Config
+
+    hb = (ROOT / "examples" / "hole_boring.yaml").read_text()
+    for a, b in HB_CLI_EDITS:
+        hb = hb.replace(a, b)
+    cfg = Config.from_string(hb)
+    cfg.with_context("constants")
+    dt = 0.95 * cfg.read_f64("control", "dx") / const.SPEED_OF_LIGHT
+    end = cfg.read_f64("control", "start") + (4 * RESUME_SPAN + 0.5) * dt
+    hb = hb.replace("end: -8.0e-6/c", f"end: {end!r}").replace(
+        "n_outputs: 30", "n_outputs: 4")
+    decks = {"two_stream": _two_stream_deck(2000, 4), "hole_boring": hb}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
+    rows = []
+    try:
+        for name, src in decks.items():
+            src = src.replace("control:\n", "control:\n checkpoint: true\n")
+            runs = {}
+            for label, devices, rep in (("one card", 1, 0), ("domain", n, 0),
+                                        ("replicated", n, 1)):
+                run = tmp / f"{name}_{label.replace(' ', '_')}"
+                run.mkdir()
+                (run / "deck.yaml").write_text(
+                    src + f"\ntpu:\n replicate_fields: {rep}\n")
+                t0 = time.perf_counter()
+                res = subprocess.run(
+                    [sys.executable, "-m", "opal_tpu_torch",
+                     str(run / "deck.yaml"), "--devices", str(devices)],
+                    cwd=ROOT, capture_output=True, text=True, timeout=900)
+                wall = time.perf_counter() - t0
+                assert res.returncode == 0, (res.stdout, res.stderr)
+                assert "buffer-overflow" not in res.stderr, res.stderr
+                banner = res.stdout.splitlines()[0]
+                assert ("replicated" in banner) == (label == "replicated"), \
+                    banner
+                with np.load(run / checkpoint.FILENAME) as z:
+                    alive = {k: int(z[k].sum()) for k in z.files
+                             if k.endswith("/alive")}
+                runs[label] = (run, alive, wall, banner)
+            one = runs["one card"]
+            for label in ("domain", "replicated"):
+                run, alive, wall, banner = runs[label]
+                err = max(_energy_err(run / f"{i}_energy.dat",
+                                      one[0] / f"{i}_energy.dat")
+                          for i in range(5))
+                assert alive == one[1], (name, label, alive, one[1])
+                if name == "two_stream" or label == "replicated":
+                    assert err <= 1e-6, (name, label, err)
+                rows.append(dict(deck=name, mode=label, ranks=n,
+                                 energy_err=err, alive=alive, wall_s=wall,
+                                 one_card_wall_s=one[2], banner=banner))
+                log(27, f"{name} on {n} cards, {label} mode ('{banner}'): "
+                        f"energies within {err:.2e} of one card's, alive "
+                        f"{alive} equal; {wall:.1f} s against {one[2]:.1f} s "
+                        f"on one card (process start and set-up included); "
+                        f"on {smi}")
+        # the bench twin's deck decomposed over the N cards, beside one
+        twin = {}
+        for devices in (1, n):
+            res = subprocess.run(
+                [sys.executable, "-m", "opal_tpu_torch.bench", "--devices",
+                 str(devices), "--verbose"], cwd=ROOT, capture_output=True,
+                text=True, timeout=900)
+            assert res.returncode == 0, (res.stdout, res.stderr)
+            twin[devices] = json.loads(res.stdout.strip().splitlines()[-1])
+            assert "error" not in twin[devices], twin[devices]
+        rows.append(dict(deck="bench", ranks=n,
+                         pushes_per_s_a_card=twin[n]["value"],
+                         one_card=twin[1]["value"]))
+        log(27, f"python -m opal_tpu_torch.bench --devices {n}: "
+                f"{twin[n]['value']:.4e} pushes/s a card "
+                f"({n * twin[n]['value']:.4e} in all) against "
+                f"{twin[1]['value']:.4e} on one card; on {smi}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -2071,10 +2355,19 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--profile-deck", choices=("hole_boring", "colliding_beams"),
         default="hole_boring")
+    parser.add_argument(
+        "--ranks", type=int, default=0, metavar="N",
+        help="instead of phases 3-26, run the decks on N cards against "
+             "one card (phase 27); exits 1 with fewer than N cards")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); the port's smoke run needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    if args.ranks and torch.cuda.device_count() < args.ranks:
+        print(f"chip_smoke: --ranks {args.ranks} needs {args.ranks} CUDA "
+              f"devices and this machine has {torch.cuda.device_count()}",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
@@ -2100,6 +2393,14 @@ def main(argv=None) -> int:
     log(2, "atomics in the SASS (cuobjdump -sass): " + (
         "cuobjdump not found" if atomics is None else "; ".join(
             f"{form} {atomics.get(form, {})}" for form in F.FORMS)))
+    if args.ranks:
+        rows = ranks_drive(args.ranks, smi)
+        print(json.dumps({"ranks": rows}))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.profile is not None:
         tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
         try:
@@ -2134,7 +2435,7 @@ def main(argv=None) -> int:
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         card_vs_cpu(tmp)
-        ts_launches, _ = cli_drive(tmp)
+        ts_launches, ts_rate, ts_alive, _ = cli_drive(tmp)
         bench_scale(smi)
         hb = hole_boring_kernels()
         hb_card_vs_cpu(tmp)
@@ -2146,8 +2447,8 @@ def main(argv=None) -> int:
         b2 = packed_kernels()
         card_vs_cpu(tmp, packed=True)
         hb_packed = hb_card_vs_cpu(tmp, packed=True)
-        twin = bench_twin(smi)
-        ts_packed, _ = cli_drive(tmp, packed=True)
+        twin, twin_values = bench_twin(smi)
+        ts_packed, *_ = cli_drive(tmp, steps=1000, packed=True)
         stress_kernels()
         cross_sections_card_vs_cpu()
         absorb_card_vs_cpu()
@@ -2157,6 +2458,8 @@ def main(argv=None) -> int:
         field_setup_card_vs_cpu()
         resume = hb_resume_drive(tmp, smi)
         qed_resume_on_card(tmp)
+        ts_group, twin_group = dist_world_one(tmp, smi, ts_rate, ts_alive,
+                                              twin_values["vay"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2165,9 +2468,13 @@ def main(argv=None) -> int:
     err_vay = max(results[k][0] for k in results)
     by_path = {
         "vay": {"two_stream": ts_launches, "hole_boring": hb_launches["vay"],
-                "hole_boring resume": resume["vay"]},
+                "hole_boring resume, with its NCCL world of 1":
+                    resume["vay"],
+                "two_stream world of 1 under NCCL": ts_group,
+                "bench world of 1 under NCCL": twin_group},
         "boris": {"hole_boring": hb_launches["boris"],
-                  "hole_boring resume": resume["boris"]},
+                  "hole_boring resume, with its NCCL world of 1":
+                      resume["boris"]},
         "vay_full_dep_skip": {
             "colliding_beams": cb_launches["vay_full_dep_skip"],
             "colliding_beams with absorption":

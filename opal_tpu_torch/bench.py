@@ -1,7 +1,8 @@
 """Benchmark of the port: macroparticle pushes per second of the full
-PIC step on one CUDA device.
+PIC step per CUDA device.
 
     python -m opal_tpu_torch.bench [--packed | --no-lite | --qed] [flags]
+    python -m opal_tpu_torch.bench --devices N   # N ranks, one card each
 
 The twin of the JAX package's ``bench.py``: the same decks (a periodic
 two-stream plasma, 8*2**20 electrons over nx 1024, all-f32, Vay push,
@@ -17,7 +18,11 @@ standard output:
     {"metric": ..., "value": ..., "unit": ..., "vs_baseline": ...,
      "vs_node_proxy": ..., "device": ...}
 
-(``device`` names the card, or ``cpu``).
+(``device`` names the card, or ``cpu``).  ``--devices N`` runs the deck
+decomposed over N ranks of this host, one process and one card each
+(``gloo`` ranks with ``--device cpu``), as ``bench.py --devices N``
+does over N chips; the value is then the pushes per second of the
+whole run over N, and rank 0 prints the line.
 
 Any counted loss (migration, misfit or deposit-reach overflow, a
 photon that found no slot) voids the run: the line then carries
@@ -26,10 +31,10 @@ a delay, noted on standard error.  As in ``bench.py``, ``--qed`` runs
 the fused kernel (its full Vay form with the deposit) only below 4e6
 particles, and ``--no-lite`` runs the non-QED deck through the full
 form.  The bench runs on the CUDA device unless ``--device cpu`` asks
-for the CPU (the kernels' plain versions); without a card it exits 1
-and never falls back.  Flags of ``bench.py`` that the port does not
-have (several devices, the TPU-only knobs) are refused with exit code
-1.
+for the CPU (the kernels' plain versions); without a card, or with
+fewer cards than ranks, it exits 1 and never falls back.  Flags of
+``bench.py`` that the port does not have (the TPU-only knobs) are
+refused with exit code 1.
 
 Differences from ``bench.py``: the initial state is drawn on the host
 by ``species.initialize`` (``bench.py`` draws it on the device with
@@ -63,7 +68,6 @@ BENCH_DRIFT_CELLS = 0.0095
 
 #: flags of bench.py the port refuses, with the reason
 REFUSED = {
-    "devices": "only one device is ported",
     "aot": "a TPU ahead-of-time compile; nothing to compile on a GPU",
     "mxu_gather": "a TPU gather variant; the kernel gathers 4 taps",
     "dynamic_gather": "a TPU gather variant; the kernel gathers 4 taps",
@@ -166,9 +170,10 @@ def _parser():
     p.add_argument("--emission-active", type=int, default=-1,
                    help="emitters sampled a step (-1 = auto: electron "
                         "capacity / 32; 0 = every electron)")
+    p.add_argument("--devices", type=int, default=1,
+                   help="ranks on this host, one card each (the deck is "
+                        "decomposed over them)")
     # refused: parsed only to name them in the refusal
-    p.add_argument("--devices", type=int, default=None,
-                   help=argparse.SUPPRESS)
     p.add_argument("--aot", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--mxu-gather", action="store_true",
                    help=argparse.SUPPRESS)
@@ -186,21 +191,27 @@ def _parser():
 def _refusal(args) -> str | None:
     for name, why in REFUSED.items():
         v = getattr(args, name)
-        if name == "devices" and v in (None, 1):
-            continue
         if v not in (None, False):
             flag = "--" + name.replace("_", "-")
             return f"{flag} is not ported: {why}"
     return None
 
 
-def build(args):
+def build(args, ring=None):
     """The deck of ``bench.py:326-560`` with its auto-sizing applied to
-    ``args`` in place.  Returns (sim, fields, species, n_particles)."""
+    ``args`` in place, decomposed over ``ring`` (``parallel.dist.Ring``,
+    default a world of 1 on ``args.device``).  Returns (sim, fields,
+    species, n_particles): this rank's fields and rows, and the
+    particles of the whole deck."""
     from . import constants as const
     from .grid import GridGeometry
+    from .parallel.dist import Ring
     from .sim import SimOptions, Simulation
-    from .species import SpeciesSpec, initialize
+    from .species import SpeciesSpec, initialize, rank_rows
+
+    if ring is None:
+        ring = Ring(device=torch.device(args.device))
+    ndev = ring.world
 
     qed = args.qed
     if args.fused is None:
@@ -226,14 +237,14 @@ def build(args):
         args.fused_block = 2048 if qed else 8192
     if not args.misfit_capacity:
         args.misfit_capacity = min(2048, max(256, int(args.particles) // 32768))
-    nx = args.nx
+    nx = args.nx - args.nx % ndev
     npc = max(1, int(args.particles) // nx)
     n_particles = nx * npc
 
     dx = 1.0e-8 if qed else 500.0
     dt = 0.95 * dx / const.SPEED_OF_LIGHT
-    geom = GridGeometry(nx=nx, dx=dx, xmin=0.0, n_devices=1)
-    cap = int(n_particles * args.capacity_factor)
+    geom = GridGeometry(nx=nx, dx=dx, xmin=0.0, n_devices=ndev)
+    cap = int(n_particles // ndev * args.capacity_factor)
     if args.fused:
         cap = -(-cap // args.fused_block) * args.fused_block
     # the QED working sets (bench.py:418-429; the photon capacity equals
@@ -284,23 +295,26 @@ def build(args):
     specs = {"electron": espec}
     if qed:
         specs["photon"] = SpeciesSpec.photon()
-    sim = Simulation(geom, opts, specs, device=args.device, dtype=dtype)
+    sim = Simulation(geom, opts, specs, device=ring.device, dtype=dtype,
+                     ring=ring)
     zeros = lambda x, u, n: np.zeros_like(x)
     if qed:
         ux = lambda x, u, n: -1000.0 * (1.0 + 0.01 * n)
     else:
         ux = lambda x, u, n: drift * (1.0 + 0.001 * n) * np.sign(u - 0.5)
-    species = {"electron": initialize(
+    # every rank draws the whole deck on the host and keeps its block
+    species = {"electron": rank_rows(initialize(
         espec, geom, npc,
         density=lambda x: np.full_like(np.asarray(x, float), 20.0),
         ux=ux, uy=zeros, uz=zeros, dt=dt, capacity_per_device=cap, seed=0,
-        dtype=np_dtype, device=args.device,
-    )}
+        dtype=np_dtype, device="cpu",
+    ), ring.rank, cap, ring.device)}
     E, B, J, rho = sim.init_fields()
     if qed:
-        species["photon"] = initialize(
+        species["photon"] = rank_rows(initialize(
             specs["photon"], geom, 0, lambda x: x * 0, None, None, None, dt,
-            cap, seed=1, dtype=np_dtype, device=args.device)
+            cap, seed=1, dtype=np_dtype, device="cpu"), ring.rank, cap,
+            ring.device)
         # the static transverse field that gives the gamma-1000 beam the
         # quantum parameter chi = gamma B / B_crit (bench.py:535-548)
         B[:, 2] = args.chi * const.CRITICAL_FIELD / (
@@ -324,6 +338,7 @@ def chunk_steps(steps: int, steps_per_program: int, n_particles: int,
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
     refused = _refusal(args)
     if refused:
@@ -333,18 +348,59 @@ def main(argv=None) -> int:
         print("opal_tpu_torch.bench: no CUDA device (pass --device cpu to "
               "run on the CPU)", file=sys.stderr)
         return 1
-    device = torch.device(args.device)
-    sync = torch.cuda.synchronize if device.type == "cuda" else (
-        lambda: None)
+    if args.devices <= 1:
+        return _bench(args)
+    if args.device == "cuda" and torch.cuda.device_count() < args.devices:
+        print(f"opal_tpu_torch.bench: {args.devices} ranks need "
+              f"{args.devices} CUDA devices and this machine has "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 1
+    from .parallel import dist
 
+    codes = dist.launch(_rank_main, args.devices, (argv,))
+    return 0 if all(c == 0 for c in codes) else 1
+
+
+def _rank_main(rank: int, world: int, init_method: str, argv):
+    """One of ``--devices N``'s processes: rank ``rank`` of ``world``;
+    only rank 0 prints."""
+    import os
+
+    from .parallel import dist
+
+    args = _parser().parse_args(argv)
+    ring = dist.init(rank, world, init_method, args.device)
+    if rank != 0:
+        sys.stdout = open(os.devnull, "w")
+        sys.stderr = open(os.devnull, "w")
+    try:
+        rc = _bench(args, ring)
+        ring.barrier()
+    finally:
+        dist.close(ring)
+    sys.exit(rc)
+
+
+def _bench(args, ring=None) -> int:
+    """Build, warm up and time the deck on this rank; rank 0 prints the
+    JSON line.  Every rank of ``ring`` runs it."""
     t0 = time.perf_counter()
-    sim, (E, B, J, rho), species, n_particles = build(args)
+    sim, (E, B, J, rho), species, n_particles = build(args, ring)
+    ring, device = sim.ring, sim.device
+    ndev = ring.world
+    # every rank's work ends before a clock is read
+    sync = ring.barrier if ring.group is not None else (
+        (lambda: torch.cuda.synchronize(device)) if device.type == "cuda"
+        else (lambda: None))
     setup_s = time.perf_counter() - t0
     counters = sim.zero_counters()
     spp = chunk_steps(args.steps, args.steps_per_program, n_particles,
                       args.qed)
-    # the QED draws: one generator on the device
-    rng = torch.Generator(device=device).manual_seed(0) if args.qed else None
+    # the QED draws: one generator a rank on its device
+    from .checkpoint import rank_seed
+
+    rng = (torch.Generator(device=device).manual_seed(rank_seed(0, ring.rank))
+           if args.qed else None)
 
     def run_block(E, B, J, rho, species, t, counters):
         done = 0
@@ -364,7 +420,7 @@ def main(argv=None) -> int:
     out = run_block(*out)
     sync()
     t0 = time.perf_counter()
-    if args.profile:
+    if args.profile and ring.rank == 0:
         from .cli import _profiled
 
         out = _profiled(lambda: run_block(*out), Path(args.profile), device)
@@ -373,7 +429,9 @@ def main(argv=None) -> int:
     sync()
     elapsed = time.perf_counter() - t0
 
+    # the whole run's pushes a second, and a chip's share of them
     pushes_per_sec = n_particles * args.steps / elapsed
+    per_chip = pushes_per_sec / ndev
     counts = {k: int(v) for k, v in out[6].items()}
     deferred = counts.pop("qed_deferred", 0)
     if any(counts.values()):
@@ -383,7 +441,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         print(_error_line(
             f"invalid: buffer-overflow particle losses {counts} over "
-            f"{3 * args.steps} steps at {pushes_per_sec:.4g} pushes/s/chip "
+            f"{3 * args.steps} steps at {per_chip:.4g} pushes/s/chip "
             "(number void: lost particles were not pushed/deposited)"))
         return 0
     if deferred:
@@ -394,13 +452,14 @@ def main(argv=None) -> int:
     if args.verbose:
         photons = (f" photons={int(out[4]['photon'].alive.sum())}"
                    if args.qed else "")
-        print(f"# device={kind} x1 N={n_particles:.3g} steps={args.steps} "
+        print(f"# device={kind} x{ndev} N={n_particles:.3g} "
+              f"steps={args.steps} "
               f"chunk={spp} setup={setup_s:.1f}s warmup={warm_s:.1f}s "
               f"run={elapsed:.2f}s steps/s={args.steps / elapsed:.2f}"
               f"{photons}", file=sys.stderr)
     print(json.dumps({
         "metric": METRIC,
-        "value": pushes_per_sec,
+        "value": per_chip,
         "unit": "pushes/s",
         "vs_baseline": pushes_per_sec / BASELINE_NODE_PUSHES_PER_SEC,
         "vs_node_proxy": pushes_per_sec / PROXY_NODE_PUSHES_PER_SEC,

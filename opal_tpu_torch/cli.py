@@ -1,6 +1,6 @@
 """Command-line entry point: ``python -m opal_tpu_torch input.yaml``.
 
-The single-device path of ``opal_tpu/cli.py``: read the YAML deck,
+``opal_tpu/cli.py`` on PyTorch: read the YAML deck,
 build the grid (periodic, or a laser injector on the left and an
 absorbing boundary on the right when the deck has a ``laser`` section)
 and the electron, ion and (with QED photon emission or absorption)
@@ -18,15 +18,28 @@ through the packed kernel (never with QED).  ``control:
 initialise_fields`` sets up the electrostatic fields of the initial
 particles, and ``control: checkpoint`` writes ``checkpoint.npz`` at
 every output, in opal_tpu's format, which ``--resume`` continues from.
-Decks that need several devices are refused with exit code 1.
+
+``--devices N`` (or ``tpu: devices``) runs N ranks on this host, one
+process and one card each (``cuda:{rank}``, NCCL), or ``gloo`` ranks on
+``--device cpu``; ``--coordinator HOST:PORT --num-processes P
+--process-id R`` starts one rank a process across hosts instead.  The
+grid is cut into one slab a rank, or, by opal_tpu's rule for
+nonuniform decks (load imbalance of at least 1.5 over at most 80,000
+cells; ``tpu: replicate_fields: 0/1`` overrides it), held whole by
+every rank with the particles in equal-count chunks.  That mode's
+pairing of absorption decks is not ported: such a deck is refused by
+name, and ``tpu: replicate_fields: 0`` runs it decomposed.  Rank 0
+gathers and writes the outputs; the other ranks print nothing.
 
 It runs on the CUDA device unless ``--device cpu`` asks for the CPU;
-without a card it exits 1 and never falls back.
+without a card, or with fewer cards than ranks, it exits 1 and never
+falls back.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 from pathlib import Path
@@ -40,9 +53,11 @@ from .config import Config, ConfigError
 from .convert import to_numpy
 from .diagnostics import output as out
 from .diagnostics.progress import ettc, pretty_duration, simulation_time
-from .grid import HALO, GridGeometry
+from .grid import HALO, GridGeometry, balanced_counts, load_imbalance
+from .interactions import CAND_TABLE_MAX_BYTES
 from .ops.fused import PAD
-from .species import SpeciesSpec, initialize
+from .parallel import dist
+from .species import SpeciesSpec, initialize, rank_rows, shard_even
 
 
 class NotPorted(ValueError):
@@ -91,20 +106,33 @@ def fused_auto_sizing(span_gap: int, w_max: int, resort: int,
     return max(8, min(512, auto_w, w_max)), resort
 
 
-def _refuse_unported(n_devices: int):
-    if n_devices != 1:
-        raise NotPorted(
-            f"{n_devices}-device runs are not yet ported (one device only)"
-        )
+def deck_devices(path: Path) -> int:
+    """The deck's ``tpu: devices`` (default 1): the rank count of a run
+    that does not give ``--devices``."""
+    cfg = Config.from_file(path)
+    try:
+        return int(cfg.read_f64("tpu", "devices")) or 1
+    except ConfigError:
+        return 1
 
 
-def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
-          field_dtype=torch.float64, device="cuda"):
+def build(path: Path, dtype=torch.float32, field_dtype=torch.float64,
+          device="cuda", ring=None):
     """Parse an input file and construct the Simulation plus initial
-    state on ``device`` (the CUDA device unless the caller asks for
-    ``"cpu"``; raises :class:`NoDevice` when there is no card).
-    Returns (sim, state-dict, run-parameters)."""
+    state of one rank: ``ring`` (``parallel.dist.Ring``, default a world
+    of 1 on ``device``, the CUDA device unless the caller asks for
+    ``"cpu"``; raises :class:`NoDevice` when there is no card), whose
+    world is the run's device count.  Every rank builds the global
+    initial state on the host, sizes the run from it (so that every rank
+    sizes it alike) and keeps its own block of rows.  Returns (sim, state-dict, run-parameters)."""
     from .sim import SimOptions, Simulation
+
+    if ring is None:
+        ring = dist.Ring(device=torch.device(device))
+    device = ring.device
+    n_devices = ring.world
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise NoDevice("no CUDA device (pass --device cpu to run on the CPU)")
 
     input_cfg = Config.from_file(path)
     input_cfg.with_context("constants")
@@ -114,12 +142,6 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
             return input_cfg.read_f64("tpu", field)
         except ConfigError:
             return default
-
-    if n_devices is None:
-        n_devices = int(tpu_opt("devices", 0)) or 1
-    _refuse_unported(n_devices)
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise NoDevice("no CUDA device (pass --device cpu to run on the CPU)")
 
     nx = input_cfg.read_usize("control", "nx")
     xmin = input_cfg.read_f64("control", "xmin")
@@ -136,6 +158,10 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
         except ConfigError:
             return False
 
+    try:
+        balance = input_cfg.read_bool("control", "balance")
+    except ConfigError:
+        balance = True  # balance by default (main.rs:76)
     # the electrostatic field set-up (yee.rs:644-747, gated off in the
     # reference at main.rs:174) and checkpoints are opt-in, as in opal_tpu
     # (cli.py:97-111)
@@ -184,8 +210,44 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
     else:
         laser_y = laser_z = None
         left_bdy, right_bdy = "periodic", "periodic"
-    geom = GridGeometry(nx=nx, dx=dx, xmin=xmin, n_devices=1,
+    geom = GridGeometry(nx=nx, dx=dx, xmin=xmin, n_devices=n_devices,
                         left_boundary=left_bdy, right_boundary=right_bdy)
+
+    # the replicated-field mode, opal_tpu's load balancer for strongly
+    # nonuniform decks (opal_tpu/cli.py:168-219, the same rule): every
+    # rank holds the whole grid and the particles split into equal-count
+    # chunks; tpu: replicate_fields: 0/1 overrides the choice
+    rep_opt = int(tpu_opt("replicate_fields", -1))
+    if rep_opt < 0:
+        imb = 1.0
+        if balance and n_devices > 1:
+            try:
+                if input_cfg.read_usize("electrons", "npc") > 0:
+                    imb = load_imbalance(
+                        geom, input_cfg.func("electrons", "ne", "x"))
+            except ConfigError:
+                pass
+        replicate = imb >= 1.5 and n_devices > 1 and geom.n_ext <= 80_000
+        replicate_blocked_by_absorption = False
+        if replicate and photon_absorption:
+            # the gathered candidate table must fit its memory guard;
+            # beyond it the deck runs decomposed
+            K = int(tpu_opt("absorption_candidates", 256))
+            kl = -(-max(1, -(-K // n_devices)) // 32) * 32
+            if (nx + 2 * HALO) * kl * 8 * n_devices * 4 > CAND_TABLE_MAX_BYTES:
+                replicate = False
+                replicate_blocked_by_absorption = True
+    else:
+        replicate = bool(rep_opt) and n_devices > 1
+        replicate_blocked_by_absorption = False
+    if replicate and photon_absorption:
+        raise NotPorted(
+            "the replicated-field mode's photon absorption (its pairing "
+            "across ranks) is not ported; tpu: replicate_fields: 0 runs "
+            "this deck decomposed")
+    if replicate:
+        geom = GridGeometry(nx=nx, dx=dx, xmin=xmin, n_devices=1,
+                            left_boundary=left_bdy, right_boundary=right_bdy)
 
     capacity_factor = tpu_opt("capacity_factor", 1.5)
     migration_capacity = int(tpu_opt("migration_capacity", 16384))
@@ -236,6 +298,9 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
             est = int(
                 _required_capacity(geom, epc_for_w, ne_est) * capacity_factor
             )
+            if replicate:
+                # the particles split evenly over the ranks
+                est = -(-est // n_devices)
         except ConfigError:
             est = 0
         while (
@@ -255,42 +320,67 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
 
     def init_species(sp, sec, npc, dens, seed_, cap=None):
         """One species at its per-device capacity (given, or sized from
-        the population), sampled with ``seed_``; returns (state,
-        capacity)."""
+        the population), sampled with ``seed_`` on the host: the global
+        state of every rank's block (opal_tpu/cli.py:370-414; in the
+        replicated mode a one-device draw re-chunked by ``shard_even``).
+        Returns (state, capacity)."""
         u = [input_cfg.func3(sec, f, ("x", "urand", "nrand"))
              for f in ("ux", "uy", "uz")]
-        if cap is not None:
-            return initialize(
-                sp, geom, npc, dens, *u, dt, cap, seed=seed_,
-                dtype=np_dtype, device=device,
-            ), cap
-        cap = _round_up(
-            int(_required_capacity(geom, npc, dens) * capacity_factor))
-        if fused_pusher and cap >= fused_block:
-            # capacity % block == 0; big decks round to 4 blocks
-            mult = fused_block * (4 if cap >= 64 * fused_block else 1)
-            cap = _round_up(cap, mult)
+        work = np_work_dtype if cap is None else None
+        if replicate:
+            host = initialize(
+                sp, geom, npc, dens, *u, dt,
+                _round_up(int(_required_capacity(geom, npc, dens))),
+                seed=seed_, dtype=np_dtype, work_dtype=work, device="cpu")
+            if cap is None:
+                n_alive = int(host.alive.sum())
+                cap = _round_up(
+                    int(-(-n_alive // n_devices) * capacity_factor))
+                if fused_pusher and cap >= fused_block:
+                    cap = _round_up(cap, fused_block)
+            return shard_even(host, n_devices, cap), cap
+        if cap is None:
+            cap = _round_up(
+                int(_required_capacity(geom, npc, dens) * capacity_factor))
+            if fused_pusher and cap >= fused_block:
+                # capacity % block == 0; big decks round to 4 blocks
+                mult = fused_block * (4 if cap >= 64 * fused_block else 1)
+                cap = _round_up(cap, mult)
         return initialize(
             sp, geom, npc, dens, *u, dt, cap, seed=seed_, dtype=np_dtype,
-            work_dtype=np_work_dtype, device=device,
+            work_dtype=work, device="cpu",
         ), cap
+
+    def empty(sp, cap, seed_, work=np_work_dtype):
+        """A species with no particles: ``cap`` dead rows a rank."""
+        if replicate:
+            host = initialize(sp, geom, 0, lambda x: x * 0, None, None, None,
+                              dt, 8, seed=seed_, dtype=np_dtype,
+                              work_dtype=work, device="cpu")
+            return shard_even(host, n_devices, cap)
+        return initialize(sp, geom, 0, lambda x: x * 0, None, None, None, dt,
+                          cap, seed=seed_, dtype=np_dtype, work_dtype=work,
+                          device="cpu")
 
     epc = input_cfg.read_usize("electrons", "npc")
     especs = SpeciesSpec.electron(input_cfg.read_strings("electrons", "output"))
     specs = {"electron": especs}
     states, capacities = {}, {}
+    balance_info = None
     if epc > 0:
+        ne = input_cfg.func("electrons", "ne", "x")
+        if balance:
+            # the reference's density-balanced split (grid/mod.rs:157-206):
+            # the slabs stay equal, the banner reports the imbalance
+            balance_info = dict(
+                counts=balanced_counts(nx, xmin, dx, n_devices, ne).tolist(),
+                imbalance=load_imbalance(geom, ne))
         states["electron"], capacities["electron"] = init_species(
-            especs, "electrons", epc, input_cfg.func("electrons", "ne", "x"),
-            seed,
+            especs, "electrons", epc, ne, seed,
         )
     else:
         capacities["electron"] = 8
-        states["electron"] = initialize(
-            especs, geom, 0, lambda x: x * 0, None, None, None, dt, 8,
-            seed=seed, dtype=np_dtype, work_dtype=np_work_dtype,
-            device=device,
-        )
+        states["electron"] = empty(especs, 8, seed)
     ipc = input_cfg.read_usize("ions", "npc")
     if ipc > 0:
         ispecs = SpeciesSpec.ion(
@@ -316,10 +406,7 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
                 seed + 2, cap=pcap,
             )
         else:
-            states["photon"] = initialize(
-                pspecs, geom, 0, lambda x: x * 0, None, None, None, dt, pcap,
-                seed=seed + 2, dtype=np_dtype, device=device,
-            )
+            states["photon"] = empty(pspecs, pcap, seed + 2, work=None)
         capacities["photon"] = pcap
     # emitters sampled a step: capacity / 32 of the electrons, at least
     # 4096 (opal_tpu/cli.py:475-483)
@@ -406,16 +493,21 @@ def build(path: Path, n_devices: int | None = None, dtype=torch.float32,
         migration_every=migration_every,
         migration_window=migration_window,
         max_drift_cells_per_step=max_drift,
+        replicate_fields=replicate,
     )
     sim = Simulation(geom, options, specs, device=device, dtype=dtype,
                      field_dtype=field_dtype, laser_y=laser_y,
-                     laser_z=laser_z)
+                     laser_z=laser_z, ring=ring)
+    states = {name: rank_rows(st, ring.rank, capacities[name], device)
+              for name, st in states.items()}
     total_steps = int((tend - tstart) / dt)
     run_params = dict(
         tstart=tstart, tend=tend, n_outputs=n_outputs,
         total_steps=total_steps, capacities=capacities,
         steps_per_block=int(tpu_opt("steps_per_block", 0)),
         initialise_fields=initialise_fields, checkpoint=checkpoint_enabled,
+        balance_info=balance_info, replicated=replicate,
+        replicate_blocked_by_absorption=replicate_blocked_by_absorption,
     )
     return sim, states, run_params
 
@@ -474,14 +566,15 @@ def _profiled(fn, out_dir: Path, device: torch.device):
     return res
 
 
-def main(argv=None) -> int:
+def _parser():
     parser = argparse.ArgumentParser(
         prog="opal_tpu_torch",
         description="1d3v PIC simulation on PyTorch/CUDA (opal_tpu port)",
     )
     parser.add_argument("input", help="path to YAML input configuration")
     parser.add_argument("--devices", type=int, default=None,
-                        help="number of devices (only 1 is ported)")
+                        help="ranks on this host, one card each (default: "
+                             "the deck's tpu: devices, or 1)")
     parser.add_argument("--f32", action="store_true",
                         help="run everything in float32 (bench mode)")
     parser.add_argument("--f64", action="store_true",
@@ -499,30 +592,122 @@ def main(argv=None) -> int:
                         help="profile the last output block with "
                              "torch.profiler and write its operator table "
                              "to DIR/profile.txt")
-    args = parser.parse_args(argv)
+    parser.add_argument("--coordinator", metavar="HOST:PORT", default=None,
+                        help="multi-process run: the address of rank 0's "
+                             "process group (torch.distributed's tcp:// "
+                             "rendezvous; the reference's mpirun analogue, "
+                             "main.rs:49). Start one process a rank with "
+                             "the same coordinator and --process-id 0..P-1")
+    parser.add_argument("--num-processes", type=int, default=None,
+                        help="multi-process run: the number of ranks")
+    parser.add_argument("--process-id", type=int, default=None,
+                        help="multi-process run: this process's rank")
+    return parser
 
+
+def main(argv=None) -> int:
+    """Parse the command line and run: one rank in this process, or
+    ``--devices N`` ranks as N processes of this host, or one rank of a
+    ``--coordinator`` group.  Returns the exit code."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parser().parse_args(argv)
     if args.f32 and args.f64:
         print("opal_tpu_torch: --f32 and --f64 are mutually exclusive",
               file=sys.stderr)
         return 1
+    if args.coordinator is not None:
+        if args.num_processes is None or args.process_id is None:
+            print("opal_tpu_torch: --coordinator requires --num-processes "
+                  "and --process-id", file=sys.stderr)
+            return 1
+        if args.device == "cuda" and not torch.cuda.is_available():
+            print("opal_tpu_torch: no CUDA device (pass --device cpu to run "
+                  "on the CPU)", file=sys.stderr)
+            return 1
+        return _rank(args.process_id, args.num_processes, args,
+                     f"tcp://{args.coordinator}")
+    try:
+        n = args.devices or deck_devices(Path(args.input))
+    except (ConfigError, ValueError, OSError) as exc:
+        print(f"opal_tpu_torch: {exc}", file=sys.stderr)
+        return 1
+    if n <= 1:
+        return _run(args, dist.Ring(device=torch.device(args.device)))
+    if args.device == "cuda":
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if cards < n:
+            print(f"opal_tpu_torch: {n} ranks need {n} CUDA devices and this "
+                  f"machine has {cards} (one rank a card; --device cpu runs "
+                  "gloo ranks on the CPU)", file=sys.stderr)
+            return 1
+    codes = dist.launch(_rank_main, n, (argv,))
+    return 0 if all(c == 0 for c in codes) else 1
 
+
+def _rank_main(rank: int, world: int, init_method: str, argv):
+    """One of ``--devices N``'s processes: rank ``rank`` of ``world``."""
+    args = _parser().parse_args(argv)
+    sys.exit(_rank(rank, world, args, init_method))
+
+
+def _rank(rank: int, world: int, args, init_method: str) -> int:
+    """Join the group as ``rank`` and run; the ranks past 0 print
+    nothing to standard output (rank 0 speaks for the run)."""
+    ring = dist.init(rank, world, init_method, args.device)
+    stdout = sys.stdout
+    if rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    try:
+        rc = _run(args, ring)
+        ring.barrier()
+        return rc
+    finally:
+        if rank != 0:
+            sys.stdout.close()
+            sys.stdout = stdout
+        dist.close(ring)
+
+
+def _gather(ring, fields, species, replicated: bool):
+    """Host copies of the whole grid and of every rank's rows, in
+    opal_tpu's per-device block layout, on rank 0 (one gather to it a
+    column; in the replicated mode the grid is rank 0's); ``None`` on
+    the other ranks.  Every rank must call it."""
+    def whole(a, own=False):
+        a = (a[None] if ring.rank == 0 else None) if own else ring.gather(a)
+        return None if a is None else to_numpy(a.flatten(0, 1))
+
+    fields_h = tuple(whole(a, replicated) for a in fields)
+    species_h = {name: {k: whole(v) for k, v in st.columns().items()}
+                 for name, st in species.items()}
+    if ring.rank != 0:
+        return None
+    return fields_h, species_h
+
+
+def _run(args, ring) -> int:
+    """The run of one rank (all of it at a world of 1)."""
+    rank0 = ring.rank == 0
     path = Path(args.input)
     output_dir = path.parent
     try:
         sim, species, rp = build(
-            path, n_devices=args.devices,
-            dtype=torch.float64 if args.f64 else torch.float32,
+            path, dtype=torch.float64 if args.f64 else torch.float32,
             field_dtype=torch.float32 if args.f32 else torch.float64,
-            device=args.device,
+            device=args.device, ring=ring,
         )
     except (NotPorted, NoDevice) as exc:
-        print(f"opal_tpu_torch: {exc}", file=sys.stderr)
+        if rank0:
+            print(f"opal_tpu_torch: {exc}", file=sys.stderr)
         return 1
     except (ConfigError, ValueError) as exc:
-        print(f"opal_tpu_torch: {exc}", file=sys.stderr)
-        print("Usage: python -m opal_tpu_torch input-file", file=sys.stderr)
+        if rank0:
+            print(f"opal_tpu_torch: {exc}", file=sys.stderr)
+            print("Usage: python -m opal_tpu_torch input-file",
+                  file=sys.stderr)
         return 1
     geom, opt = sim.geom, sim.options
+    replicated = rp["replicated"]
 
     n_outputs = rp["n_outputs"]
     total_steps = rp["total_steps"]
@@ -539,8 +724,10 @@ def main(argv=None) -> int:
     else:
         run_chunk = steps_bt_output
 
-    # QED draws: one generator on the device, seeded from the deck
-    rng = torch.Generator(device=sim.device).manual_seed(opt.seed)
+    # QED draws: one generator a rank on its device, seeded from the deck
+    # and the rank
+    rng = torch.Generator(device=sim.device).manual_seed(
+        checkpoint.rank_seed(opt.seed, ring.rank))
 
     def run_span(E, B, J, rho, species, t, counters, nsteps):
         """``nsteps`` steps in calls of at most ``run_chunk``, threading
@@ -562,7 +749,12 @@ def main(argv=None) -> int:
         torch.cuda.get_device_name(sim.device)
         if sim.device.type == "cuda" else "cpu"
     )
-    print(f"Running 1 task on {kind} ({geom.n_loc} cells/device)...")
+    tasks = f"{ring.world} task{'s' if ring.world > 1 else ''}"
+    if replicated:
+        print(f"Running {tasks} on {kind} (replicated fields, equal-count "
+              "particle shards)...")
+    else:
+        print(f"Running {tasks} on {kind} ({geom.n_loc} cells/device)...")
     if not opt.radiation_reaction:
         print("[radiation reaction disabled, using classical emission rates]")
     if not opt.beaming:
@@ -574,6 +766,21 @@ def main(argv=None) -> int:
     if opt.fused_pusher:
         fused_on = [n for n in species if sim._fused_applicable(n, species[n])]
         print(f"[fused pusher: {', '.join(fused_on) if fused_on else 'no applicable species (unfused ops)'}]")
+    bi = rp["balance_info"]
+    if bi is not None and bi["imbalance"] > 1.5 and not replicated:
+        print(
+            f"[density-balanced split would use cells/task = {bi['counts']}; "
+            f"uniform slabs carry a {bi['imbalance']:.2f}x worst-case "
+            f"particle load — capacity is sized for the heaviest slab]"
+        )
+        if rp["replicate_blocked_by_absorption"]:
+            print(
+                "[replicated-field balancing is unavailable for this "
+                "absorption deck: the replicated mode's photon "
+                "absorption is not ported (ROADMAP A11c), so the deck "
+                f"runs decomposed; expect up to {bi['imbalance']:.2f}x "
+                "per-device compute skew]"
+            )
 
     E, B, J, rho = sim.init_fields()
     if rp["initialise_fields"]:
@@ -586,11 +793,13 @@ def main(argv=None) -> int:
             first_output, t, E, B, J, rho, species, rng, counters = (
                 checkpoint.load(output_dir, sim))
         except FileNotFoundError:
-            print(f"opal_tpu_torch: no {checkpoint.FILENAME} in {output_dir}",
-                  file=sys.stderr)
+            if rank0:
+                print(f"opal_tpu_torch: no {checkpoint.FILENAME} in "
+                      f"{output_dir}", file=sys.stderr)
             return 1
         except ValueError as exc:
-            print(f"opal_tpu_torch: {exc}", file=sys.stderr)
+            if rank0:
+                print(f"opal_tpu_torch: {exc}", file=sys.stderr)
             return 1
         print(f"Resuming from output {first_output} "
               f"(t = {simulation_time(t)})")
@@ -608,24 +817,33 @@ def main(argv=None) -> int:
             species["photon"] = sim.refresh_photon_chi(
                 E, B, species["photon"]
             )
-        E_h, B_h, J_h, rho_h = to_numpy((E, B, J, rho))
-        species_h = {k: to_numpy(v) for k, v in species.items()}
+        gathered = _gather(ring, (E, B, J, rho), species, replicated)
+        if rank0:
+            (E_h, B_h, J_h, rho_h), species_h = gathered
         if rp["checkpoint"]:
             # after the chi refresh, so that the saved chi is current;
             # the event ring is not saved (nor is it in opal_tpu)
-            checkpoint.save(output_dir, index, float(t), E_h, B_h, J_h,
-                            rho_h, species_h, rng, counters, geom.n_loc)
-        out.write_grid_data(output_dir, index, E_h, B_h, J_h, rho_h, geom)
-        for skey, spec in sim.specs.items():
-            out.write_particle_outputs(
-                output_dir, index, spec, species_h[skey], geom,
-                rp["capacities"][skey],
-            )
+            rng_h = (rng if ring.group is None
+                     else checkpoint.gather_rng(rng, ring))
+            if rank0:
+                checkpoint.save(output_dir, index, float(t), E_h, B_h, J_h,
+                                rho_h, species_h, rng_h, counters,
+                                geom.n_loc, ring.world, replicated,
+                                opt.seed)
+        if rank0:
+            out.write_grid_data(output_dir, index, E_h, B_h, J_h, rho_h,
+                                geom)
+            for skey, spec in sim.specs.items():
+                out.write_particle_outputs(
+                    output_dir, index, spec, species_h[skey], geom,
+                    rp["capacities"][skey], replicated,
+                )
         fe = sim.em_field_energy(E, B)
         ee = sim.total_kinetic_energy("electron", species["electron"])
         ie, pe = (sim.total_kinetic_energy(n, species[n])
                   if n in species else 0.0 for n in ("ion", "photon"))
-        out.write_energies(output_dir, index, fe, ee, ie, pe)
+        if rank0:
+            out.write_energies(output_dir, index, fe, ee, ie, pe)
 
     last_deferred = 0
     for i in range(first_output, n_outputs):
@@ -643,7 +861,7 @@ def main(argv=None) -> int:
         sys.stdout.flush()
 
         span = (E, B, J, rho, species, t, counters, steps_bt_output)
-        if args.profile and i == n_outputs - 1:
+        if args.profile and i == n_outputs - 1 and rank0:
             # the last block: the first builds the kernels, and the late
             # blocks carry the most particle traffic
             E, B, J, rho, species, t, counters, events = _profiled(
@@ -651,14 +869,16 @@ def main(argv=None) -> int:
         else:
             E, B, J, rho, species, t, counters, events = run_span(*span)
         if events is not None:
-            out.write_event_log(sys.stderr, to_numpy(events), opt)
+            events_h = tuple(ring.gather(a) for a in events)
+            if rank0:
+                out.write_event_log(sys.stderr, to_numpy(events_h), opt)
         counts = {k: int(v) for k, v in counters.items()}
         deferred = counts.pop("qed_deferred", 0)
         lost = {k: v for k, v in counts.items() if v > 0}
-        if lost:
+        if lost and rank0:
             print(f"warning: buffer-overflow particle losses: {lost}",
                   file=sys.stderr)
-        if deferred > last_deferred:
+        if deferred > last_deferred and rank0:
             print(
                 f"note: QED active-set backlog: {deferred} particle-steps "
                 "deferred to later steps so far (delays, not losses; raise "

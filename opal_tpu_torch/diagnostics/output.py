@@ -43,11 +43,13 @@ _UNITS = {
 
 def particle_quantity(
     name: str, spec: SpeciesSpec, st: dict, geom: GridGeometry,
-    capacity_per_device: int,
+    capacity_per_device: int, replicated: bool = False,
 ):
     """Host-side accessor for one output quantity over all alive
     particles (``mod.rs:388-449``); ``st`` maps column names to numpy
-    arrays."""
+    arrays of the ranks' blocks of ``capacity_per_device`` rows, each
+    with its rank's local cells, or with global cells when
+    ``replicated``."""
     alive = st["alive"]
     u = np.stack([st["ux"], st["uy"], st["uz"]], axis=1)[alive]
     gamma = st["gamma"][alive]
@@ -60,9 +62,10 @@ def particle_quantity(
     pmag = np.sqrt(np.sum(p * p, axis=-1))
 
     if name == "x":
-        idx = np.flatnonzero(alive)
-        dev = idx // capacity_per_device
-        g = dev * geom.n_loc + st["cell"][alive]
+        g = st["cell"][alive]
+        if not replicated:
+            dev = np.flatnonzero(alive) // capacity_per_device
+            g = dev * geom.n_loc + g
         return geom.xmin + (g - geom.left_pad + st["x"][alive]) * geom.dx
     if name == "r":
         return np.hypot(st["y"][alive], st["z"][alive])
@@ -131,7 +134,7 @@ def parse_output_spec(o: str):
 
 def write_particle_outputs(
     directory, index: int, spec: SpeciesSpec, st: dict,
-    geom: GridGeometry, capacity_per_device: int,
+    geom: GridGeometry, capacity_per_device: int, replicated: bool = False,
 ):
     """Generate and write every requested distribution for a species
     (``mod.rs:451-566``)."""
@@ -143,13 +146,14 @@ def write_particle_outputs(
         axes, bspec, weight = parsed
 
         values = [
-            particle_quantity(a, spec, st, geom, capacity_per_device)
+            particle_quantity(a, spec, st, geom, capacity_per_device,
+                              replicated)
             for a in axes
         ]
         weights = st["weight"][st["alive"]]
         if weight == "energy":
             weights = weights * particle_quantity(
-                "energy", spec, st, geom, capacity_per_device
+                "energy", spec, st, geom, capacity_per_device, replicated
             )
 
         if len(axes) == 1:
@@ -228,26 +232,30 @@ def write_energies(
 
 def write_event_log(stream, events, options) -> int:
     """Drain the event ring ``events = (ring, count)`` (host arrays of
-    ``Simulation.zero_events``'s shapes) to ``stream`` in the
+    ``Simulation.zero_events``'s shapes, or the ranks' rings stacked:
+    ``count`` then holds one count a rank) to ``stream`` in the
     reference's dump format (``interactions.rs:267-289``;
-    ``opal_tpu/diagnostics/output.py:172-206``): ``x t birth_time chi_g
-    k0 k1 k2 k3 chi_e p0 p1 p2 p3 abs|stim``.  Events past the ring's
-    capacity are counted in a closing warning line, never dropped
-    silently.  Returns the number of rows written."""
-    ring, count = np.asarray(events[0]), int(np.asarray(events[1]))
-    cap = ring.shape[0]
-    written = 0
-    for r in ring[:min(count, cap)]:
-        kind = "abs" if r[13] == 1.0 else "stim"
-        if kind == "abs" and not options.extra_absorption_output:
-            continue
-        if kind == "stim" and not options.extra_stimulated_emission_output:
-            continue
-        head = " ".join(f"{v:.6e}" for v in r[:3])
-        body = " ".join(f"{v:.3e}" for v in r[3:13])
-        stream.write(f"{head} {body} {kind}\n")
-        written += 1
-    dropped = max(0, count - cap)
+    ``opal_tpu/diagnostics/output.py:172-206``), rank by rank: ``x t
+    birth_time chi_g k0 k1 k2 k3 chi_e p0 p1 p2 p3 abs|stim``.  Events
+    past a ring's capacity are counted in a closing warning line, never
+    dropped silently.  Returns the number of rows written."""
+    counts = np.atleast_1d(np.asarray(events[1]))
+    rings = np.asarray(events[0]).reshape(counts.size, -1, 14)
+    cap = rings.shape[1]
+    written = dropped = 0
+    for ring, count in zip(rings, counts):
+        count = int(count)
+        dropped += max(0, count - cap)
+        for r in ring[:min(count, cap)]:
+            kind = "abs" if r[13] == 1.0 else "stim"
+            if kind == "abs" and not options.extra_absorption_output:
+                continue
+            if kind == "stim" and not options.extra_stimulated_emission_output:
+                continue
+            head = " ".join(f"{v:.6e}" for v in r[:3])
+            body = " ".join(f"{v:.3e}" for v in r[3:13])
+            stream.write(f"{head} {body} {kind}\n")
+            written += 1
     if dropped:
         stream.write(
             f"# WARNING: event ring overflow: {dropped} events dropped "

@@ -11,10 +11,16 @@ boundary zones, laid out left to right:
 * right zone: 200 cells for an absorbing boundary, 4 for a conducting
   mirror (``yee.rs:241-242``), else empty.
 
-Each device owns ``n_loc`` consecutive cells and exchanges ``HALO`` = 4
-edge cells with its ring neighbours.  The port runs one device: a
-periodic grid is one slab whose halo wraps onto itself, a non-periodic
-one a slab with zero halos.
+* dead padding rounds the total up to a multiple of the device count so
+  every rank owns a slab of the same size.  For an absorbing boundary
+  the padding is folded into the damping region instead; periodic runs
+  need exact divisibility.
+
+Each rank owns ``n_loc`` consecutive cells and exchanges ``HALO`` = 4
+edge cells with its ring neighbours (``parallel.halo``).  Boundary
+conditions are global-index masked operations: every rank runs the same
+code with its rank as ``axis_index``, and the masks are non-zero only
+where that rank owns boundary cells.
 """
 
 from __future__ import annotations
@@ -95,6 +101,49 @@ class GridGeometry:
     def interior_x(self):
         """x of the left edges of all interior cells, host-side."""
         return self.xmin + np.arange(self.nx, dtype=np.float64) * self.dx
+
+
+def balanced_counts(
+    nx: int, xmin: float, dx: float, n_tasks: int,
+    ne, min_subsize: int = 2 * HALO,
+) -> np.ndarray:
+    """Density-balanced domain split (reference ``src/grid/mod.rs:
+    157-206``; ``opal_tpu/grid.py:111-147``): per-task interior cell
+    counts chosen so that each task holds about the same number of real
+    electrons (equal integral of ne dx), every task owning at least
+    ``min_subsize`` cells.  As in opal_tpu, the field slabs stay of
+    equal size (``GridGeometry``): the counts are reported in the
+    banner, and the capacity is sized for the heaviest equal slab."""
+    if n_tasks <= 0:
+        raise ValueError("n_tasks must be positive")
+    x = xmin + dx * np.arange(nx - min_subsize, dtype=np.float64)
+    ppc = dx * np.broadcast_to(np.asarray(ne(x), dtype=np.float64), x.shape)
+    cumsum = np.cumsum(ppc)
+    target = cumsum[-1] / n_tasks if cumsum.size else 0.0
+    counts = []
+    start = 0
+    for p in range(1, n_tasks):
+        tail = cumsum[start + min_subsize:]
+        i = int(np.argmax(tail >= target * p)) if tail.size else 0
+        if tail.size and not (tail >= target * p).any():
+            i = tail.size - 1
+        counts.append(i + min_subsize)
+        start += i + min_subsize
+    counts.append(nx - sum(counts))
+    return np.asarray(counts, dtype=np.int64)
+
+
+def load_imbalance(geom: GridGeometry, ne) -> float:
+    """Ratio of the heaviest equal slab's particle weight to the mean
+    (``opal_tpu/grid.py:150-159``): 1.0 means the equal split is
+    already balanced."""
+    x = geom.interior_x()
+    w = np.broadcast_to(np.asarray(ne(x), dtype=np.float64), x.shape)
+    per_dev = np.zeros(geom.n_devices)
+    dev = (np.arange(geom.nx) + geom.left_pad) // geom.n_loc
+    np.add.at(per_dev, dev, w)
+    mean = per_dev.mean()
+    return float(per_dev.max() / mean) if mean > 0 else 1.0
 
 
 def global_cells(geom: GridGeometry, axis_index: int, device=None):

@@ -261,10 +261,12 @@ def absorb_widths(options, n_e: int, n_ph: int):
     return -(-K // B), nw, evc
 
 
-def absorb(sim, species, t, rng, presorted=False, bracketed=False):
+def absorb(sim, species, t, rng, presorted=False, bracketed=False,
+           axis_index: int = 0):
     """Photon absorption and stimulated emission pass
     (``opal_tpu/interactions.py:321-1096``, without its ``replicated``
-    mode).
+    mode); on a decomposed grid it pairs within the rank's slab, whose
+    index ``axis_index`` places the event records' x.
 
     The electrons are viewed by cell: sorted every step, already sorted
     (``presorted``: alive rows cell-ascending, as after the maintenance
@@ -493,7 +495,8 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False):
         if opt.extra_stimulated_emission_output:
             want = want | stimulated
         x_glob = geom.xmin + (
-            (ph.cell[idx] - geom.interior_start).to(dtype) + ph.x[idx]
+            (axis_index * geom.n_loc + ph.cell[idx]
+             - geom.interior_start).to(dtype) + ph.x[idx]
         ) * geom.dx
         er = unsort(ev_idx)  # the electron's buffer row
         p4_ev = torch.stack([e.gamma[er], e.ux[er], e.uy[er], e.uz[er]],

@@ -1,2 +1,3 @@
-"""Domain-decomposition pieces of the step at one device: the periodic
-halo wrap/fold, the maintenance sort and the edge migration."""
+"""Domain-decomposition pieces of the step: the ring of ranks
+(``dist``), the halo exchange and current fold, the maintenance sort
+and the migration between ranks."""

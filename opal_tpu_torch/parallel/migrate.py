@@ -1,30 +1,36 @@
-"""The maintenance sort and the migration of the species at one device.
+"""The maintenance sort and the migration of the species over the ring.
 
 Ports of ``opal_tpu/parallel/migrate.py``'s ``sort_state``
 (``:494-569``) and ``migrate_edges`` (``:679-903``) for cell-sorted
-species, and of their packed-layout forms ``sort_packed``,
+species, of their packed-layout forms ``sort_packed``,
 ``migrate_edges_packed`` and ``_edges_packed_full`` (``:905-1101``), of
-``opal_tpu/sim.py``'s ``_wrap_kill`` for the others, at one device, and
-of ``insert`` (``:572-``), which places emitted photons into dead
-slots.  The JAX versions move the state as one packed float
-matrix; here every
-column moves at its own dtype (cells stay integers, and the
-field-dtype ``work`` column of mixed-precision runs is never rounded
-to the particle dtype, which the packed matrix does).
+``migrate_compact`` (``:385-491``) for the unsorted species of a
+decomposed run, of ``opal_tpu/sim.py``'s ``_wrap_kill`` for the unsorted
+species of a one-device or replicated-field run, and of ``insert``
+(``:572-``), which places emitted photons into dead slots.  The JAX
+versions move the state as one packed float matrix; here every column
+keeps its own dtype on the rank (cells stay integers, and the
+field-dtype ``work`` column of mixed-precision runs is never rounded to
+the particle dtype, which the packed matrix does), and only the rows
+that cross to a neighbour travel as one f64 matrix, which holds every
+column's values exactly.
 
-Both are free of host synchronisation: window positions and index
-tables stay tensors, and dropped writes go to a scratch row past the
-window.
+The leavers go to the ring neighbours with ``parallel.dist.Ring.shift``
+(at a world of 1, to the rank itself).  Between the exchanges nothing
+synchronises with the host: window positions and index tables stay
+tensors, and dropped writes go to a scratch row past the window.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from ..grid import GridGeometry
 from ..species import ParticleState
+from .dist import SOLO, Ring
 
 _BIG = 2**30
 
@@ -92,15 +98,15 @@ def _put(col, dest, rows):
 
 
 def migrate_edges(state: ParticleState, geom: GridGeometry,
-                  send_capacity: int, window: int):
-    """Migration for a cell-sorted state at one device: every leaver,
-    every freed slot and the dead pool live in the head/tail ``window``
-    rows, so the exchange touches O(window) rows.  The exchange with
-    the ring neighbours is a send to itself: right leavers re-enter at
-    the left edge into the lowest free head slots, left leavers at the
-    right edge into the lowest free tail slots.  Leavers outside the
-    windows, sends beyond ``send_capacity`` and arrivals without a free
-    slot are counted in the returned overflow, never silently dropped.
+                  send_capacity: int, window: int, ring: Ring = SOLO):
+    """Migration for a cell-sorted state: every leaver, every freed slot
+    and the dead pool live in the head/tail ``window`` rows, so the
+    exchange touches O(window) rows.  Leavers go to the ring neighbours
+    (at a world of 1, to the rank itself): arrivals from the left take
+    the lowest free head slots, arrivals from the right the lowest free
+    tail slots.  Leavers outside the windows, sends beyond
+    ``send_capacity`` and arrivals without a free slot are counted in
+    the returned overflow, never silently dropped.
 
     On a non-periodic grid rows in the windows whose cell left the
     interior are deleted instead (see :func:`_edges_core`).
@@ -121,21 +127,70 @@ def migrate_edges(state: ParticleState, geom: GridGeometry,
     tot_l = torch.sum(state.alive & (state.cell < 0))
     tot_r = torch.sum(state.alive & (state.cell >= geom.n_loc))
     W = pack_state_window(state, widx)
-    W, overflow = _edges_core(W, geom, tot_l, tot_r, K, cap)
+    W, overflow = _edges_core(W, geom, ring, tot_l, tot_r, K, cap)
     return unpack_state_window(W, state, widx), overflow
 
 
-def _edges_core(W: dict, geom: GridGeometry, tot_l, tot_r, K: int, cap: int):
+def _pack_rows(rows: dict, count):
+    """One f64 matrix of the rows to send: row 0 carries ``count``, the
+    rows below every column of ``rows`` (bools as 0/1, integers and f32
+    exactly)."""
+    m = torch.cat([v.reshape(v.shape[0], -1).to(torch.float64)
+                   for v in rows.values()], dim=1)
+    head = torch.zeros_like(m[:1])
+    head[0, 0] = count
+    return torch.cat([head, m])
+
+
+def _unpack_rows(m, like: dict):
+    """(count, rows): the inverse of :func:`_pack_rows`, with the
+    dtypes and trailing shapes of ``like``."""
+    rows, i = {}, 0
+    for k, v in like.items():
+        w = math.prod(v.shape[1:])
+        a = m[1:, i:i + w].reshape(v.shape)
+        if v.dtype == torch.bool:
+            a = a > 0.5
+        elif not v.dtype.is_floating_point:
+            a = torch.round(a)
+        rows[k] = a.to(v.dtype)
+        i += w
+    return m[0, 0].to(torch.int64), rows
+
+
+def exchange_rows(ring: Ring, send_right: dict, n_right, send_left: dict,
+                  n_left):
+    """The ring exchange of migrating rows: ``send_right`` (``n_right``
+    valid rows) to the right neighbour and ``send_left`` to the left.
+    Returns ``(from_left, n_from_left, from_right, n_from_right)``.  At
+    a world of 1 the rows come back to this rank unchanged."""
+    if ring.world == 1:
+        return send_right, n_right, send_left, n_left
+    fl, fr = ring.shift(_pack_rows(send_right, n_right),
+                        _pack_rows(send_left, n_left))
+    n_fl, from_left = _unpack_rows(fl, send_right)
+    n_fr, from_right = _unpack_rows(fr, send_left)
+    return from_left, n_fl, from_right, n_fr
+
+
+def _deleted(alive, cell, geom: GridGeometry, rank: int):
+    """Rows of a non-periodic grid whose global extended cell ``g =
+    rank * n_loc + cell`` left the interior (``mod.rs:309-329``: the
+    reference drops leavers with no neighbour); none on a periodic
+    grid."""
+    if geom.left_boundary == "periodic":
+        return torch.zeros_like(alive)
+    g = cell + rank * geom.n_loc
+    return alive & ((g < geom.interior_start) | (g >= geom.interior_end))
+
+
+def _edges_core(W: dict, geom: GridGeometry, ring: Ring, tot_l, tot_r,
+                K: int, cap: int):
     """The edge exchange on the (2K,) head+tail window columns ``W``
-    (``opal_tpu/parallel/migrate.py:739-862`` at one device).  On a
-    non-periodic grid every window row whose cell lies outside the
-    interior (a boundary zone or beyond) is deleted, as the reference
-    drops leavers with no neighbour (``mod.rs:309-329``).
+    (``opal_tpu/parallel/migrate.py:739-862``).  On a non-periodic grid
+    every window row whose global cell lies outside the interior (a
+    boundary zone or beyond) is deleted instead of sent.
     Returns ``(W_new, overflow)``."""
-    if geom.n_devices != 1:
-        raise NotImplementedError(
-            "only the single-device edge migration is ported"
-        )
     n_loc = geom.n_loc
     alive_w, cell_w = W["alive"], W["cell"]
     dev = cell_w.device
@@ -146,14 +201,10 @@ def _edges_core(W: dict, geom: GridGeometry, tot_l, tot_r, K: int, cap: int):
     # out-of-slab rows the windows caught, before the deletion filter:
     # tot_l/tot_r count exactly these over the whole state
     missed = (tot_l + tot_r) - torch.sum(go_left | go_right)
-    if geom.left_boundary != "periodic":
-        out = (cell_w < geom.interior_start) | (cell_w >= geom.interior_end)
-        deleted = alive_w & out
-        go_left = go_left & ~out
-        go_right = go_right & ~out
-        gone = go_left | go_right | deleted
-    else:
-        gone = go_left | go_right
+    deleted = _deleted(alive_w, cell_w, geom, ring.rank)
+    go_left = go_left & ~deleted
+    go_right = go_right & ~deleted
+    gone = go_left | go_right | deleted
     free_after = ~alive_w | gone
 
     # (4, 2K) running counts, scanned along the contiguous dimension
@@ -183,10 +234,9 @@ def _edges_core(W: dict, geom: GridGeometry, tot_l, tot_r, K: int, cap: int):
     send_left["cell"] = send_left["cell"] + n_loc
     send_right = {k: _take(v, rt, L) for k, v in W.items()}
     send_right["cell"] = send_right["cell"] - n_loc
-    # one device: what leaves on the right arrives from the left
-    n_arr_l = torch.clamp(n_right, max=cap)
-    n_arr_r = torch.clamp(n_left, max=cap)
-    from_left, from_right = send_right, send_left
+    from_left, n_arr_l, from_right, n_arr_r = exchange_rows(
+        ring, send_right, torch.clamp(n_right, max=cap), send_left,
+        torch.clamp(n_left, max=cap))
 
     # retire leavers and deleted rows: zero the row (alive False, weight
     # 0, momentum 0, cell 0) except gamma, which stays 1 so no 0/0
@@ -246,7 +296,7 @@ def _packed_totals(ps, geom: GridGeometry):
 
 
 def migrate_edges_packed(ps, geom: GridGeometry, send_capacity: int,
-                         window: int):
+                         window: int, ring: Ring = SOLO):
     """:func:`migrate_edges` on the packed layout (``ops.fused.
     PackedState``, ``opal_tpu/parallel/migrate.py:905-1014``): the head
     and tail windows are whole blocks, ``kb = max(2, ceil(window /
@@ -262,7 +312,7 @@ def migrate_edges_packed(ps, geom: GridGeometry, send_capacity: int,
     block = RB * 128
     kb = max(2, -(-window // block))
     if nblk < 2 * kb:
-        return _edges_packed_full(ps, geom, send_capacity)
+        return _edges_packed_full(ps, geom, send_capacity, ring)
     K = kb * block
     cap = int(min(send_capacity, K // 2))
     dev = ps.h.device
@@ -277,7 +327,7 @@ def migrate_edges_packed(ps, geom: GridGeometry, send_capacity: int,
     ridx = torch.cat([ar, b0 * block + ar])
     tot_l, tot_r = _packed_totals(ps, geom)
     W, overflow = _edges_core(_packed_columns(ps, lambda a: a[ridx]), geom,
-                              tot_l, tot_r, K, cap)
+                              ring, tot_l, tot_r, K, cap)
     return _packed_put(ps, W, bidx, ridx), overflow
 
 
@@ -301,7 +351,8 @@ def _packed_put(ps, W: dict, bidx, ridx):
     return PackedState(h=h, aux=aux, weight=weight, tau=tau)
 
 
-def _edges_packed_full(ps, geom: GridGeometry, send_capacity: int):
+def _edges_packed_full(ps, geom: GridGeometry, send_capacity: int,
+                       ring: Ring = SOLO):
     """Whole-state fallback of :func:`migrate_edges_packed`
     (``opal_tpu/parallel/migrate.py:1064-1101``) for states too small
     for block-aligned windows: head = rows [0, n/2), tail = rows [n/2,
@@ -313,7 +364,7 @@ def _edges_packed_full(ps, geom: GridGeometry, send_capacity: int):
     dev = ps.h.device
     tot_l, tot_r = _packed_totals(ps, geom)
     W, overflow = _edges_core(_packed_columns(ps, lambda a: a), geom,
-                              tot_l, tot_r, K, cap)
+                              ring, tot_l, tot_r, K, cap)
     return _packed_put(ps, W, torch.arange(nblk, device=dev),
                        torch.arange(n, device=dev)), overflow
 
@@ -355,13 +406,76 @@ def sort_packed(ps, n_loc: int):
     return PackedState(h=h, aux=aux, weight=to4(weight), tau=tau), cell
 
 
+def migrate_compact(state: ParticleState, geom: GridGeometry,
+                    send_capacity: int, ring: Ring = SOLO):
+    """Migration of an unsorted species over the ring
+    (``opal_tpu/parallel/migrate.py:385-491``): leavers and free slots
+    are found with one cumulative sum of four masks and its
+    ``searchsorted`` index tables, so the data that moves is
+    ``send_capacity`` rows a side.  On a non-periodic grid a row whose
+    global cell left the interior is deleted instead of sent.  Leavers
+    are retired (alive False, cell, weight and momentum 0) and arrivals
+    from both sides take the free slots in ascending order, the slots
+    just vacated included.
+
+    Returns ``(state, overflow)``: sends beyond the capacity and
+    arrivals without a free slot, a 0-d int64 tensor."""
+    n_loc = geom.n_loc
+    n = state.alive.shape[0]
+    cap = int(min(send_capacity, n // 2))
+    dev = state.alive.device
+    alive, cell = state.alive, state.cell
+
+    deleted = _deleted(alive, cell, geom, ring.rank)
+    go_left = alive & (cell < 0) & ~deleted
+    go_right = alive & (cell >= n_loc) & ~deleted
+    gone = go_left | go_right | deleted
+    dead_after = ~alive | gone
+    cum = torch.cumsum(
+        torch.stack([go_left, go_right, gone, dead_after]).long(), dim=1)
+    n_left, n_right, n_free = cum[0, -1], cum[1, -1], cum[3, -1]
+    q = torch.arange(1, 2 * cap + 1, device=dev)
+    lt = torch.searchsorted(cum[0], q[:cap])
+    rt = torch.searchsorted(cum[1], q[:cap])
+    gt = torch.searchsorted(cum[2], q)
+    ft = torch.searchsorted(cum[3], q)
+    lane = torch.arange(cap, device=dev)
+    overflow = (torch.clamp(n_left - cap, min=0)
+                + torch.clamp(n_right - cap, min=0))
+
+    cols = state.columns()
+    send_left = {k: _take(v, lt, n) for k, v in cols.items()}
+    send_left["cell"] = send_left["cell"] + n_loc
+    send_right = {k: _take(v, rt, n) for k, v in cols.items()}
+    send_right["cell"] = send_right["cell"] - n_loc
+    from_left, n_arr_l, from_right, n_arr_r = exchange_rows(
+        ring, send_right, torch.clamp(n_right, max=cap), send_left,
+        torch.clamp(n_left, max=cap))
+
+    # retire leavers and deleted rows: alive False and the fields later
+    # passes read through dead rows zeroed (cell in range, weight and
+    # momentum 0: inert in the push, the deposit and the energy sums)
+    cols = {k: _put(v, gt, torch.zeros((), dtype=v.dtype, device=dev))
+            if k in ("alive", "cell", "weight", "ux", "uy", "uz") else v
+            for k, v in cols.items()}
+    # arrivals land in free slots, the slots just vacated included
+    rv = torch.cat([lane < n_arr_l, lane < n_arr_r])
+    rrank = torch.cumsum(rv.long(), dim=0) - 1
+    ok = rv & (rrank < n_free) & (rrank < 2 * cap)
+    dest = torch.where(ok, ft[torch.clamp(rrank, 0, 2 * cap - 1)], n)
+    cols = {k: _put(v, dest, torch.cat([from_left[k], from_right[k]]))
+            for k, v in cols.items()}
+    ins_overflow = rv.sum() - ok.sum()
+    return dataclasses.replace(state, **cols), overflow + ins_overflow
+
+
 def wrap_kill(state: ParticleState, geom: GridGeometry):
-    """Migration of an unsorted species at one device
-    (``opal_tpu/sim.py::Simulation._wrap_kill``): boundary crossings wrap
-    in place on a periodic grid; on a non-periodic grid a row whose cell
-    left the interior is deleted (alive False, weight, momentum and cell
-    0), as the reference drops leavers at the global edge
-    (``mod.rs:309-329``).  No rows move.
+    """Migration of an unsorted species of a one-device or
+    replicated-field run (``opal_tpu/sim.py::Simulation._wrap_kill``):
+    boundary crossings wrap in place on a periodic grid; on a
+    non-periodic grid a row whose cell left the interior is deleted
+    (alive False, weight, momentum and cell 0), as the reference drops
+    leavers at the global edge (``mod.rs:309-329``).  No rows move.
 
     Returns ``(state, overflow)``; nothing can overflow, so it is 0."""
     n_loc = geom.n_loc
@@ -373,12 +487,34 @@ def wrap_kill(state: ParticleState, geom: GridGeometry):
             - torch.where(state.cell >= n_loc, n_loc, 0)
         ).to(state.cell.dtype)
         return dataclasses.replace(state, cell=cell), zero
-    out = state.alive & (
-        (state.cell < geom.interior_start) | (state.cell >= geom.interior_end)
-    )
+    out = _deleted(state.alive, state.cell, geom, 0)
     cols = {k: torch.where(out, 0, getattr(state, k)).to(getattr(state, k).dtype)
             for k in ("weight", "ux", "uy", "uz", "cell")}
     return dataclasses.replace(state, alive=state.alive & ~out, **cols), zero
+
+
+def wrap_kill_packed(ps, geom: GridGeometry):
+    """:func:`wrap_kill` on the packed layout (``opal_tpu/sim.py:
+    843-865``), for the fused species of a replicated-field run: the f32
+    cell column wraps in place on a periodic grid, and on a non-periodic
+    grid a row whose cell left the interior gets weight 0, the dead
+    encoding of the layout.  A wrapped row is a kernel misfit until the
+    next maintenance sort.  Returns ``(PackedState, 0)``."""
+    from ..ops.fused import PackedState
+
+    n_loc = geom.n_loc
+    zero = torch.zeros((), dtype=torch.int64, device=ps.h.device)
+    cell = ps.h[:, 0]
+    if geom.left_boundary == "periodic":
+        h = ps.h.clone()
+        h[:, 0] = (cell + torch.where(cell < 0.0, float(n_loc), 0.0)
+                   - torch.where(cell >= n_loc, float(n_loc), 0.0))
+        return PackedState(h=h, aux=ps.aux, weight=ps.weight,
+                           tau=ps.tau), zero
+    out = (cell < geom.interior_start) | (cell >= geom.interior_end)
+    return PackedState(h=ps.h, aux=ps.aux,
+                       weight=torch.where(out, 0.0, ps.weight),
+                       tau=ps.tau), zero
 
 
 def insert(state: ParticleState, buf: ParticleState, valid, width=None,

@@ -3,10 +3,12 @@ and photons, with QED photon emission, absorption and stimulated
 emission.
 
 One step, in the reference's hot-loop order (``src/main.rs:238-267``)
-and ``opal_tpu/sim.py``'s (``:1020-1247``), on one device:
+and ``opal_tpu/sim.py``'s (``:1020-1247``), on each rank of a ring
+(``parallel.dist.Ring``; one device is a world of 1):
 
-1. refresh the halo fields (a local wrap on the periodic grid, zeros at
-   non-periodic edges);
+1. refresh the halo fields from the ring neighbours (at a world of 1 a
+   local wrap on the periodic grid; zeros at non-periodic global
+   edges);
 2. push each species: the fused CUDA kernel (gather + Vay push for
    electrons or Boris push for ions [+ deposit]) plus the compacted
    unfused fallback for rows outside their block window, on the column
@@ -15,22 +17,29 @@ and ``opal_tpu/sim.py``'s (``:1020-1247``), on one device:
    and with absorption on update their chi from the fields); with
    emission on, the electrons' optical depths fall by the emission rate
    at the half-step chi and gamma;
-3. migrate leavers when the exchange runs every step (on a non-periodic
-   grid, rows that leave the interior are deleted);
+3. migrate leavers to the neighbours when the exchange runs every step
+   (on a non-periodic grid, rows that leave the interior are deleted);
 4. photon absorption and stimulated emission (``interactions.absorb``:
    bracketed on the fused electron path, else over a per-step sort),
    then photon emission (``interactions.emit_radiation``);
-5. deposit the unfused species and fold the halo currents;
+5. deposit the unfused species and fold the halo currents into the
+   neighbours' edge cells;
 6. load the boundaries (laser injection, absorbing ramp, conducting
    mirror) and the Yee field advance.
 
 ``run`` is an eager Python loop over the same static phase schedule as
 ``opal_tpu``: a maintenance sort opens every R-step period and a
 migration phase closes every M-step block.  Loss counters are device
-int64 tensors.  The QED passes take their random numbers from the
-``rng`` that ``run`` is given.  With an extra-output feature on, the
-absorption events go into a ring (``zero_events``) that ``run`` threads
-and returns.
+int64 tensors, summed over the ranks once a ``run`` call.  The QED
+passes take their random numbers from the ``rng`` that ``run`` is
+given.  With an extra-output feature on, the absorption events go into
+a ring (``zero_events``) that ``run`` threads and returns.
+
+In the replicated-field mode (``SimOptions.replicate_fields``, opal_tpu's
+load balancer for nonuniform decks) every rank holds the whole grid and
+an equal-count chunk of the particles: the halo is local, the folded
+currents are summed over the ranks every step, and no particle moves
+between ranks (crossings wrap or die in place).
 """
 
 from __future__ import annotations
@@ -53,8 +62,10 @@ from .ops.pusher import (
 )
 from .qed import emission
 from .parallel import halo
+from .parallel.dist import Ring
 from .parallel.migrate import (
-    migrate_edges, migrate_edges_packed, sort_packed, sort_state, wrap_kill,
+    migrate_compact, migrate_edges, migrate_edges_packed, sort_packed,
+    sort_state, wrap_kill, wrap_kill_packed,
 )
 from .species import ParticleState, SpeciesSpec, kinetic_energy_weights
 
@@ -144,6 +155,12 @@ class SimOptions:
     migration_every: int = 1
     # head/tail rows the edge exchange of a cell-sorted species scans
     migration_window: int = 16384
+    # the replicated-field mode: every rank holds the whole grid (a
+    # geometry of one device) and an equal-count chunk of the particles;
+    # the folded currents are summed over the ranks each step and no
+    # particle moves between ranks.  Not with photon absorption, whose
+    # pairing across ranks is not ported
+    replicate_fields: bool = False
 
 
 class Carry(NamedTuple):
@@ -163,7 +180,7 @@ class Carry(NamedTuple):
 
 
 class Simulation:
-    """Geometry, options and species of one run, on one device."""
+    """Geometry, options and species of one run, on one rank."""
 
     def __init__(
         self,
@@ -175,15 +192,29 @@ class Simulation:
         field_dtype=None,
         laser_y=None,
         laser_z=None,
+        ring: Ring | None = None,
     ):
         """``dtype`` is the particle-state precision; ``field_dtype``
         (default: same) the grid-field precision.  Mixed precision (f32
         particles, f64 fields) keeps the fused f32 kernel while the Yee
         integration, current accumulation and energy sums run in f64.
         ``laser_y``/``laser_z`` are the laser boundary's fields, host
-        callables ``(t, x) -> float`` (``grid.apply_boundaries``)."""
-        if geom.n_devices != 1:
-            raise NotImplementedError("only single-device grids are ported")
+        callables ``(t, x) -> float`` (``grid.apply_boundaries``).
+        ``ring`` is this rank's ``parallel.dist.Ring`` (default: a
+        world of 1 on ``device``): the grid is cut into one slab a rank,
+        or with ``options.replicate_fields`` held whole by every rank."""
+        ring = ring if ring is not None else Ring(device=torch.device(device))
+        if options.replicate_fields:
+            if geom.n_devices != 1:
+                raise ValueError("replicate_fields needs a geometry of one "
+                                 "device (every rank holds the whole grid)")
+            if options.photon_absorption and ring.world > 1:
+                raise NotImplementedError(
+                    "photon absorption in the replicated-field mode (the "
+                    "pairing across ranks) is not ported")
+        elif geom.n_devices != ring.world:
+            raise ValueError(f"the grid is cut for {geom.n_devices} devices "
+                             f"and the ring has {ring.world} ranks")
         for name, spec in species.items():
             if spec.kind not in ("electron", "ion", "photon"):
                 raise ValueError(f"species {name!r} of unknown kind {spec.kind!r}")
@@ -195,6 +226,10 @@ class Simulation:
         self.specs = dict(species)
         self.laser_y, self.laser_z = laser_y, laser_z
         self.device = torch.device(device)
+        self.ring = ring
+        # the rank's index on the decomposed grid (opal_tpu's axis_index);
+        # 0 in the replicated mode, whose cells are global
+        self.axis_index = 0 if options.replicate_fields else ring.rank
         self.dtype = dtype
         self.field_dtype = field_dtype if field_dtype is not None else dtype
 
@@ -512,16 +547,24 @@ class Simulation:
         return M, R
 
     def _migrate(self, name, st):
-        opt = self.options
-        if isinstance(st, F.PackedState):
-            return migrate_edges_packed(
-                st, self.geom, opt.migration_capacity, opt.migration_window
-            )
+        """The exchange of one species (``opal_tpu/sim.py:927-971``):
+        the edge exchange of a cell-sorted (fused) species; for the
+        others the compact exchange, or at one device wrap or kill in
+        place (an exchange with itself); in the replicated mode every
+        species wraps or dies in place."""
+        opt, geom = self.options, self.geom
+        packed = isinstance(st, F.PackedState)
+        if opt.replicate_fields:
+            return (wrap_kill_packed if packed else wrap_kill)(st, geom)
+        if packed:
+            return migrate_edges_packed(st, geom, opt.migration_capacity,
+                                        opt.migration_window, self.ring)
         if self._fused_applicable(name, st):
-            return migrate_edges(
-                st, self.geom, opt.migration_capacity, opt.migration_window
-            )
-        return wrap_kill(st, self.geom)
+            return migrate_edges(st, geom, opt.migration_capacity,
+                                 opt.migration_window, self.ring)
+        if self.ring.world == 1:
+            return wrap_kill(st, geom)
+        return migrate_compact(st, geom, opt.migration_capacity, self.ring)
 
     def _sort(self, name, st):
         """The maintenance sort of a fused species, either layout, and
@@ -560,7 +603,7 @@ class Simulation:
         species, counters, anchors = (
             dict(c.species), dict(c.counters), dict(c.anchors)
         )
-        E_slab, B_slab = halo.exchange_fields(E, c.B, geom)
+        E_slab, B_slab = self._exchange(E, c.B)
 
         fused_dep = {}
         for name in self.specs:
@@ -594,7 +637,8 @@ class Simulation:
                                                species["electron"])
             with torch.profiler.record_function("absorb"):
                 species, lost, deferred, *ev = absorb(
-                    self, species, c.t, rng, bracketed=bracketed)
+                    self, species, c.t, rng, bracketed=bracketed,
+                    axis_index=self.axis_index)
             counters["photon"] = counters["photon"] + lost
             counters["qed_deferred"] = counters["qed_deferred"] + deferred
             if ev:
@@ -616,10 +660,10 @@ class Simulation:
             J_slab, rho_slab = self._deposit(
                 J_slab, rho_slab,
                 {n: st for n, st in species.items() if n not in fused_dep})
-        J, rho = halo.fold_currents(J_slab, rho_slab, geom)
+        J, rho = self._fold(J_slab, rho_slab)
         E_own, B_own = apply_boundaries(
-            E_slab[HALO:-HALO], B_slab[HALO:-HALO], geom, 0, c.t, opt.dt,
-            self.laser_y, self.laser_z,
+            E_slab[HALO:-HALO], B_slab[HALO:-HALO], geom, self.axis_index,
+            c.t, opt.dt, self.laser_y, self.laser_z,
         )
         E_slab = torch.cat([E_slab[:HALO], E_own, E_slab[-HALO:]])
         B_slab = torch.cat([B_slab[:HALO], B_own, B_slab[-HALO:]])
@@ -627,10 +671,27 @@ class Simulation:
 
         E_slab, B_slab = maxwell.advance(
             E_slab, B_slab, J_slab, opt.dt, geom.dx,
-            sm_mask(geom, E.device),
+            sm_mask(geom, E.device, self.axis_index),
         )
         return Carry(E_slab[HALO:-HALO], B_slab[HALO:-HALO], J, rho,
                      species, c.t + opt.dt, counters, anchors, events)
+
+    def _exchange(self, E, B):
+        """The halo-extended field slabs: from the ring neighbours, or
+        in the replicated mode a local wrap."""
+        if self.options.replicate_fields:
+            return halo.exchange_fields_local(E, B, self.geom)
+        return halo.exchange_fields(E, B, self.geom, self.ring)
+
+    def _fold(self, J_slab, rho_slab):
+        """Fold the halo currents into the owners' cells; in the
+        replicated mode fold locally and sum the ranks' particle shards'
+        deposits (``opal_tpu/sim.py:1222-1228``)."""
+        if not self.options.replicate_fields:
+            return halo.fold_currents(J_slab, rho_slab, self.geom, self.ring)
+        J, rho = halo.fold_currents_local(J_slab, rho_slab, self.geom)
+        both = self.ring.psum(torch.cat([J, rho[:, None]], dim=1))
+        return both[:, :3], both[:, 3]
 
     def _deposit(self, J_slab, rho_slab, species):
         """The scatter deposit of each charged species of ``species``, in
@@ -689,6 +750,10 @@ class Simulation:
             return rng(i) if replay else rng
 
         M, R = self._cadences(species)
+        # the losses of this call on this rank; summed over the ranks and
+        # added to ``counters`` at the end (one collective a call)
+        counters_in = counters
+        counters = {k: torch.zeros_like(v) for k, v in counters.items()}
         any_fused = any(
             self._fused_applicable(n, species[n]) for n in self.specs
         )
@@ -729,7 +794,10 @@ class Simulation:
                 c = blocks(self._sort_phase(c), min(R_eff, nsteps - lo))
         species = {**c.species, **{n: F.unpack_fused(c.species[n], tmpl)
                                    for n, tmpl in templates.items()}}
-        out = (c.E, c.B, c.J, c.rho, species, c.t, c.counters)
+        names = list(counters_in)
+        lost = self.ring.psum(torch.stack([c.counters[k] for k in names]))
+        counters = {k: counters_in[k] + lost[i] for i, k in enumerate(names)}
+        out = (c.E, c.B, c.J, c.rho, species, c.t, counters)
         return out + (c.events,) if self._event_log else out
 
     # ------------------------------------------------------------------
@@ -744,15 +812,17 @@ class Simulation:
         particles (reference ``main.rs:174-183`` and ``yee.rs:644-747``;
         ``opal_tpu/sim.py:1416-1460`` at one device): deposit every
         charged species, fold the halos, then solve the Gauss/Ampère
-        prefix sweep (:func:`fields.electrostatic_init`).  Returns (E,
-        B, J, rho)."""
+        prefix sweep (:func:`fields.electrostatic_init`; in the replicated
+        mode over the summed, global J and rho with no collective).
+        Returns (E, B, J, rho)."""
         n_slab = self.geom.n_loc + 2 * HALO
         J_slab, rho_slab = self._deposit(
             torch.zeros((n_slab, 3), dtype=E.dtype, device=E.device),
             torch.zeros((n_slab,), dtype=E.dtype, device=E.device),
             species)
-        J, rho = halo.fold_currents(J_slab, rho_slab, self.geom)
-        E, B = electrostatic_init(E, B, J, rho, self.geom)
+        J, rho = self._fold(J_slab, rho_slab)
+        ring = None if self.options.replicate_fields else self.ring
+        E, B = electrostatic_init(E, B, J, rho, self.geom, ring)
         return E, B, J, rho
 
     def zero_counters(self):
@@ -770,19 +840,26 @@ class Simulation:
     def zero_events(self):
         """An empty event ring: ``(ring, count)``, the (capacity, 14)
         records in the particle dtype and the int64 count of events seen
-        (``opal_tpu/sim.py:1489-1501``, at one device)."""
+        (``opal_tpu/sim.py:1489-1501``: each rank keeps its own)."""
         cap = self.options.event_log_capacity if self._event_log else 0
         return (torch.zeros((cap, 14), dtype=self.dtype, device=self.device),
                 torch.zeros((), dtype=torch.int64, device=self.device))
 
     def em_field_energy(self, E, B) -> float:
-        return float(em_field_energy_local(E, B, self.geom))
+        """Field energy (J) of the interior, summed over the ranks; in
+        the replicated mode that of the whole grid, which every rank
+        holds (``opal_tpu/sim.py:1542-1560``).  Every rank must call
+        it."""
+        e = em_field_energy_local(E, B, self.geom, self.axis_index)
+        return float(e if self.options.replicate_fields
+                     else self.ring.psum(e))
 
     def total_kinetic_energy(self, name: str, state: ParticleState) -> float:
         """Kinetic energy of a species in joules (``mod.rs:227-240``),
-        reduced in the field dtype."""
+        reduced in the field dtype and summed over the ranks.  Every
+        rank must call it."""
         ke = kinetic_energy_weights(self.specs[name], state)
-        return float(torch.sum(ke.to(self.field_dtype)))
+        return float(self.ring.psum(torch.sum(ke.to(self.field_dtype))))
 
     @property
     def electron_chi_is_lazy(self) -> bool:
@@ -796,7 +873,7 @@ class Simulation:
         """Recompute electron chi from the current momenta and fields
         (the full-step invariant, equal to the reference's half-step
         value to O(dt))."""
-        E_slab, B_slab = halo.exchange_fields(E, B, self.geom)
+        E_slab, B_slab = self._exchange(E, B)
         Ep, Bp = fields_at(E_slab, B_slab, st.cell + HALO, st.x)
         chi = electron_chi(
             st.ux, st.uy, st.uz, st.gamma,
@@ -809,7 +886,7 @@ class Simulation:
         (``photon.rs:165-176``): without an absorption pass the step
         skips the per-step photon field gather, since nothing reads
         chi."""
-        E_slab, B_slab = halo.exchange_fields(E, B, self.geom)
+        E_slab, B_slab = self._exchange(E, B)
         Ep, Bp = fields_at(E_slab, B_slab, st.cell + HALO, st.x)
         chi = photon_chi(st.u, Ep.to(st.x.dtype), Bp.to(st.x.dtype))
         return dataclasses.replace(st, chi=chi)

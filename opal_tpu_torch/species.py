@@ -272,3 +272,57 @@ def kinetic_energy_weights(spec: SpeciesSpec, state: ParticleState):
     else:
         ke = state.weight * u2 / (state.gamma + 1.0) * to_joules
     return torch.where(state.alive, ke, 0.0)
+
+
+def rank_rows(state: ParticleState, rank: int, capacity: int,
+              device=None) -> ParticleState:
+    """Rank ``rank``'s rows ``[rank * capacity, (rank + 1) * capacity)``
+    of a state in opal_tpu's per-device block layout (what
+    :func:`initialize` builds for ``n_devices`` ranks and :func:`
+    shard_even` for the replicated-field mode), as copies on ``device``
+    (default: the state's)."""
+    lo = rank * capacity
+
+    def take(a):
+        if a is None:
+            return None
+        return a[lo:lo + capacity].to(device or a.device, copy=True)
+
+    return ParticleState(**{f.name: take(getattr(state, f.name))
+                            for f in dataclasses.fields(state)})
+
+
+def shard_even(state: ParticleState, n_shards: int,
+               capacity_per_shard: int) -> ParticleState:
+    """The replicated-field mode's particle decomposition
+    (``opal_tpu/species.py:476-516``): a one-device state whose alive
+    rows form a prefix, ordered by cell (:func:`initialize` on a
+    one-device geometry), re-chunked into ``n_shards`` contiguous chunks
+    of equal count, each padded with dead rows to
+    ``capacity_per_shard``.  Equal-count chunks of a cell-ordered
+    population are the reference's density-balanced split
+    (``grid/mod.rs:157-206``)."""
+    n_alive = int(state.alive.sum())
+    if not bool(state.alive[:n_alive].all()):
+        raise ValueError("shard_even needs an alive-prefix layout")
+    chunk = -(-n_alive // n_shards) if n_alive else 0
+    if chunk > capacity_per_shard:
+        raise ValueError(
+            f"shard chunk {chunk} exceeds capacity {capacity_per_shard}")
+    is_photon = state.tau_abs is not None
+    out = {}
+    for f in dataclasses.fields(state):
+        a = getattr(state, f.name)
+        if a is None:
+            out[f.name] = None
+            continue
+        new = torch.full((n_shards * capacity_per_shard,) + a.shape[1:],
+                         dead_default(f.name, is_photon), dtype=a.dtype,
+                         device=a.device)
+        for s in range(n_shards):
+            lo = min(s * chunk, n_alive)
+            hi = min(lo + chunk, n_alive)
+            base = s * capacity_per_shard
+            new[base:base + hi - lo] = a[lo:hi]
+        out[f.name] = new
+    return ParticleState(**out)

@@ -122,7 +122,7 @@ def test_bench_loss_voids_the_run(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--devices", "4"], ["--aot"],
+    ["--aot"],
     ["--mxu-gather"], ["--dynamic-gather"], ["--sort-rowgather"],
     ["--fused-subblocks", "4"], ["--sorted-pipeline"],
 ])
@@ -236,7 +236,7 @@ def test_bench_qed_and_no_lite_run(argv, form, capsys, monkeypatch):
         assert photons > 0
         absorbing = "--no-absorption" not in argv
         assert len(passes) == (12 if absorbing else 0)
-        assert all(p == {"bracketed": True}
+        assert all(p == {"bracketed": True, "axis_index": 0}
                    for p in passes)
     assert interactions.absorb is real_a
 

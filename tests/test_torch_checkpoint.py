@@ -199,7 +199,7 @@ def test_file_matches_opal_tpus(tmp_path):
         j = {k: z[k] for k in z.files}
     with np.load(tmp_path / "torch" / checkpoint.FILENAME) as z:
         t = {k: z[k] for k in z.files}
-    assert set(j) - set(t) == {"key"}
+    assert set(j) - set(t) == set()
     assert set(t) - set(j) == {checkpoint.RNG_STATE, checkpoint.RNG_DEVICE}
     assert str(t[checkpoint.RNG_DEVICE]) == "cpu"
     for k in set(j) & set(t):

@@ -90,13 +90,22 @@ def test_two_stream_outputs_match(tmp_path, capsys):
                 assert h_t[k] == v, k
 
 
-def test_refuses_unported_decks(capsys):
-    """A run on several devices is not ported: it exits 1 and says so."""
-    deck = EXAMPLES / "two_stream.yaml"
+def test_refuses_unported_decks(tmp_path, capfd):
+    """The one part of opal_tpu not ported, the replicated-field mode's
+    photon absorption: an absorption deck that opal_tpu's rule runs
+    replicated on several devices (``examples/colliding_beams.yaml`` with
+    absorption on, its beam on one of the slabs) exits 1 and says so,
+    naming the setting that runs it decomposed."""
+    src = (EXAMPLES / "colliding_beams.yaml").read_text()
+    assert src.count("photon_absorption: false") == 1
+    deck = tmp_path / "deck.yaml"
+    deck.write_text(src.replace("photon_absorption: false",
+                                "photon_absorption: true"))
     assert tcli.main([str(deck), "--devices", "2", "--device", "cpu"]) == 1
-    err = capsys.readouterr().err
-    assert err.startswith("opal_tpu_torch: ") and "not yet ported" in err
-    assert "2-device" in err
+    said = [line for line in capfd.readouterr().err.splitlines()
+            if line.startswith("opal_tpu_torch: ")]
+    assert len(said) == 1 and "not ported" in said[0]
+    assert "tpu: replicate_fields: 0" in said[0]
 
 
 def test_no_card_exits_without_running(tmp_path, capsys):
