@@ -127,19 +127,28 @@ the port on the card, phase by phase, each printing one line or more:
     group beside phase 15's run without: energies to the printed digits
     and alive counts equal to the runs without a group, every step
     through the kernel, and the collectives each run issued with their
-    time a step (phase 24's run A' is the hole_boring deck's such run).
+    time a step (phase 24's run A' is the hole_boring deck's such run);
+28. photon absorption in the replicated-field mode: ``absorb``'s
+    replicated branch at a world of 1 under NCCL against the plain
+    branch on phase 19's forced-event state, bitwise; then, if this
+    PyTorch's ``gloo`` reduces and gathers CUDA tensors, two gloo ranks
+    sharing the card: the replicated ``absorb`` card vs CPU within 1e-12,
+    and a small absorption deck at ``--f32`` (the full Vay form without
+    the deposit on each rank) card vs CPU within phase 10's bars.
 
 ``python3 chip_smoke.py --ranks N`` runs phases 1-2, then phase 27
-instead of 3-26: the two_stream deck (2000 steps) and phase 24's
-hole_boring deck (600 steps) through ``--devices N`` on N cards, each
-in the domain and the replicated-field mode, against the same deck on
-one card.  It exits 1 on a machine with fewer than N cards.
+instead of 3-28: the two_stream deck (2000 steps), phase 24's
+hole_boring deck (600 steps) and phase 22's colliding_beams deck with
+absorption at ``--f32`` through ``--devices N`` on N cards, each in the
+domain and the replicated-field mode, against the same deck on one
+card, and the bench twin.  It exits 1 on a machine with fewer than N
+cards.
 
 Kernel times (``ms``) are device time: 20 calls queued behind a
 device-side spin run back to back between two CUDA events.  The
 wrapper's whole call (``call_ms``) and the plain version's
 (``plain_ms``) are timed by CUDA events around each call, host launch
-included.  Phases 1-26 take about ten to
+included.  Phases 1-28 take about ten to
 eighteen minutes.  Any failed check raises, so the
 script exits non-zero without the final line.  Before the last line it
 prints one JSON object describing each kernel form of the paths, and
@@ -165,6 +174,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -1516,34 +1526,18 @@ def absorb_card_vs_cpu():
     scale (the kicks of two photons on one electron add in another order
     on the card: ROADMAP C4).  Returns {case: (events, card ms, CPU
     ms)}."""
-    from types import SimpleNamespace
-
-    from opal_tpu_torch import constants as const
     from opal_tpu_torch import interactions as I
-    from opal_tpu_torch.convert import state_from_numpy, to_numpy
+    from opal_tpu_torch.convert import state_from_numpy
     from opal_tpu_torch.grid import GridGeometry
-    from opal_tpu_torch.sim import SimOptions
 
     geom = GridGeometry(nx=4096, dx=1e-6, xmin=0.0, n_devices=1)
     out = {}
     for mode, (presorted, bracketed) in ABSORB_MODES.items():
         e, ph = forced_absorb_state(mode)
         for compact in (2048, 0):
-            opt = SimOptions(
-                dt=0.95 * 1e-6 / const.SPEED_OF_LIGHT, photon_absorption=True,
-                absorption_candidates=64, absorption_block=32,
-                absorption_active_capacity=compact,
-                absorption_event_capacity=1024,
-                extra_absorption_output=True,
-                extra_stimulated_emission_output=True)
+            opt = _absorb_opts(compact)
             sim = SimpleNamespace(geom=geom, options=opt)
-            nb, nw, evc = I.absorb_widths(opt, len(e["x"]), len(ph["x"]))
-            rng = np.random.default_rng(5)
-            draws = dict(abs_rot=int(rng.integers(len(ph["x"]))),
-                         abs_r=rng.random((nb, nw)),
-                         abs_exp=rng.exponential(size=(nb, 2, nw)),
-                         abs_tau_abs=rng.exponential(size=evc),
-                         abs_tau_st=rng.exponential(size=evc))
+            draws = _absorb_draws(opt, len(e["x"]), len(ph["x"]), 1, 5)
             res, ms = {}, {}
             for dev in ("cuda", "cpu"):
                 sp = {"electron": state_from_numpy(e, device=dev),
@@ -1557,34 +1551,79 @@ def absorb_card_vs_cpu():
                 if dev == "cuda":
                     torch.cuda.synchronize()
                 ms[dev] = (time.perf_counter() - t0) * 1e3
-                res[dev] = (r, dict(I.absorb.events))
+                res[dev] = (_absorb_columns(r), dict(I.absorb.events))
             (rc, evc_c), (rh, evc_h) = res["cuda"], res["cpu"]
             assert evc_c == evc_h, (evc_c, evc_h)
             assert evc_h["absorbed"] > 100 and evc_h["stimulated"] > 10, evc_h
-            assert int(rc[1]) == int(rh[1]) and int(rc[2]) == int(rh[2])
-            assert int(rh[2]) > 0  # truncated cells, past the capacities
-            (rec_c, want_c), (rec_h, want_h) = rc[3], rh[3]
-            assert torch.equal(want_c.cpu(), want_h)
-            assert torch.equal(rec_c[want_c, 13].cpu(), rec_h[want_h, 13])
-            worst = _rel_diff(rec_c[want_c].cpu(), rec_h[want_h])
-            for name in ("electron", "photon"):
-                c, h = to_numpy(rc[0][name]), to_numpy(rh[0][name])
-                for col, v in h.items():
-                    if v.dtype.kind in "bi":
-                        assert np.array_equal(c[col], v), (name, col)
-                    else:
-                        worst = max(worst, _rel_diff(
-                            torch.from_numpy(c[col]), torch.from_numpy(v)))
+            assert rh[2] > 0  # truncated cells, past the capacities
+            worst = _worst(rc, rh)
             label = f"{mode}, {'compaction 2048' if compact else 'whole buffer'}"
             log(19, f"absorb on the forced-event state ({label}): "
                     f"{evc_h['absorbed']} absorbed and {evc_h['stimulated']} "
-                    f"stimulated events on both, deferred {int(rh[2])}, lost "
-                    f"{int(rh[1])}; records, depths, momenta and every column "
+                    f"stimulated events on both, deferred {rh[2]}, lost "
+                    f"{rh[1]}; records, depths, momenta and every column "
                     f"within {worst:.3e} of their scale (bar 1e-12); card "
                     f"{ms['cuda']:.1f} ms, CPU {ms['cpu']:.1f} ms")
             assert worst <= 1e-12, (label, worst)
             out[label] = (evc_h, ms["cuda"], ms["cpu"])
     return out
+
+
+def _absorb_draws(opt, n_e, n_ph, world, seed, dtype=np.float64):
+    """Host-made draws of one ``absorb`` call at the shapes of opal_tpu's
+    arrays (``interactions.absorb_widths``)."""
+    from opal_tpu_torch import interactions as I
+
+    nb, nw, evc = I.absorb_widths(opt, n_e, n_ph, world)
+    rng = np.random.default_rng(seed)
+    return dict(abs_rot=int(rng.integers(n_ph)),
+                abs_r=rng.random((nb, nw)).astype(dtype),
+                abs_exp=rng.exponential(size=(nb, 2, nw)).astype(dtype),
+                abs_tau_abs=rng.exponential(size=evc).astype(dtype),
+                abs_tau_st=rng.exponential(size=evc).astype(dtype))
+
+
+def _absorb_opts(compact):
+    """Phase 19's options: 64 candidates in passes of 32, the active-set
+    compaction at ``compact`` photons (0: off), the event capacity at
+    1024, the event records on."""
+    from opal_tpu_torch import constants as const
+    from opal_tpu_torch.sim import SimOptions
+
+    return SimOptions(
+        dt=0.95 * 1e-6 / const.SPEED_OF_LIGHT, photon_absorption=True,
+        absorption_candidates=64, absorption_block=32,
+        absorption_active_capacity=compact, absorption_event_capacity=1024,
+        extra_absorption_output=True, extra_stimulated_emission_output=True)
+
+
+def _absorb_columns(res):
+    """Host copies of one ``absorb`` result: (columns by species, lost,
+    deferred, records and mask)."""
+    from opal_tpu_torch.convert import to_numpy
+
+    return ({n: to_numpy(res[0][n]) for n in ("electron", "photon")},
+            int(res[1]), int(res[2]), to_numpy(res[3]))
+
+
+def _worst(a, b) -> float:
+    """The largest difference of two :func:`_absorb_columns` over their
+    floating columns and logged records, relative to each one's scale;
+    the integer and boolean columns, counts, masks and event kinds must
+    be equal."""
+    (ca, la, da, (ra, wa)), (cb, lb, db, (rb, wb)) = a, b
+    assert (la, da) == (lb, db), ((la, da), (lb, db))
+    assert np.array_equal(wa, wb)
+    assert np.array_equal(ra[wa, 13], rb[wb, 13])
+    worst = _rel_diff(torch.from_numpy(ra[wa]), torch.from_numpy(rb[wb]))
+    for name in ca:
+        for col, v in cb[name].items():
+            if v.dtype.kind in "bi":
+                assert np.array_equal(ca[name][col], v), (name, col)
+            else:
+                worst = max(worst, _rel_diff(torch.from_numpy(ca[name][col]),
+                                             torch.from_numpy(v)))
+    return worst
 
 
 def _rel_diff(a, b):
@@ -2250,6 +2289,151 @@ def dist_world_one(tmp: Path, smi: str, ts_rate: float, ts_alive: list,
     return launches, got["vay"]
 
 
+def _ledger(run: Path, deck: Path, devices: int) -> dict:
+    """The radiated-energy ledger of a CLI run of the colliding_beams
+    absorption deck (ROADMAP C8): the electrons' kinetic energy and
+    work at the start, from the initial state that ``cli.build`` makes
+    for each of the run's ranks (on the host), and at the end, with the
+    photons', from the run's last checkpoint; summed in f64.  Returns
+    the electron loss, the laser's work, the photon gain and the closure
+    ``|loss + work - gain| / gain``."""
+    from opal_tpu_torch import checkpoint
+    from opal_tpu_torch.cli import build
+    from opal_tpu_torch.convert import state_from_numpy
+    from opal_tpu_torch.parallel.dist import Ring
+    from opal_tpu_torch.species import SpeciesSpec, kinetic_energy_weights
+
+    def joules(spec, st):
+        return float(kinetic_energy_weights(spec, st).double().sum())
+
+    def work(st):
+        return float(torch.where(st.alive, st.weight.double()
+                                 * st.work.double(), 0.0).sum())
+
+    e0 = w0 = 0.0
+    for r in range(devices):
+        # a rank of the run, whose group build never reaches
+        ring = (Ring(device=torch.device("cpu")) if devices == 1 else
+                Ring(rank=r, world=devices, group=object()))
+        sim, sp, _ = build(deck, dtype=torch.float32,
+                           field_dtype=torch.float32, ring=ring)
+        e0 += joules(sim.specs["electron"], sp["electron"])
+        w0 += work(sp["electron"])
+    with np.load(run / checkpoint.FILENAME) as z:
+        cols = {n: {k.split("/", 1)[1]: z[k] for k in z.files
+                    if k.startswith(n + "/")} for n in ("electron", "photon")}
+    el = state_from_numpy(cols["electron"], device="cpu")
+    ph = state_from_numpy(cols["photon"], device="cpu")
+    e1, w1 = joules(sim.specs["electron"], el), work(el)
+    gain = joules(sim.specs["photon"], ph)
+    loss, lw = e0 - e1, w1 - w0
+    return dict(loss=loss, work=lw, gain=gain,
+                closure=abs(loss + lw - gain) / gain)
+
+
+#: the seeds (``tpu: seed``) of phase 27's one-card runs of the
+#: absorption deck, its sample of the run-to-run spread
+CB_ABS_SEEDS = (0, 1, 2)
+
+
+def cb_absorption_ranks(n: int, smi: str, tmp: Path) -> list:
+    """Phase 27's absorption deck: ``examples/colliding_beams.yaml`` with
+    ``photon_absorption: true`` at ``--f32`` and full width, cut to phase
+    22's crossing, with the event records on (standard error), through
+    ``python -m opal_tpu_torch --devices N`` on N cards in the
+    replicated-field mode (opal_tpu's rule picks it for this deck) and in
+    the domain mode (``tpu: replicate_fields: 0``), against one card at
+    each seed of :data:`CB_ABS_SEEDS`, with the emission and absorption
+    active sets unbounded (``tpu: emission_active_capacity: 0`` and
+    ``absorption_active_capacity: 0``: a rank's capacities are one
+    card's, so where one card defers emitters N ranks would not, and
+    their physics a step would differ by that).
+
+    The draws differ with the rank count, so the runs are held at the
+    distribution level, against the one-card runs' spread over seeds: no
+    counted loss, each run's ledger closure with the laser's work within
+    phase 22's bar of 1e-4 (the f32 push's own bias puts one card at
+    ~1.6e-5, ROADMAP C8), both kinds of event, and the photons' energy
+    gain within 4 sample standard deviations of the one-card runs' mean.
+    The event counts are printed beside the one-card range, not held to
+    a Poisson band: a stimulated copy flies with its seed through the
+    same electrons and may stimulate again, so the counts come in bursts
+    and spread far wider than Poisson's from seed to seed.  Steps/s
+    beside one card's.  Returns the rows as dicts."""
+    src = (ROOT / "examples" / "colliding_beams.yaml").read_text()
+    for a, b in CB_ABS_EDITS:
+        assert src.count(a) == 1, a
+        src = src.replace(a, b)
+    src = src.replace("control:\n", "control:\n checkpoint: true\n")
+    src += ("\nfeatures:\n extra_absorption_output: true\n"
+            " extra_stimulated_emission_output: true\n"
+            "\ntpu:\n emission_active_capacity: 0\n"
+            " absorption_active_capacity: 0\n")
+    steps = 5 * (2368 // 5)
+    cases = [(f"one card, seed {seed}", 1, f" seed: {seed}\n")
+             for seed in CB_ABS_SEEDS]
+    cases += [("replicated", n, ""), ("domain", n, " replicate_fields: 0\n")]
+    runs, rows = {}, []
+    for label, devices, tpu in cases:
+        run = tmp / f"cb_absorption_{len(runs)}"
+        run.mkdir()
+        deck = run / "deck.yaml"
+        deck.write_text(src + tpu)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "opal_tpu_torch", str(deck), "--devices",
+             str(devices), "--f32"], cwd=ROOT, capture_output=True,
+            text=True, timeout=1200)
+        wall = time.perf_counter() - t0
+        assert res.returncode == 0, (res.stdout[-4000:], res.stderr[-4000:])
+        assert "buffer-overflow" not in res.stderr, res.stderr[-4000:]
+        assert "event ring overflow" not in res.stderr, res.stderr[-4000:]
+        banner = res.stdout.splitlines()[0]
+        assert ("replicated" in banner) == (label == "replicated"), banner
+        assert "[fused pusher: electron]" in res.stdout, res.stdout[:2000]
+        events = collections.Counter(
+            line.rsplit(" ", 1)[1] for line in res.stderr.splitlines()
+            if line.endswith((" abs", " stim")))
+        ledger = _ledger(run, deck, devices)
+        runs[label] = dict(events=events, wall=wall, ledger=ledger)
+        log(27, f"colliding_beams.yaml with photon_absorption: true --f32 "
+                f"(full width, {steps} steps) on {devices} card(s), {label} "
+                f"('{banner}'): {events['abs']} absorbed and "
+                f"{events['stim']} stimulated events, no loss; electron "
+                f"loss {ledger['loss']:.6e} J, laser work "
+                f"{ledger['work']:.6e} J, photon gain {ledger['gain']:.6e} J: "
+                f"closure with the work {ledger['closure']:.3e}; "
+                f"{steps / wall:.1f} steps/s (process start and set-up "
+                f"included); on {smi}")
+        assert ledger["closure"] < 1e-4, (label, ledger)
+        assert events["abs"] > 0 and events["stim"] > 0, (label, events)
+        rows.append(dict(deck="colliding_beams absorption --f32",
+                         mode=label, ranks=devices, events=dict(events),
+                         photon_gain_J=ledger["gain"],
+                         closure=ledger["closure"], wall_s=wall,
+                         steps_per_s=steps / wall, banner=banner))
+    ones = [runs[c[0]] for c in cases[:len(CB_ABS_SEEDS)]]
+    gains = [r["ledger"]["gain"] for r in ones]
+    mean, sd = statistics.mean(gains), statistics.stdev(gains)
+    rate = statistics.mean(steps / r["wall"] for r in ones)
+    span = {k: (min(r["events"][k] for r in ones),
+                max(r["events"][k] for r in ones)) for k in ("abs", "stim")}
+    for label in ("replicated", "domain"):
+        r = runs[label]
+        z = (r["ledger"]["gain"] - mean) / sd
+        log(27, f"colliding_beams with absorption on {n} cards, {label}: "
+                f"photon gain {z:+.2f} sample sd from the one-card runs' "
+                f"mean {mean:.6e} J (sd {sd:.3e} J over seeds "
+                f"{CB_ABS_SEEDS}); events {r['events']['abs']} absorbed "
+                f"and {r['events']['stim']} stimulated, one card "
+                f"{span['abs'][0]}-{span['abs'][1]} and "
+                f"{span['stim'][0]}-{span['stim'][1]}; "
+                f"{steps / r['wall']:.1f} steps/s against {rate:.1f} on "
+                f"one card; on {smi}")
+        assert abs(z) <= 4, (label, z)
+    return rows
+
+
 def ranks_drive(n: int, smi: str) -> list:
     """Phase 27 (``--ranks N``): the two_stream deck (2000 steps over 4
     outputs) and phase 24's hole_boring deck (600 steps over 4) through
@@ -2263,9 +2447,10 @@ def ranks_drive(n: int, smi: str) -> list:
     digits and the atomics' rounding, C4); hole_boring's domain mode
     parts further (the halo's E at each slab edge is advanced without
     the neighbour's current, as in opal_tpu: ROADMAP C13), so it is
-    reported only.  Then the bench twin at its defaults with
-    ``--devices N`` and on one card: no loss, pushes/s a card.  Returns
-    the rows as dicts."""
+    reported only.  Then the colliding_beams deck with absorption
+    (:func:`cb_absorption_ranks`), and the bench twin at its defaults
+    with ``--devices N`` and on one card: no loss, pushes/s a card.
+    Returns the rows as dicts."""
     from opal_tpu_torch import checkpoint, constants as const
     from opal_tpu_torch.config import Config
 
@@ -2323,6 +2508,7 @@ def ranks_drive(n: int, smi: str) -> list:
                         f"{alive} equal; {wall:.1f} s against {one[2]:.1f} s "
                         f"on one card (process start and set-up included); "
                         f"on {smi}")
+        rows += cb_absorption_ranks(n, smi, tmp)
         # the bench twin's deck decomposed over the N cards, beside one
         twin = {}
         for devices in (1, n):
@@ -2345,6 +2531,326 @@ def ranks_drive(n: int, smi: str) -> list:
     return rows
 
 
+#: phase 28's mini crossing with absorption (``tests/test_torch_absorption.
+#: py``'s deck: nx 400, 600 electrons, the beam density raised so that
+#: events fire, 8 candidates a photon) at ``--f32`` with blocks of 128
+#: rows, so that its electrons take the full Vay form without the deposit
+ABS_SMALL = """\
+control:
+ dx: 0.01*micro
+ nx: 400
+ xmin: -1*micro
+ start: -1.5e-6/c
+ end: -1.5e-6/c + 120.5 * 0.0095e-6/c
+ current_deposition: false
+ n_outputs: 1
+
+qed:
+ photon_emission: true
+ photon_absorption: true
+ photon_angle_max: 100 * milli
+
+electrons:
+ npc: 12
+ ne: S * a0 * critical(omega) * step(x,xmin,xmax)
+ ux: -1000.0 * (1.0 + 0.01 * nrand)
+ uy: 0.0
+ uz: 0.0
+ output: [x, chi]
+
+ions:
+ npc: 0
+
+photons:
+ npc: 0
+ output: [energy:(log;energy)]
+
+laser:
+ Ey: >
+  (a0*m*c*omega/e)
+  *sin(omega*(t-x/c))
+  *exp(-ln(2.0)*(omega*(t-x/c))^2/(2.0*pi^2*ncycles^2))
+ Ez: 0.0
+
+constants:
+ S: 1.0e6
+ a0: 20.0
+ omega: 2*pi*c/0.8e-6
+ ncycles: 4.0
+ xmin: 0.2 * micro
+ xmax: 0.7 * micro
+
+tpu:
+ absorption_candidates: 8
+ absorption_active_capacity: 512
+ absorption_event_capacity: 64
+ replicate_fields: 1
+ fused_block: 128
+"""
+
+
+def _gloo_rank(rank, world, init_method, out):
+    """One rank of phase 28's ``gloo`` group on the card (``cuda:0``,
+    shared by the ranks): whether gloo reduces and gathers CUDA tensors,
+    and if it does, the replicated ``absorb`` on the forced-event state
+    split over the ranks, on the card and on the CPU with the same draws,
+    and the small absorption deck (:data:`ABS_SMALL`) stepped on the
+    card and on the CPU with the same host-made draws.  Writes its
+    results to ``out/rank{rank}.pkl``."""
+    import os
+    import pickle
+
+    import torch.distributed as tdist
+
+    sys.path.insert(0, str(ROOT))
+    from opal_tpu_torch import interactions as I
+    from opal_tpu_torch.convert import state_from_numpy
+    from opal_tpu_torch.grid import GridGeometry
+    from opal_tpu_torch.parallel.dist import Ring
+    from opal_tpu_torch.species import rank_rows
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    tdist.init_process_group("gloo", init_method=init_method,
+                             world_size=world, rank=rank)
+    rings = {dev: Ring(rank, world, torch.device(dev), tdist.group.WORLD)
+             for dev in ("cuda", "cpu")}
+    res = {}
+    # the question of the phase: a gloo collective of CUDA tensors either
+    # runs or raises on every rank alike, before any message
+    try:
+        ring = rings["cuda"]
+        res["probe"] = (
+            ring.psum(torch.tensor([rank + 1], device="cuda")).tolist(),
+            ring.all_gather(torch.tensor([rank], device="cuda")).tolist())
+    except RuntimeError as exc:
+        res["probe_error"] = f"{type(exc).__name__}: {exc}"
+    if "probe" in res:
+        geom = GridGeometry(nx=4096, dx=1e-6, xmin=0.0, n_devices=1)
+        res["absorb"] = {}
+        for mode, (presorted, bracketed) in ABSORB_MODES.items():
+            e, ph = forced_absorb_state(mode)
+            opt = _absorb_opts(2048 // world)
+            sim = SimpleNamespace(geom=geom, options=opt)
+            n_e, n_ph = len(e["x"]) // world, len(ph["x"]) // world
+            draws = _absorb_draws(opt, n_e, n_ph, world, 50 + rank)
+            got = {}
+            for dev, ring in rings.items():
+                sp = {"electron": rank_rows(state_from_numpy(e, device=dev),
+                                            rank, n_e),
+                      "photon": rank_rows(state_from_numpy(ph, device=dev),
+                                          rank, n_ph)}
+                I.absorb.events.update(absorbed=0, stimulated=0)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = I.absorb(sim, sp, 1e-15, draws, presorted=presorted,
+                             bracketed=bracketed, ring=ring,
+                             replicated=True)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                got[dev] = (_absorb_columns(r), dict(I.absorb.events), ms)
+            res["absorb"][mode] = dict(
+                worst=_worst(got["cuda"][0], got["cpu"][0]),
+                events=(got["cuda"][1], got["cpu"][1]),
+                deferred=got["cpu"][0][2],
+                ms=(got["cuda"][2], got["cpu"][2]))
+        res["deck"] = _gloo_deck(rings, rank, Path(out))
+    (Path(out) / f"rank{rank}.pkl").write_bytes(pickle.dumps(res))
+    tdist.destroy_process_group()
+
+
+def _gloo_deck(rings, rank, out: Path):
+    """:data:`ABS_SMALL` at ``--f32`` on the rank of the gloo group, on
+    the card and on the CPU, with the same host-made draws a step: the
+    replicated mode, the kernel's launches on the card, no loss, the
+    events applied, the photons alive, the energies (summed over the
+    ranks) and the card's field arrays' checksum (the ranks hold the
+    whole grid, and must hold it alike)."""
+    from opal_tpu_torch import interactions as I
+    from opal_tpu_torch.cli import build
+    from opal_tpu_torch.interactions import absorb_widths, emission_widths
+
+    deck = out / f"abs_small_{rank}" / "deck.yaml"
+    deck.parent.mkdir()
+    deck.write_text(ABS_SMALL)
+    got, draws = {}, None
+    for dev, ring in rings.items():
+        sim, sp, rp = build(deck, dtype=torch.float32,
+                            field_dtype=torch.float32, ring=ring)
+        assert sim.options.replicate_fields
+        assert sim._fused_applicable("electron", sp["electron"])
+        steps = rp["total_steps"]
+        if draws is None:
+            opt, world = sim.options, ring.world
+            n_e, n_ph = (sp[k].x.shape[0] for k in ("electron", "photon"))
+            m, mi = emission_widths(opt, n_e)
+            rng = np.random.default_rng(70 + rank)
+            f32 = lambda a: a.astype(np.float32)
+            draws = []
+            for i in range(steps):
+                d = _absorb_draws(opt, n_e, n_ph, world, 1000 * rank + i,
+                                  np.float32)
+                d.update(r1=f32(rng.random(m)), r2=f32(rng.random(m)),
+                         r3=f32(rng.random(m)),
+                         tau=f32(rng.exponential(size=m)),
+                         tau_abs=f32(rng.exponential(size=mi)),
+                         tau_st=f32(rng.exponential(size=mi)))
+                draws.append(d)
+        reset_launches()
+        I.absorb.events.update(absorbed=0, stimulated=0)
+        t0 = time.perf_counter()
+        E, B, J, rho, species, t, counters = sim.run(
+            *sim.init_fields(), sp, rp["tstart"], sim.zero_counters(), steps,
+            rng=draws.__getitem__)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got[dev] = dict(
+            launches=launched(), steps=steps, wall=wall,
+            lost={k: int(v) for k, v in counters.items()
+                  if k != "qed_deferred"},
+            applied=dict(I.absorb.events),
+            photons=int(ring.psum(species["photon"].alive.sum())),
+            energies=[sim.em_field_energy(E, B)] + [
+                sim.total_kinetic_energy(n, species[n]) for n in sim.specs],
+            fields=ring.all_gather(torch.stack(
+                [E.double().sum(), B.double().sum()])).tolist())
+    return got
+
+
+def replicated_absorb_on_card(tmp: Path, smi: str):
+    """Phase 28, the replicated-field mode's absorption on the card.
+
+    First at a world of 1 under an NCCL group: ``absorb(...,
+    replicated=True)`` (its gathered table of 8 columns, the partner's
+    row from the table, the kicks through the routing records and the
+    gather) against the branch without it on phase 19's forced-event
+    state, in the three pairing modes with the compaction on and off,
+    under torch's deterministic algorithms (so that the kicks' index
+    adds sum repeated rows in one order): the same events and every
+    column, count and record bitwise.
+
+    Then whether this PyTorch's ``gloo`` reduces and gathers CUDA
+    tensors (the replicated mode needs no ring shift), on two ranks that
+    share the card.  If it does: the replicated ``absorb`` on the forced
+    state split over the two ranks, each rank on the card against the
+    same rank on the CPU with the same draws (events equal, every column
+    within 1e-12 at f64); and :data:`ABS_SMALL` at ``--f32`` stepped on
+    the two ranks on the card and on the CPU with the same host-made
+    draws: the kernel's full Vay form without the deposit once a step on
+    each rank, no loss, both kinds of event, the ranks' fields alike,
+    and the photons and energies card vs CPU within phase 10's bars (1%
+    of the photons, 1e-3 of each energy).  Returns the launches of the
+    deck's run on the card, summed over the ranks (0 if gloo took no
+    CUDA tensor)."""
+    import pickle
+
+    from opal_tpu_torch import interactions as I
+    from opal_tpu_torch.convert import state_from_numpy
+    from opal_tpu_torch.grid import GridGeometry
+    from opal_tpu_torch.parallel import dist
+
+    geom = GridGeometry(nx=4096, dx=1e-6, xmin=0.0, n_devices=1)
+    ring = dist.init(0, 1, f"file://{tmp / 'rendezvous28'}", "cuda")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for mode, (presorted, bracketed) in ABSORB_MODES.items():
+            e, ph = forced_absorb_state(mode)
+            for compact in (2048, 0):
+                opt = _absorb_opts(compact)
+                sim = SimpleNamespace(geom=geom, options=opt)
+                draws = _absorb_draws(opt, len(e["x"]), len(ph["x"]), 1, 5)
+                got = {}
+                for replicated in (False, True):
+                    sp = {"electron": state_from_numpy(e, device="cuda"),
+                          "photon": state_from_numpy(ph, device="cuda")}
+                    I.absorb.events.update(absorbed=0, stimulated=0)
+                    r = I.absorb(sim, sp, 1e-15, draws, presorted=presorted,
+                                 bracketed=bracketed, ring=ring,
+                                 replicated=replicated)
+                    got[replicated] = (_absorb_columns(r),
+                                       dict(I.absorb.events))
+                (plain, ev_p), (rep, ev_r) = got[False], got[True]
+                assert ev_p == ev_r and ev_p["absorbed"] > 100, (ev_p, ev_r)
+                worst = _worst(rep, plain)
+                label = (f"{mode}, "
+                         f"{'compaction 2048' if compact else 'whole buffer'}")
+                log(28, f"absorb's replicated branch at a world of 1 under "
+                        f"NCCL vs the plain branch on the forced-event state "
+                        f"({label}): {ev_p['absorbed']} absorbed and "
+                        f"{ev_p['stimulated']} stimulated events on both, "
+                        f"deferred {plain[2]}; every column and record "
+                        f"differs by {worst:.3e} of its scale (bar 0)")
+                assert worst == 0.0, (label, worst)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.close(ring)
+
+    out = tmp / "gloo28"
+    out.mkdir()
+    t0 = time.perf_counter()
+    codes = dist.launch(_gloo_rank, 2, (str(out),), timeout=600)
+    assert codes == [0, 0], codes
+    ranks = [pickle.loads((out / f"rank{r}.pkl").read_bytes())
+             for r in range(2)]
+    if "probe_error" in ranks[0]:
+        assert all("probe_error" in r for r in ranks), ranks
+        log(28, f"gloo does not take CUDA tensors in this PyTorch "
+                f"({torch.__version__}): {ranks[0]['probe_error']}; the two "
+                f"gloo ranks on the card are left out")
+        return 0
+    for r, res in enumerate(ranks):
+        assert res["probe"] == ([3], [[0], [1]]), res["probe"]
+    log(28, f"gloo reduces and gathers CUDA tensors (torch "
+            f"{torch.__version__}): two ranks on the card, "
+            f"{time.perf_counter() - t0:.1f} s for the rank processes")
+    for mode in ABSORB_MODES:
+        for r, res in enumerate(ranks):
+            a = res["absorb"][mode]
+            ev_c, ev_h = a["events"]
+            assert ev_c == ev_h and ev_h["absorbed"] > 10, (mode, r, a)
+            log(28, f"replicated absorb on 2 gloo ranks ({mode}, compaction "
+                    f"1024 a rank), rank {r} card vs CPU: {ev_h['absorbed']} "
+                    f"absorbed and {ev_h['stimulated']} stimulated events on "
+                    f"both, deferred {a['deferred']}; every column within "
+                    f"{a['worst']:.3e} of its scale (bar 1e-12); card "
+                    f"{a['ms'][0]:.1f} ms, CPU {a['ms'][1]:.1f} ms")
+            assert a["worst"] <= 1e-12, (mode, r, a["worst"])
+    launches = 0
+    for r, res in enumerate(ranks):
+        c, h = res["deck"]["cuda"], res["deck"]["cpu"]
+        steps = c["steps"]
+        assert c["launches"] == {"vay_full_dep_skip": steps}, c["launches"]
+        launches += steps
+        for d in (c, h):
+            assert not any(d["lost"].values()), d["lost"]
+            # the ranks hold the whole grid alike
+            assert d["fields"][0] == d["fields"][1], d["fields"]
+    c0, h0 = ranks[0]["deck"]["cuda"], ranks[0]["deck"]["cpu"]
+    applied = {dev: {k: sum(res["deck"][dev]["applied"][k] for res in ranks)
+                     for k in ("absorbed", "stimulated")}
+               for dev in ("cuda", "cpu")}
+    log(28, f"the small absorption deck (nx 400, 600 electrons, "
+            f"{c0['steps']} steps, --f32, blocks of 128, replicate_fields: "
+            f"1, host-made draws) on 2 gloo ranks on the card vs the CPU: "
+            f"launches {c0['launches']} a rank, events {applied['cuda']} vs "
+            f"{applied['cpu']}, photons {c0['photons']} vs {h0['photons']}, "
+            f"energies (field, electrons, photons) "
+            f"{[f'{v:.6e}' for v in c0['energies']]} vs "
+            f"{[f'{v:.6e}' for v in h0['energies']]} J; the ranks' fields "
+            f"alike; {c0['steps'] / c0['wall']:.1f} steps/s on the card, "
+            f"{h0['steps'] / h0['wall']:.1f} on the CPU; on {smi}")
+    assert applied["cuda"]["absorbed"] > 0 and \
+        applied["cuda"]["stimulated"] > 0, applied
+    assert h0["photons"] > 100 and abs(c0["photons"] - h0["photons"]) <= \
+        0.01 * h0["photons"], (c0, h0)
+    for a, b in zip(c0["energies"], h0["energies"]):
+        assert abs(a - b) <= 1e-3 * abs(b), (c0["energies"], h0["energies"])
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -2357,7 +2863,7 @@ def main(argv=None) -> int:
         default="hole_boring")
     parser.add_argument(
         "--ranks", type=int, default=0, metavar="N",
-        help="instead of phases 3-26, run the decks on N cards against "
+        help="instead of phases 3-28, run the decks on N cards against "
              "one card (phase 27); exits 1 with fewer than N cards")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2460,6 +2966,7 @@ def main(argv=None) -> int:
         qed_resume_on_card(tmp)
         ts_group, twin_group = dist_world_one(tmp, smi, ts_rate, ts_alive,
                                               twin_values["vay"])
+        rep_launches = replicated_absorb_on_card(tmp, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2478,7 +2985,9 @@ def main(argv=None) -> int:
         "vay_full_dep_skip": {
             "colliding_beams": cb_launches["vay_full_dep_skip"],
             "colliding_beams with absorption":
-                cb_abs_launches["vay_full_dep_skip"]},
+                cb_abs_launches["vay_full_dep_skip"],
+            "small absorption deck, replicated over 2 gloo ranks":
+                rep_launches},
         "vay_full": {label: qtwin[label][0] for label in (
             "bench --qed", "bench --qed --no-absorption")},
         "vay_packed": {"two_stream packed": ts_packed,

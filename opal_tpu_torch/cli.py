@@ -26,10 +26,9 @@ process and one card each (``cuda:{rank}``, NCCL), or ``gloo`` ranks on
 grid is cut into one slab a rank, or, by opal_tpu's rule for
 nonuniform decks (load imbalance of at least 1.5 over at most 80,000
 cells; ``tpu: replicate_fields: 0/1`` overrides it), held whole by
-every rank with the particles in equal-count chunks.  That mode's
-pairing of absorption decks is not ported: such a deck is refused by
-name, and ``tpu: replicate_fields: 0`` runs it decomposed.  Rank 0
-gathers and writes the outputs; the other ranks print nothing.
+every rank with the particles in equal-count chunks (an absorption
+deck too, while the gathered candidate table fits its memory guard).
+Rank 0 gathers and writes the outputs; the other ranks print nothing.
 
 It runs on the CUDA device unless ``--device cpu`` asks for the CPU;
 without a card, or with fewer cards than ranks, it exits 1 and never
@@ -58,10 +57,6 @@ from .interactions import CAND_TABLE_MAX_BYTES
 from .ops.fused import PAD
 from .parallel import dist
 from .species import SpeciesSpec, initialize, rank_rows, shard_even
-
-
-class NotPorted(ValueError):
-    """A deck asks for a part of opal_tpu the port does not have yet."""
 
 
 class NoDevice(RuntimeError):
@@ -240,11 +235,6 @@ def build(path: Path, dtype=torch.float32, field_dtype=torch.float64,
     else:
         replicate = bool(rep_opt) and n_devices > 1
         replicate_blocked_by_absorption = False
-    if replicate and photon_absorption:
-        raise NotPorted(
-            "the replicated-field mode's photon absorption (its pairing "
-            "across ranks) is not ported; tpu: replicate_fields: 0 runs "
-            "this deck decomposed")
     if replicate:
         geom = GridGeometry(nx=nx, dx=dx, xmin=xmin, n_devices=1,
                             left_boundary=left_bdy, right_boundary=right_bdy)
@@ -696,7 +686,7 @@ def _run(args, ring) -> int:
             field_dtype=torch.float32 if args.f32 else torch.float64,
             device=args.device, ring=ring,
         )
-    except (NotPorted, NoDevice) as exc:
+    except NoDevice as exc:
         if rank0:
             print(f"opal_tpu_torch: {exc}", file=sys.stderr)
         return 1
@@ -776,10 +766,10 @@ def _run(args, ring) -> int:
         if rp["replicate_blocked_by_absorption"]:
             print(
                 "[replicated-field balancing is unavailable for this "
-                "absorption deck: the replicated mode's photon "
-                "absorption is not ported (ROADMAP A11c), so the deck "
-                f"runs decomposed; expect up to {bi['imbalance']:.2f}x "
-                "per-device compute skew]"
+                "absorption deck: the all-gathered pairing table "
+                "exceeds its memory budget at this grid size — lower "
+                "tpu: absorption_candidates to re-enable; expect up to "
+                f"{bi['imbalance']:.2f}x per-device compute skew]"
             )
 
     E, B, J, rho = sim.init_fields()

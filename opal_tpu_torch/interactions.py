@@ -28,6 +28,13 @@ opal_tpu's draws, from a dict of its per-step arrays: emitter j of the
 compacted table takes draw j, and the walk's photon in working slot i
 (its rank in opal_tpu's active table, or its buffer row without the
 compaction) takes draw i, as there.
+
+In the replicated-field mode every rank holds the whole grid and an
+equal-count shard of the particles, so a photon's cell-mates sit on
+every rank: ``absorb(..., replicated=True)`` walks a per-cell candidate
+table gathered from all the ranks of its ``Ring`` and routes each kick
+back to the rank that holds the electron
+(``opal_tpu/interactions.py:539-556, 983-1006``).
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import torch
 from . import constants as const
 from .grid import HALO
 from .ops.fused import misfit_compact
+from .parallel.dist import SOLO, Ring
 from .parallel.migrate import _put, insert
 from .qed import cross_sections, emission
 from .species import ParticleState
@@ -48,7 +56,8 @@ from .vec3 import orthogonal, rotate_around
 #: the per-cell candidate table of the absorption walk, a persistent
 #: (cells, ceil(K/B)*B, 7) tensor, up to this many bytes; above it the
 #: walk gathers each pass's rows per photon (``opal_tpu/interactions.py:
-#: 44, 503-545``)
+#: 44, 503-545``).  The replicated mode's gathered table (8 columns, of
+#: every rank) has no such fallback: above it ``absorb`` raises
 CAND_TABLE_MAX_BYTES = 256 * 2**20
 #: photons whose chi over energy is below this never pair
 #: (``interactions.rs:176-192``)
@@ -248,25 +257,33 @@ def _abs_rotation(rng, n_ph, device):
     return torch.randint(0, n_ph, (), generator=rng, device=device)
 
 
-def absorb_widths(options, n_e: int, n_ph: int):
+def absorb_widths(options, n_e: int, n_ph: int, world: int = 1):
     """(nb, nw, EVC): the walk's passes, its working length (the active
     capacity, or the whole photon buffer without the compaction) and the
     event capacity of opal_tpu's absorption pass: the shapes of its draw
-    arrays."""
+    arrays.  In the replicated mode over ``world`` ranks each rank takes
+    ``ceil(K / world)`` candidates a cell and the walk makes ``world``
+    times its passes (``opal_tpu/interactions.py:359-363, 547-556``)."""
     K = min(options.absorption_candidates, n_e)
+    if world > 1:
+        K = max(1, -(-K // world))
     B = max(1, min(options.absorption_block, K))
     A = int(options.absorption_active_capacity or 0)
     nw = A if 0 < A < n_ph else n_ph
     evc = min(int(options.absorption_event_capacity or 0) or 4096, nw)
-    return -(-K // B), nw, evc
+    return world * -(-K // B), nw, evc
 
 
 def absorb(sim, species, t, rng, presorted=False, bracketed=False,
-           axis_index: int = 0):
+           axis_index: int = 0, ring: Ring = SOLO, replicated=False):
     """Photon absorption and stimulated emission pass
-    (``opal_tpu/interactions.py:321-1096``, without its ``replicated``
-    mode); on a decomposed grid it pairs within the rank's slab, whose
-    index ``axis_index`` places the event records' x.
+    (``opal_tpu/interactions.py:321-1096``); on a decomposed grid it
+    pairs within the rank's slab, whose index ``axis_index`` places the
+    event records' x.  With ``replicated`` (the replicated-field mode:
+    every rank of ``ring`` holds the whole grid and a shard of the
+    particles) it pairs across the ranks: each rank contributes
+    ``ceil(K / world)`` candidates a cell to a gathered table, and each
+    kick goes to the rank that holds its electron.
 
     The electrons are viewed by cell: sorted every step, already sorted
     (``presorted``: alive rows cell-ascending, as after the maintenance
@@ -299,9 +316,14 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
     dtype = e.x.dtype
     tiny = _tiny(dtype)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
+    world = ring.world if replicated else 1
+    # the candidates a cell of this rank (of every rank when replicated)
     K = min(opt.absorption_candidates, n_e)
+    if replicated:
+        K = max(1, -(-K // world))
     B = max(1, min(opt.absorption_block, K))
-    nb, nw_len, EVC = absorb_widths(opt, n_e, n_ph)
+    nb_loc = -(-K // B)
+    nb, nw_len, EVC = absorb_widths(opt, n_e, n_ph, world)
     want_events = (opt.extra_absorption_output
                    or opt.extra_stimulated_emission_output)
     # pairing over the halo-extended cells [-HALO, n_loc + HALO): rows
@@ -309,6 +331,20 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
     pad = HALO
     n_cells = geom.n_loc + 2 * pad
     cells = torch.arange(n_cells, dtype=torch.int32, device=dev)
+
+    # the per-cell candidate table's columns [p4 | chi_e | w_e | ok], and
+    # when replicated the candidate's buffer row on its rank
+    CC = 8 if replicated else 7
+    isz = e.x.element_size()
+    use_cell_table = (n_cells * nb_loc * B * CC * world * isz
+                      <= CAND_TABLE_MAX_BYTES)
+    if replicated and not use_cell_table:
+        # raised before any collective, so every rank raises alike
+        raise ValueError(
+            "replicated absorption needs the per-cell candidate table "
+            f"to fit {CAND_TABLE_MAX_BYTES >> 20} MB after the "
+            f"all-gather (n_cells={n_cells}, K/device={K}, "
+            f"devices={world}): lower tpu: absorption_candidates")
 
     # ---- the electrons by cell ----------------------------------------
     cols = (e.gamma, e.ux, e.uy, e.uz, e.chi, e.weight)
@@ -344,6 +380,15 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
         active = active & (t - ph.birth_time <= opt.absorption_stop_time)
     if opt.max_displacement is not None:
         active = active & (torch.hypot(ph.y, ph.z) <= opt.max_displacement)
+    any_active = True
+    if replicated:
+        # pairing sees the cells' global lengths (a photon whose mates
+        # are all on other ranks still walks, and is deferred past the
+        # bound): one sum over the ranks, which also counts the active
+        # photons of every rank.  With none, no rank walks or gathers
+        both = ring.psum(torch.cat([seg_len, active.sum()[None]]))
+        seg_len = both[:-1]
+        any_active = int(both[-1]) > 0  # the host read before the walk
     pcell = torch.clamp(ph.cell.long() + pad, 0, n_cells - 1)
     # the cell-mate screen: photons inside the occupied cell range (a
     # superset of those with cell-mates; the rest have an empty segment
@@ -372,7 +417,9 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
         idx = torch.nonzero(has_mates)[:, 0]
         n_w, aovf = idx.shape[0], 0
         didx = idx
-    if n_w == 0:
+    # a rank of the replicated mode without walkers still joins the
+    # table's and the kicks' gathers while another rank walks
+    if n_w == 0 and not (replicated and any_active):
         res = (species, zero, zero + aovf)
         return res + ((torch.zeros((0, 14), dtype=dtype, device=dev),
                        torch.zeros(0, dtype=torch.bool, device=dev)),
@@ -385,27 +432,37 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
     w_weight = ph.weight[idx]
     w_cell = pcell[idx]
     w_start = seg_start[w_cell]
+    # the global length when replicated
     w_end = w_start + seg_len[w_cell]
-    # photons whose cell holds more than K electrons walk only K: a delay
-    overflow_pairs = torch.sum(w_end - w_start > K)
+    # photons whose cell holds more than K electrons (of every rank)
+    # walk only those: a delay
+    overflow_pairs = torch.sum(w_end - w_start > K * world)
 
     # ---- the per-cell candidate table: every photon of a cell walks
-    # the same first K rows of its segment -----------------------------
-    CC = 7
-    isz = e_table.element_size()
-    use_cell_table = n_cells * nb * B * CC * isz <= CAND_TABLE_MAX_BYTES
+    # the same first K rows of its segment (of each rank) ----------------
     if use_cell_table:
-        karr = torch.arange(nb * B, device=dev)
-        cand_idx = seg_start[:, None] + karr[None, :]
-        cand_ok = (karr[None, :] < K) & (cand_idx < seg_end[:, None])
-        rows = e_table[torch.clamp(cand_idx, 0, n_e - 1)]
+        karr = torch.arange(nb_loc * B, device=dev)
+        cand_idx = torch.clamp(seg_start[:, None] + karr[None, :], 0,
+                               n_e - 1)
+        cand_ok = (karr[None, :] < K) & (
+            seg_start[:, None] + karr[None, :] < seg_end[:, None])
+        rows = e_table[cand_idx]
         if bracketed:
             # neighbour-cell rows inside a bracket are masked exactly
             cand_ok = cand_ok & (rows[..., 6] == cells[:, None].to(dtype))
-        cand = torch.cat([
-            rows[..., :5],
-            torch.where(cand_ok, rows[..., 5], 0.0)[..., None],
-            cand_ok.to(dtype)[..., None]], dim=-1)  # (n_cells, nb*B, CC)
+        parts = [rows[..., :5],
+                 torch.where(cand_ok, rows[..., 5], 0.0)[..., None],
+                 cand_ok.to(dtype)[..., None]]
+        if replicated:
+            # the candidate's buffer row on its rank, where its kick
+            # lands (exact in f32 below 2**24 rows, as in opal_tpu)
+            parts.append(unsort(cand_idx).to(dtype)[..., None])
+        cand = torch.cat(parts, dim=-1)  # (n_cells, nb_loc*B, CC)
+        if replicated:
+            # every rank's table, rank-major along the candidates: pass
+            # bi serves rank bi // nb_loc
+            cand = ring.all_gather(cand).transpose(0, 1).reshape(
+                n_cells, nb * B, CC)
 
     cdt_dx = const.SPEED_OF_LIGHT * opt.dt / geom.dx
     ar = torch.arange(B, device=dev)
@@ -413,7 +470,13 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
     done = torch.zeros(n_w, dtype=torch.bool, device=dev)
     ev_kind = torch.zeros(n_w, dtype=torch.int32, device=dev)
     ev_idx = torch.zeros(n_w, dtype=torch.int64, device=dev)
-    for bi in range(nb):
+    if replicated:
+        # the partner's rank, weight and (for the records) p4 and chi
+        # ride the walk: the partner may sit on another rank
+        ev_dev = torch.zeros(n_w, dtype=torch.int64, device=dev)
+        ev_we = torch.zeros(n_w, dtype=dtype, device=dev)
+        ev_p4chi = torch.zeros((n_w, 5), dtype=dtype, device=dev)
+    for bi in range(nb if n_w else 0):
         if use_cell_table:
             # this pass's rows of each photon's cell
             rows = cand[w_cell, bi * B:(bi + 1) * B]
@@ -470,10 +533,20 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
         tau_st = torch.where(stim_now, exp1[1].to(tau_st.dtype), new_st)
         ev_kind = torch.where(event, torch.where(absorbed_now, 1, 2),
                               ev_kind).to(torch.int32)
-        # the event's electron, as a row of the cell-sorted view
-        ev_idx = torch.where(
-            event, torch.clamp(w_start + bi * B + kc[:, 0], 0, n_e - 1),
-            ev_idx)
+        if replicated:
+            # the event's electron: its buffer row on its rank
+            ev_idx = torch.where(event, take(rows[..., 7]).long(), ev_idx)
+            ev_dev = torch.where(event, bi // nb_loc, ev_dev)
+            ev_we = torch.where(event, take(w_e), ev_we)
+            if want_events:
+                p4chi = rows[..., :5].gather(
+                    1, kc[:, :, None].expand(-1, 1, 5))[:, 0]
+                ev_p4chi = torch.where(event[:, None], p4chi, ev_p4chi)
+        else:
+            # the event's electron, as a row of the cell-sorted view
+            ev_idx = torch.where(
+                event, torch.clamp(w_start + bi * B + kc[:, 0], 0, n_e - 1),
+                ev_idx)
         done = done | event
 
     # ---- the event capacity: events past EVC are cancelled (depths
@@ -494,19 +567,25 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
             want = want | absorbed
         if opt.extra_stimulated_emission_output:
             want = want | stimulated
+        # the replicated mode's cells are global
+        ai = 0 if replicated else axis_index
         x_glob = geom.xmin + (
-            (axis_index * geom.n_loc + ph.cell[idx]
-             - geom.interior_start).to(dtype) + ph.x[idx]
+            (ai * geom.n_loc + ph.cell[idx] - geom.interior_start).to(dtype)
+            + ph.x[idx]
         ) * geom.dx
-        er = unsort(ev_idx)  # the electron's buffer row
-        p4_ev = torch.stack([e.gamma[er], e.ux[er], e.uy[er], e.uz[er]],
-                            dim=1)
+        if replicated:
+            # the partner's columns rode the walk
+            chi_ev, p4_ev = ev_p4chi[:, 4:5], ev_p4chi[:, :4]
+        else:
+            er = unsort(ev_idx)  # the electron's buffer row
+            chi_ev = e.chi[er][:, None]
+            p4_ev = torch.stack([e.gamma[er], e.ux[er], e.uy[er], e.uz[er]],
+                                dim=1)
         rec = torch.cat([
             x_glob[:, None].to(dtype),
             torch.full((n_w, 1), t, dtype=dtype, device=dev),
             ph.birth_time[idx][:, None].to(dtype),
-            w_chi[:, None], w_k4,
-            e.chi[er][:, None].to(dtype), p4_ev.to(dtype),
+            w_chi[:, None], w_k4, chi_ev.to(dtype), p4_ev.to(dtype),
             ev_kind[:, None].to(dtype),
         ], dim=1)
         events = (rec, want)
@@ -519,15 +598,23 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
     absorb.events["stimulated"] += n_st
     n_ev = n_abs + n_st
     if n_ev == 0:
-        out = ({**species, "photon": dataclasses.replace(ph, **tau_cols)},
+        if replicated:
+            # the kicks of the other ranks' events may land here
+            e = _route_kicks(ring, e, EVC)
+        out = ({**species, "electron": e,
+                "photon": dataclasses.replace(ph, **tau_cols)},
                zero, deferred)
         return out + (events,) if want_events else out
 
     # ---- event space: the events' rows alone ---------------------------
     j, _ = misfit_compact((absorbed | stimulated).to(torch.float32), n_ev)
     abs_j, stim_j = absorbed[j], stimulated[j]
-    tgt = unsort(ev_idx[j])  # the electron's buffer row
-    w_e_j = e.weight[tgt]
+    if replicated:
+        tgt = ev_idx[j]  # the electron's buffer row on rank ev_dev[j]
+        w_e_j = ev_we[j]
+    else:
+        tgt = unsort(ev_idx[j])  # the electron's buffer row
+        w_e_j = e.weight[tgt]
     k_u_j = w_k4[j, 1:4]
     scale_abs = w_weight[j] / torch.clamp(w_e_j, min=_tiny(w_e_j.dtype))
     du = torch.where(abs_j[:, None], scale_abs[:, None] * k_u_j,
@@ -536,14 +623,10 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
     # the kicks (electron.rs:256-262, interactions.rs:322-334): absorbed
     # du = (w_ph / w_e) k, stimulated du = -k; then gamma at the kicked
     # rows (duplicate targets take the same value)
-    ux = e.ux.index_add(0, tgt, du[:, 0].to(e.ux.dtype))
-    uy = e.uy.index_add(0, tgt, du[:, 1].to(e.uy.dtype))
-    uz = e.uz.index_add(0, tgt, du[:, 2].to(e.uz.dtype))
-    gx, gy, gz = ux[tgt], uy[tgt], uz[tgt]
-    gamma = e.gamma.clone()
-    gamma[tgt] = torch.sqrt(1.0 + gx * gx + gy * gy + gz * gz).to(
-        gamma.dtype)
-    e = dataclasses.replace(e, ux=ux, uy=uy, uz=uz, gamma=gamma)
+    if replicated:
+        e = _route_kicks(ring, e, EVC, du, tgt, ev_dev[j])
+    else:
+        e = _kick(e, tgt, du)
 
     # absorbed photons die
     kill = torch.zeros(n_ph, dtype=torch.bool, device=dev)
@@ -578,3 +661,39 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
 #: the events that ``absorb`` applied since the counts were last set to
 #: 0, by kind (a diagnostic read by the smoke run on the card)
 absorb.events = {"absorbed": 0, "stimulated": 0}
+
+
+def _kick(e, tgt, du):
+    """Add the kicks ``du`` (rows, 3) to the electrons' momenta at rows
+    ``tgt`` (a row ``>= len`` is dropped; targets may repeat) and
+    recompute gamma there from the summed momenta."""
+    n = e.ux.shape[0]
+    tgt = torch.clamp(tgt, max=n)
+    u = [torch.cat([c, c[:1]]).index_add(0, tgt, du[:, i].to(c.dtype))
+         for i, c in enumerate((e.ux, e.uy, e.uz))]
+    gx, gy, gz = (c[tgt] for c in u)
+    gamma = _put(e.gamma, tgt,
+                 torch.sqrt(1.0 + gx * gx + gy * gy + gz * gz).to(
+                     e.gamma.dtype))
+    return dataclasses.replace(e, ux=u[0][:n], uy=u[1][:n], uz=u[2][:n],
+                               gamma=gamma)
+
+
+def _route_kicks(ring, e, evc, du=None, tgt=None, owner=None):
+    """The replicated mode's kicks (``opal_tpu/interactions.py:983-1006``):
+    every rank sends its events' records ``[du | row | rank | active]``,
+    padded to the event capacity ``evc`` rows, to every rank, and adds
+    those addressed to itself.  ``du=None``: this rank has no event, but
+    it takes the others'."""
+    dtype = e.x.dtype
+    rec = torch.zeros((evc, 6), dtype=dtype, device=e.x.device)
+    if du is not None:
+        n = du.shape[0]
+        rec[:n] = torch.cat([du.to(dtype), tgt[:, None].to(dtype),
+                             owner[:, None].to(dtype),
+                             torch.ones((n, 1), dtype=dtype,
+                                        device=e.x.device)], dim=1)
+    flat = ring.all_gather(rec).reshape(-1, 6)
+    mine = (flat[:, 4] == ring.rank) & (flat[:, 5] > 0.5)
+    n_e = e.ux.shape[0]
+    return _kick(e, torch.where(mine, flat[:, 3].long(), n_e), flat[:, :3])

@@ -38,8 +38,9 @@ a ring (``zero_events``) that ``run`` threads and returns.
 In the replicated-field mode (``SimOptions.replicate_fields``, opal_tpu's
 load balancer for nonuniform decks) every rank holds the whole grid and
 an equal-count chunk of the particles: the halo is local, the folded
-currents are summed over the ranks every step, and no particle moves
-between ranks (crossings wrap or die in place).
+currents are summed over the ranks every step, no particle moves
+between ranks (crossings wrap or die in place), and the absorption pass
+pairs each photon with the electrons of every rank.
 """
 
 from __future__ import annotations
@@ -157,9 +158,9 @@ class SimOptions:
     migration_window: int = 16384
     # the replicated-field mode: every rank holds the whole grid (a
     # geometry of one device) and an equal-count chunk of the particles;
-    # the folded currents are summed over the ranks each step and no
-    # particle moves between ranks.  Not with photon absorption, whose
-    # pairing across ranks is not ported
+    # the folded currents are summed over the ranks each step, no
+    # particle moves between ranks, and photons pair with the electrons
+    # of every rank
     replicate_fields: bool = False
 
 
@@ -208,10 +209,6 @@ class Simulation:
             if geom.n_devices != 1:
                 raise ValueError("replicate_fields needs a geometry of one "
                                  "device (every rank holds the whole grid)")
-            if options.photon_absorption and ring.world > 1:
-                raise NotImplementedError(
-                    "photon absorption in the replicated-field mode (the "
-                    "pairing across ranks) is not ported")
         elif geom.n_devices != ring.world:
             raise ValueError(f"the grid is cut for {geom.n_devices} devices "
                              f"and the ring has {ring.world} ranks")
@@ -635,10 +632,14 @@ class Simulation:
             # path sorts inside the pass
             bracketed = self._fused_applicable("electron",
                                                species["electron"])
+            # the replicated mode pairs across the ranks
+            # (opal_tpu/sim.py:1141-1147; its absorb turns the pairing
+            # off at one device)
             with torch.profiler.record_function("absorb"):
                 species, lost, deferred, *ev = absorb(
                     self, species, c.t, rng, bracketed=bracketed,
-                    axis_index=self.axis_index)
+                    axis_index=self.axis_index, ring=self.ring,
+                    replicated=opt.replicate_fields and self.ring.world > 1)
             counters["photon"] = counters["photon"] + lost
             counters["qed_deferred"] = counters["qed_deferred"] + deferred
             if ev:

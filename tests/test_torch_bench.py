@@ -236,8 +236,10 @@ def test_bench_qed_and_no_lite_run(argv, form, capsys, monkeypatch):
         assert photons > 0
         absorbing = "--no-absorption" not in argv
         assert len(passes) == (12 if absorbing else 0)
-        assert all(p == {"bracketed": True, "axis_index": 0}
-                   for p in passes)
+        # bracketed on the rank's own electrons (one device: no pairing
+        # across ranks)
+        assert all(p["bracketed"] and p["axis_index"] == 0
+                   and not p["replicated"] for p in passes)
     assert interactions.absorb is real_a
 
 

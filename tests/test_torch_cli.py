@@ -90,22 +90,31 @@ def test_two_stream_outputs_match(tmp_path, capsys):
                 assert h_t[k] == v, k
 
 
-def test_refuses_unported_decks(tmp_path, capfd):
-    """The one part of opal_tpu not ported, the replicated-field mode's
-    photon absorption: an absorption deck that opal_tpu's rule runs
-    replicated on several devices (``examples/colliding_beams.yaml`` with
-    absorption on, its beam on one of the slabs) exits 1 and says so,
-    naming the setting that runs it decomposed."""
+def test_refuses_unported_decks(tmp_path):
+    """The replicated-field mode's photon absorption, the last part of
+    opal_tpu that the port refused, is built now: an absorption deck that
+    opal_tpu's rule runs replicated on several devices
+    (``examples/colliding_beams.yaml`` with absorption on, its beam on
+    one of the slabs) is built by ``cli.build`` at two ranks in the
+    replicated mode with absorption on, as opal_tpu's ``build`` builds
+    it at two devices, with the same capacities."""
+    from opal_tpu_torch.parallel.dist import Ring
+
     src = (EXAMPLES / "colliding_beams.yaml").read_text()
     assert src.count("photon_absorption: false") == 1
     deck = tmp_path / "deck.yaml"
     deck.write_text(src.replace("photon_absorption: false",
                                 "photon_absorption: true"))
-    assert tcli.main([str(deck), "--devices", "2", "--device", "cpu"]) == 1
-    said = [line for line in capfd.readouterr().err.splitlines()
-            if line.startswith("opal_tpu_torch: ")]
-    assert len(said) == 1 and "not ported" in said[0]
-    assert "tpu: replicate_fields: 0" in said[0]
+    # rank 0 of a ring of two whose group build never reaches
+    sim, species, rp = tcli.build(deck, device="cpu",
+                                  ring=Ring(rank=0, world=2, group=object()))
+    jsim, _, jrp = jcli.build(deck, n_devices=2)
+    assert rp["replicated"] and sim.options.replicate_fields
+    assert jsim.options.replicate_fields
+    assert sim.options.photon_absorption and jsim.options.photon_absorption
+    assert not rp["replicate_blocked_by_absorption"]
+    assert sim.geom.n_devices == jsim.geom.n_devices == 1
+    assert rp["capacities"] == jrp["capacities"]
 
 
 def test_no_card_exits_without_running(tmp_path, capsys):

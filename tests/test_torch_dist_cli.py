@@ -10,8 +10,8 @@ virtual devices:
   rank 0 equal to opal_tpu's within round-off (energies within 1e-12,
   the grid within 1e-12 of its scale, the histograms' totals within
   1e-12);
-* an absorption deck that the rule would replicate is refused by name,
-  and the message names ``tpu: replicate_fields: 0``;
+* an absorption deck that the rule runs replicated (its pairing across
+  the ranks): the same banner and outputs, to the same tolerances;
 * more ranks than cards is an error before any rank starts;
 * the bench twin on two ranks prints one loss-free JSON line.
 """
@@ -65,10 +65,11 @@ def _energies(path):
             (line.split() for line in path.read_text().splitlines())}
 
 
-@pytest.mark.parametrize("deck", ["two_stream", "hole_boring"])
-def test_cli_matches_opal_tpu(deck, tmp_path, capfd):
-    src = _two_stream() if deck == "two_stream" else HB_MINI.replace(
-        "end: -0.1e-6/c", "end: -1.4e-6/c")
+def _run_both(tmp_path, capfd, src):
+    """The deck through both CLIs at ``--devices 2 --f64`` (the port on
+    two ``gloo`` ranks): the port's banner, after checking that it is
+    opal_tpu's, that the port printed no warning and rank 0 alone
+    printed, and that every output file of the two runs agrees."""
     t = _deck(tmp_path, "torch", src)
     j = _deck(tmp_path, "jax", src)
     assert tcli.main([str(t), "--devices", "2", "--device", "cpu",
@@ -79,7 +80,6 @@ def test_cli_matches_opal_tpu(deck, tmp_path, capfd):
     banner = tout.out.splitlines()[0]
     assert banner.replace("cpu", "") == jout.out.splitlines()[0].replace(
         "cpu", ""), (banner, jout.out)
-    assert ("replicated fields" in banner) == (deck == "hole_boring")
     assert "warning" not in tout.err
     # the other rank prints nothing: one banner, one line an output
     assert tout.out.count("Running 2 tasks") == 1
@@ -100,16 +100,24 @@ def test_cli_matches_opal_tpu(deck, tmp_path, capfd):
         else:
             ha, hb = jfits.read_image(a), jfits.read_image(b)
             np.testing.assert_allclose(ha[0].sum(), hb[0].sum(), rtol=1e-12)
+    return banner
+
+
+@pytest.mark.parametrize("deck", ["two_stream", "hole_boring"])
+def test_cli_matches_opal_tpu(deck, tmp_path, capfd):
+    src = _two_stream() if deck == "two_stream" else HB_MINI.replace(
+        "end: -0.1e-6/c", "end: -1.4e-6/c")
+    banner = _run_both(tmp_path, capfd, src)
+    assert ("replicated fields" in banner) == (deck == "hole_boring")
 
 
 def test_replicated_absorption_deck_is_refused(tmp_path, capfd):
+    """No more: the 4-step QED burst deck with absorption, which the rule
+    runs replicated, runs on the two ranks with its pairing across them
+    and matches opal_tpu's run."""
     src = QED_MINI.format(steps=4, tpu="").replace(
         "photon_absorption: false", "photon_absorption: true")
-    deck = _deck(tmp_path, "abs", src)
-    assert tcli.main([str(deck), "--devices", "2", "--device", "cpu"]) == 1
-    err = capfd.readouterr().err
-    assert "not ported" in err and "tpu: replicate_fields: 0" in err
-    assert err.count("opal_tpu_torch:") == 1  # rank 0 speaks alone
+    assert "replicated fields" in _run_both(tmp_path, capfd, src)
 
 
 def test_more_ranks_than_cards_is_an_error(tmp_path, capsys):

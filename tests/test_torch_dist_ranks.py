@@ -154,6 +154,46 @@ def job_es_init(ring, geom_kw, E, B, J, rho):
     return _np(electrostatic_init(t(E), t(B), t(J), t(rho), geom, ring))
 
 
+def job_absorb(ring, cases):
+    """One ``interactions.absorb`` call a case in the replicated mode, on
+    the rank's block of global electron and photon columns: each case a
+    dict of ``opts`` (SimOptions keywords), ``geom`` (GridGeometry
+    keywords), ``e`` and ``ph`` (numpy columns), ``draws`` (one replay
+    dict a rank, or None for a generator seeded by the rank), ``t`` and
+    the pairing flags ``presorted`` and ``bracketed``.  Returns a case's
+    (electron columns, photon columns, lost, deferred, events or None,
+    the events applied by kind)."""
+    from types import SimpleNamespace
+
+    from opal_tpu_torch import interactions as I
+    from opal_tpu_torch.convert import state_from_numpy
+    from opal_tpu_torch.grid import GridGeometry
+    from opal_tpu_torch.sim import SimOptions
+    from opal_tpu_torch.species import rank_rows
+
+    out = []
+    for case in cases:
+        sim = SimpleNamespace(geom=GridGeometry(**case["geom"]),
+                              options=SimOptions(**case["opts"]))
+        species = {
+            name: rank_rows(state_from_numpy(cols, device="cpu"), ring.rank,
+                            cols["alive"].shape[0] // ring.world)
+            for name, cols in (("electron", case["e"]),
+                               ("photon", case["ph"]))}
+        rng = (case["draws"][ring.rank] if case["draws"] is not None else
+               torch.Generator().manual_seed(100 + ring.rank))
+        I.absorb.events.update(absorbed=0, stimulated=0)
+        res = I.absorb(sim, species, case["t"], rng,
+                       presorted=case.get("presorted", False),
+                       bracketed=case.get("bracketed", False),
+                       ring=ring, replicated=True)
+        sp = res[0]
+        out.append((_np(sp["electron"]), _np(sp["photon"]), int(res[1]),
+                    int(res[2]), _np(res[3]) if len(res) > 3 else None,
+                    dict(I.absorb.events)))
+    return out
+
+
 _DTYPES = {"f32": torch.float32, "f64": torch.float64}
 
 
@@ -167,7 +207,10 @@ def job_run(ring, deck, steps, every, dtype="f64", field_dtype="f64",
     field, of a pickle of the rank's list of per-step draw dicts.
     ``save_at`` writes a checkpoint beside the deck after that many
     calls; ``resume`` starts from the deck's checkpoint instead of the
-    initial state; ``fields`` adds the final fields of the whole grid."""
+    initial state; ``fields`` adds the final fields of the whole grid.
+    With the event log on, the rank's event ring and the events applied
+    by kind come back too."""
+    from opal_tpu_torch import interactions as I
     from opal_tpu_torch import checkpoint, cli
 
     sim, species, rp = cli.build(
@@ -188,11 +231,16 @@ def job_run(ring, deck, steps, every, dtype="f64", field_dtype="f64",
     if draws is not None:
         draws = pickle.loads(Path(draws.format(rank=ring.rank)).read_bytes())
     curve = []
+    events = sim.zero_events() if sim._event_log else None
+    I.absorb.events.update(absorbed=0, stimulated=0)
     for call in range(steps // every):
         if draws is not None:
             rng = draws[call * every:(call + 1) * every].__getitem__
-        E, B, J, rho, species, t, counters = sim.run(
-            E, B, J, rho, species, t, counters, every, rng=rng)
+        E, B, J, rho, species, t, counters, *ev = sim.run(
+            E, B, J, rho, species, t, counters, every, rng=rng,
+            events=events)
+        if ev:
+            events = ev[0]
         curve.append([sim.em_field_energy(E, B)] + [
             sim.total_kinetic_energy(n, species[n]) for n in sim.specs])
         if save_at is not None and call + 1 == save_at:
@@ -210,6 +258,10 @@ def job_run(ring, deck, steps, every, dtype="f64", field_dtype="f64",
                                 sim.options.replicate_fields)
     alive = {n: int(ring.psum(st.alive.sum())) for n, st in species.items()}
     extra = {}
+    if events is not None:
+        extra["events"] = _np(events)
+    if sim.options.photon_absorption:
+        extra["applied"] = dict(I.absorb.events)
     if fields:
         gathered = cli._gather(ring, (E, B, J, rho), {},
                                sim.options.replicate_fields)
@@ -225,7 +277,7 @@ def job_run(ring, deck, steps, every, dtype="f64", field_dtype="f64",
 
 
 JOBS = dict(ring=job_ring, halo=job_halo, migrate=job_migrate,
-            es_init=job_es_init, run=job_run)
+            es_init=job_es_init, absorb=job_absorb, run=job_run)
 
 
 # ----------------------------------------------------------------------
