@@ -6,14 +6,15 @@
                                           # ... and a profiled phase 11
     python3 chip_smoke.py --ranks N       # the decks on N cards (phase 27)
 
-Builds the port's CUDA kernel from ``opal_tpu_torch/csrc`` and drives
+Builds the port's CUDA kernels from ``opal_tpu_torch/csrc`` and drives
 the port on the card, phase by phase, each printing one line or more:
 
 1. device: the card, the CUDA version and ``nvidia-smi``'s name and
    power limit (there is no CPU fallback: without a card this exits 1);
 2. build: ``nvcc`` of the kernel sources, the compiler's registers and
-   spills of each kernel form, and the atomic instructions in each
-   form's SASS (``cuobjdump -sass``);
+   spills of each kernel form (and of each instantiation of K1-K3, the
+   QED stages' kernels), and the atomic instructions in each one's SASS
+   (``cuobjdump -sass``);
 3. kernel vs plain: the fused kernel against its plain PyTorch version
    on the same CUDA tensors, at the bench shape (8.39M electrons, nx
    1024, block 8192, window 12) and at the two_stream CLI shape (1e5
@@ -53,7 +54,8 @@ the port on the card, phase by phase, each printing one line or more:
     ``opal_tpu_torch.cli.main`` on ``examples/colliding_beams.yaml
     --f32`` at full width (nx 4000, 50,000 electrons, 3155 steps over
     5 outputs): one launch of the full Vay form without the deposit a
-    step, no loss, finite outputs, the photon FITS files, the photons'
+    step, the emission sampler's inversions through K3 and no plain QED
+    code, no loss, finite outputs, the photon FITS files, the photons'
     energy rising;
 12. the mixed-precision colliding_beams deck (the unfused push with
     f64 arithmetic) over its whole window through ``Simulation.run``:
@@ -84,8 +86,10 @@ the port on the card, phase by phase, each printing one line or more:
     ``pair_cross_sections`` on 2**16 pairs, card against CPU at f64;
 19. one ``absorb`` call on a forced-event state (4096 cells, ~65k
     electrons, 6144 photons), card against CPU with the same draws, in
-    the three pairing modes with the active-set compaction on and off:
-    equal events and counts, every column within 1e-12;
+    the three pairing modes with the active-set compaction on and off,
+    and with it on over the electrons' segment rows instead of the
+    per-cell table (K1's other source): equal events and counts, every
+    column within 1e-12;
 20. B1's full Vay form with the deposit against its plain version at
     the shapes that now run it: ``bench --qed`` at 2,097,152 particles
     and ``bench --no-lite``;
@@ -94,11 +98,14 @@ the port on the card, phase by phase, each printing one line or more:
     only size at which the deck runs the kernel), the same with
     ``--no-absorption``, and ``--no-lite`` cut to blocks of 256 steps:
     no loss, one launch of the full Vay form a step, the photons, the
-    absorbed and stimulated events and the ``absorb`` time a step;
+    absorbed and stimulated events, K1's, K2's (one a step) and K3's
+    launches with no plain QED code on the card, and the ``absorb`` time
+    a step;
 22. the CLI's absorption path: ``examples/colliding_beams.yaml`` with
     ``photon_absorption: true`` at ``--f32`` and full width, cut to the
     crossing (5 outputs of 473 steps): one launch of the full Vay form
-    without the deposit and one bracketed absorption pass a step, no
+    without the deposit and one bracketed absorption call a step (K2
+    once, K1 once a pass, K3 for the sampler, no plain QED code), no
     loss, absorbed and stimulated events both seen, and the ledger
     closure with the laser's work within 1e-4;
 23. the electrostatic field set-up at f64, card against CPU:
@@ -134,7 +141,17 @@ the port on the card, phase by phase, each printing one line or more:
     PyTorch's ``gloo`` reduces and gathers CUDA tensors, two gloo ranks
     sharing the card: the replicated ``absorb`` card vs CPU within 1e-12,
     and a small absorption deck at ``--f32`` (the full Vay form without
-    the deposit on each rank) card vs CPU within phase 10's bars.
+    the deposit and K1-K3 on each rank) card vs CPU within phase 10's
+    bars;
+29. the QED stages' kernels against their plain versions: K1 (one pass
+    of the absorption walk, ``csrc/absorb_pass.cu``), K2 (the cell
+    envelopes, ``csrc/cell_envelope.cu``) and K3 (the sampler's CDF
+    inversions, ``csrc/pwmci_invert.cu``) on the arguments of their
+    largest call in phases 21 and 22 (the ``bench --qed`` shape and the
+    colliding_beams crossing), as captured (f32) and at f64: K2 and K3
+    bitwise, K1 equal first columns and its sums within 1e-12 (f64) and
+    1e-5 (f32), with each kernel's device, call, plain and library times
+    and its bound.
 
 ``python3 chip_smoke.py --ranks N`` runs phases 1-2, then phase 27
 instead of 3-28: the two_stream deck (2000 steps), phase 24's
@@ -148,7 +165,7 @@ Kernel times (``ms``) are device time: 20 calls queued behind a
 device-side spin run back to back between two CUDA events.  The
 wrapper's whole call (``call_ms``) and the plain version's
 (``plain_ms``) are timed by CUDA events around each call, host launch
-included.  Phases 1-28 take about ten to
+included.  Phases 1-29 take about ten to
 eighteen minutes.  Any failed check raises, so the
 script exits non-zero without the final line.  Before the last line it
 prints one JSON object describing each kernel form of the paths, and
@@ -196,6 +213,35 @@ F32_OPS_PER_S = 67e12
 #: deposit's weights, fluxes and 15 adds ~143
 OPS_PUSH = {"vay": 237, "boris": 205}
 OPS_FULL, OPS_DEPOSIT = 30, 143
+#: the H100 SXM's f64 peak outside the tensor cores (NVIDIA's data sheet)
+F64_OPS_PER_S = 34e12
+#: the hand kernels of the QED stages opal_tpu's XLA fuses (K1-K3), by
+#: wrapper: the source, and the opal_tpu code each replaces
+QED_KERNELS = {
+    "absorb_pass": dict(route="cuda",
+                        source="opal_tpu_torch/csrc/absorb_pass.cu",
+                        replaces="opal_tpu/interactions.py:705"),
+    "cell_envelopes": dict(route="cuda",
+                           source="opal_tpu_torch/csrc/cell_envelope.cu",
+                           replaces="opal_tpu/interactions.py:298"),
+    "invert_many": dict(route="cuda",
+                        source="opal_tpu_torch/csrc/pwmci_invert.cu",
+                        replaces="opal_tpu/qed/pwmci.py:214"),
+}
+#: their instantiations, as :func:`_form_of` names them
+QED_FORMS = ("absorb_pass<f32,f32>", "absorb_pass<f32,f64>",
+             "absorb_pass<f64,f32>", "absorb_pass<f64,f64>",
+             "cell_envelope_reduce", "cell_envelope_carry",
+             "cell_envelope_apply", "pwmci_invert<f32>", "pwmci_invert<f64>")
+#: operations of one valid (photon, candidate) pair in K1, counted from
+#: its source with each pow, exp, log and sqrt as one: with stimulated
+#: emission both cross sections (~80 each, the Airy function ~60 of it)
+#: and the shared invariants (~20), without it one cross section; the
+#: probabilities, sums and fire tests ~10
+OPS_PAIR = {True: 190, False: 100}
+#: operations of one query in K3: its segment search (n compares), then
+#: 44 halvings of ~22 operations (the Hermite cubic and the midpoint)
+OPS_HALVING = 22
 # bench.py's non-QED defaults (bench.py:145-498)
 BENCH = dict(particles=8 * 2**20, nx=1024, block=8192, window=12,
              resort=320, migrate=160, misfit=256, drift_cells=0.0095,
@@ -206,11 +252,24 @@ def log(phase, msg):
     print(f"[phase {phase}] {msg}", flush=True)
 
 
+def qed_wrappers() -> dict:
+    """The wrappers of K1-K3 by name (:data:`QED_KERNELS`); each counts
+    its kernel's launches in ``.launches``."""
+    from opal_tpu_torch.ops import absorb_walk as AW
+    from opal_tpu_torch.qed import pwmci
+
+    return {"absorb_pass": AW.absorb_pass,
+            "cell_envelopes": AW.cell_envelopes,
+            "invert_many": pwmci.invert_many}
+
+
 def reset_launches():
-    """Set every kernel form's launch count to 0."""
+    """Set every kernel form's launch count, and K1-K3's, to 0."""
     from opal_tpu_torch.ops import fused as F
 
     F.fused_push_deposit.launches.update(dict.fromkeys(F.FORMS, 0))
+    for w in qed_wrappers().values():
+        w.launches = 0
 
 
 def launched() -> dict:
@@ -219,6 +278,100 @@ def launched() -> dict:
     from opal_tpu_torch.ops import fused as F
 
     return {k: v for k, v in F.fused_push_deposit.launches.items() if v}
+
+
+def qed_launched() -> dict:
+    """K1-K3's launches since the last reset, by wrapper."""
+    return {k: w.launches for k, w in qed_wrappers().items()}
+
+
+@contextlib.contextmanager
+def no_plain_qed():
+    """Fails if K1-K3's plain versions, ``torch.cummax`` or
+    ``torch.cummin`` run inside the block: on the card the QED stages
+    go through the kernels alone."""
+    from opal_tpu_torch.ops import absorb_walk as AW
+    from opal_tpu_torch.qed import pwmci
+
+    calls = collections.Counter()
+    spots = [(AW, "absorb_pass_reference"), (AW, "cell_envelopes_reference"),
+             (pwmci, "invert_many_reference"), (torch, "cummax"),
+             (torch, "cummin")]
+    real = [getattr(m, n) for m, n in spots]
+
+    def spy(name, fn):
+        def call(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    for (m, n), fn in zip(spots, real):
+        setattr(m, n, spy(n, fn))
+    try:
+        yield calls
+    finally:
+        for (m, n), fn in zip(spots, real):
+            setattr(m, n, fn)
+    assert not calls, f"plain QED code ran on the card: {dict(calls)}"
+
+
+class _Spy:
+    """Calls ``before(*args)``, then ``fn``; its ``launches`` is ``fn``'s,
+    so a wrapper that counts through its module's name still counts in
+    ``fn`` while the spy stands in for it."""
+
+    def __init__(self, fn, before):
+        self.fn, self.before = fn, before
+
+    def __call__(self, *a, **kw):
+        self.before(*a, **kw)
+        return self.fn(*a, **kw)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+
+@contextlib.contextmanager
+def capture_qed(store: dict):
+    """Keeps, in ``store``, the arguments of the largest call of each of
+    K1-K3 made inside the block (K1's first pass of the walk with the
+    most photons, K2's longest cell column, K3's call with the most
+    queries), for phase 29.  Each argument is a fresh tensor the caller
+    never changes, so a reference is kept, not a copy."""
+    from opal_tpu_torch import interactions as I
+    from opal_tpu_torch.qed import pwmci
+
+    real = dict(absorb_pass=I.absorb_pass, cell_envelopes=I.cell_envelopes,
+                invert_many=pwmci.invert_many)
+
+    def keep(name, size, args):
+        if size > store.get(name, (0, None))[0]:
+            store[name] = (size, args)
+
+    def absorb_pass(*a, **kw):
+        if a[6] == 0:
+            keep("absorb_pass", a[0].shape[0], (a, kw))
+
+    def cell_envelopes(cell):
+        keep("cell_envelopes", cell.shape[0], cell)
+
+    def invert_many(problems):
+        keep("invert_many", sum(p[2].shape[0] for p in problems), problems)
+
+    I.absorb_pass = _Spy(real["absorb_pass"], absorb_pass)
+    I.cell_envelopes = _Spy(real["cell_envelopes"], cell_envelopes)
+    pwmci.invert_many = _Spy(real["invert_many"], invert_many)
+    try:
+        yield store
+    finally:
+        I.absorb_pass = real["absorb_pass"]
+        I.cell_envelopes = real["cell_envelopes"]
+        pwmci.invert_many = real["invert_many"]
 
 
 def nvidia_smi() -> str:
@@ -234,11 +387,24 @@ def nvidia_smi() -> str:
 #: mangled name: kBoris, kWork, kFull, kDeposit, kPacked
 _FORM_BITS = re.compile(r"fused_push_deposit_kernelILb([01])ELb([01])ELb([01])"
                         r"ELb([01])ELb([01])E")
+#: K1-K3's kernels in their mangled names (:data:`QED_FORMS`)
+_QED_FORM = re.compile(r"(absorb_pass)_kernelI([fd])([fd])E|"
+                       r"(pwmci_invert)_kernelI([fd])E|"
+                       r"(cell_envelope_(?:reduce|carry|apply))")
+_TYPE = {"f": "f32", "d": "f64"}
 
 
 def _form_of(mangled: str) -> str | None:
     """The launch counts' name of the kernel form a mangled symbol
-    instantiates (``ops.fused.form_name``/``packed_form_name``)."""
+    instantiates (``ops.fused.form_name``/``packed_form_name``), or the
+    name of a K1-K3 kernel in :data:`QED_FORMS`."""
+    q = _QED_FORM.search(mangled)
+    if q is not None:
+        if q[1]:
+            return f"absorb_pass<{_TYPE[q[2]]},{_TYPE[q[3]]}>"
+        if q[4]:
+            return f"pwmci_invert<{_TYPE[q[5]]}>"
+        return q[6]
     m = _FORM_BITS.search(mangled)
     if m is None:
         return None
@@ -1016,11 +1182,13 @@ def cb_cli_drive(tmp: Path, smi: str, profile=None):
     so, se = (_Echo(), _Echo()) if profile else (io.StringIO(), io.StringIO())
     reset_launches()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+    with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se), \
+            no_plain_qed():
         rc = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launched()
+    qed = qed_launched()
     out, err = so.getvalue(), se.getvalue()
     assert rc == 0, (rc, out, err)
     assert "[fused pusher: electron]" in out, out
@@ -1030,6 +1198,8 @@ def cb_cli_drive(tmp: Path, smi: str, profile=None):
     n_out = int(out.splitlines()[-1].split()[1])
     steps = launches.get("vay_full_dep_skip", 0)
     assert launches == {"vay_full_dep_skip": steps} and steps > 0, launches
+    # emission only: K3 a sampled step, no absorption pass
+    assert qed["invert_many"] > 0 and qed["absorb_pass"] == 0, qed
     energies = []
     for i in range(n_out + 1):
         g = np.loadtxt(run / f"{i}_grid.dat")
@@ -1049,13 +1219,14 @@ def cb_cli_drive(tmp: Path, smi: str, profile=None):
     log(11, f"python -m opal_tpu_torch colliding_beams.yaml --f32 (nx "
             f"4000, 50,000 electrons in 75,776 rows, {steps} steps, {n_out} "
             f"outputs): '{out.splitlines()[0]}' '{out.splitlines()[1]}', "
-            f"launches {launches}, no losses, outputs finite, photon FITS "
+            f"launches {launches}, K1-K3 launches {qed}, no losses, outputs "
+            f"finite, no plain QED code on the card, photon FITS "
             f"written; photons 0 -> {e1['photons']:.6e} J, electrons "
             f"{e0['electrons']:.6e} -> {e1['electrons']:.6e} J; QED backlog "
             f"notes {len(backlog)}{': ' + backlog[-1] if backlog else ''}; "
             f"{steps / wall:.1f} steps/s over {wall:.1f} s incl. set-up and "
             f"output dumps, on {smi}")
-    return launches
+    return {**launches, **qed}
 
 
 def cb_ledger(smi: str, chunk=500):
@@ -1518,55 +1689,74 @@ def absorb_card_vs_cpu():
     cells, ~65k electrons, 6144 photons) on the card and on the CPU with
     the same draws (made on the host at the shapes of opal_tpu's arrays),
     in the three pairing modes with the active-set compaction on (2048 of
-    the photons, so some defer) and off, stimulated emission and the
+    the photons, so some defer) and off, and with the compaction on
+    without the per-cell candidate table (the walk's kernel K1 then reads
+    the electrons' segment rows), stimulated emission and the
     event records on and the event capacity at 1024: equal counts (lost,
     deferred, photons alive, absorbed and stimulated events), equal
     event kinds, cells and alive masks, and the event records, the
     depths, the momenta and every other f64 column within 1e-12 of its
     scale (the kicks of two photons on one electron add in another order
-    on the card: ROADMAP C4).  Returns {case: (events, card ms, CPU
-    ms)}."""
+    on the card: ROADMAP C4).  Returns ({case: (events, card ms, CPU
+    ms)}, the K1 and K2 calls of the bracketed case with the compaction
+    on the per-cell table, for phase 29: they fire events)."""
     from opal_tpu_torch import interactions as I
     from opal_tpu_torch.convert import state_from_numpy
     from opal_tpu_torch.grid import GridGeometry
 
     geom = GridGeometry(nx=4096, dx=1e-6, xmin=0.0, n_devices=1)
     out = {}
-    for mode, (presorted, bracketed) in ABSORB_MODES.items():
+    table_bytes = I.CAND_TABLE_MAX_BYTES
+    cases = [(mode, compact, True) for mode in ABSORB_MODES
+             for compact in (2048, 0)]
+    cases += [(mode, 2048, False) for mode in ABSORB_MODES]
+    captured = {}
+    for mode, compact, cell_table in cases:
+        presorted, bracketed = ABSORB_MODES[mode]
         e, ph = forced_absorb_state(mode)
-        for compact in (2048, 0):
-            opt = _absorb_opts(compact)
-            sim = SimpleNamespace(geom=geom, options=opt)
-            draws = _absorb_draws(opt, len(e["x"]), len(ph["x"]), 1, 5)
-            res, ms = {}, {}
-            for dev in ("cuda", "cpu"):
-                sp = {"electron": state_from_numpy(e, device=dev),
-                      "photon": state_from_numpy(ph, device=dev)}
-                I.absorb.events.update(absorbed=0, stimulated=0)
-                if dev == "cuda":
-                    torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                r = I.absorb(sim, sp, 1e-15, draws, presorted=presorted,
-                             bracketed=bracketed)
-                if dev == "cuda":
-                    torch.cuda.synchronize()
-                ms[dev] = (time.perf_counter() - t0) * 1e3
-                res[dev] = (_absorb_columns(r), dict(I.absorb.events))
-            (rc, evc_c), (rh, evc_h) = res["cuda"], res["cpu"]
-            assert evc_c == evc_h, (evc_c, evc_h)
-            assert evc_h["absorbed"] > 100 and evc_h["stimulated"] > 10, evc_h
-            assert rh[2] > 0  # truncated cells, past the capacities
-            worst = _worst(rc, rh)
-            label = f"{mode}, {'compaction 2048' if compact else 'whole buffer'}"
-            log(19, f"absorb on the forced-event state ({label}): "
-                    f"{evc_h['absorbed']} absorbed and {evc_h['stimulated']} "
-                    f"stimulated events on both, deferred {rh[2]}, lost "
-                    f"{rh[1]}; records, depths, momenta and every column "
-                    f"within {worst:.3e} of their scale (bar 1e-12); card "
-                    f"{ms['cuda']:.1f} ms, CPU {ms['cpu']:.1f} ms")
-            assert worst <= 1e-12, (label, worst)
-            out[label] = (evc_h, ms["cuda"], ms["cpu"])
-    return out
+        opt = _absorb_opts(compact)
+        sim = SimpleNamespace(geom=geom, options=opt)
+        draws = _absorb_draws(opt, len(e["x"]), len(ph["x"]), 1, 5)
+        res, ms = {}, {}
+        for dev in ("cuda", "cpu"):
+            sp = {"electron": state_from_numpy(e, device=dev),
+                  "photon": state_from_numpy(ph, device=dev)}
+            I.absorb.events.update(absorbed=0, stimulated=0)
+            # without the per-cell table the walk reads the segment
+            # rows of the electrons' table (K1's other source)
+            I.CAND_TABLE_MAX_BYTES = table_bytes if cell_table else 0
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            keep = (dev == "cuda" and cell_table and compact
+                    and mode == "bracketed")
+            try:
+                with capture_qed(captured if keep else {}):
+                    r = I.absorb(sim, sp, 1e-15, draws, presorted=presorted,
+                                 bracketed=bracketed)
+            finally:
+                I.CAND_TABLE_MAX_BYTES = table_bytes
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            ms[dev] = (time.perf_counter() - t0) * 1e3
+            res[dev] = (_absorb_columns(r), dict(I.absorb.events))
+        (rc, evc_c), (rh, evc_h) = res["cuda"], res["cpu"]
+        assert evc_c == evc_h, (evc_c, evc_h)
+        assert evc_h["absorbed"] > 100 and evc_h["stimulated"] > 10, evc_h
+        assert rh[2] > 0  # truncated cells, past the capacities
+        worst = _worst(rc, rh)
+        label = (f"{mode}, "
+                 f"{'compaction 2048' if compact else 'whole buffer'}"
+                 f"{'' if cell_table else ', segment rows'}")
+        log(19, f"absorb on the forced-event state ({label}): "
+                f"{evc_h['absorbed']} absorbed and {evc_h['stimulated']} "
+                f"stimulated events on both, deferred {rh[2]}, lost "
+                f"{rh[1]}; records, depths, momenta and every column "
+                f"within {worst:.3e} of their scale (bar 1e-12); card "
+                f"{ms['cuda']:.1f} ms, CPU {ms['cpu']:.1f} ms")
+        assert worst <= 1e-12, (label, worst)
+        out[label] = (evc_h, ms["cuda"], ms["cpu"])
+    return out, captured
 
 
 def _absorb_draws(opt, n_e, n_ph, world, seed, dtype=np.float64):
@@ -1675,7 +1865,9 @@ def qed_bench_twin(smi: str):
     JSON line with no loss and launches the form once a step; the QED
     runs also give the photons alive, the absorbed and stimulated events
     and the time between the two ends of each ``absorb`` call on the
-    card's clock, per step.  Returns {run: (launches, line, extra)}."""
+    card's clock, per step, and K1-K3's launches (no plain QED code runs
+    on the card).  Returns ({run: (launches, line, extra)}, the largest
+    K1-K3 calls of the ``--qed`` run for phase 29)."""
     from opal_tpu_torch import bench
     from opal_tpu_torch import interactions as I
     from opal_tpu_torch import sim as S
@@ -1692,6 +1884,7 @@ def qed_bench_twin(smi: str):
         return res
 
     out = {}
+    captured = {}
     runs = (("bench --qed", ["--qed", "--particles", "2097152"], 3 * 50),
             ("bench --qed --no-absorption",
              ["--qed", "--no-absorption", "--particles", "2097152"], 3 * 50),
@@ -1704,10 +1897,13 @@ def qed_bench_twin(smi: str):
             I.absorb.events.update(absorbed=0, stimulated=0)
             torch.cuda.reset_peak_memory_stats()
             reset_launches()
-            with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+            with contextlib.redirect_stdout(so), \
+                    contextlib.redirect_stderr(se), no_plain_qed(), \
+                    capture_qed(captured if label == "bench --qed" else {}):
                 rc = bench.main(argv + ["--verbose"])
             torch.cuda.synchronize()
             got = launched()
+            qed = qed_launched()
             assert rc == 0, (rc, so.getvalue(), se.getvalue())
             lines = so.getvalue().strip().splitlines()
             assert len(lines) == 1, lines
@@ -1717,7 +1913,17 @@ def qed_bench_twin(smi: str):
             absorb_ms = (sum(a.elapsed_time(b) for a, b in spans) / len(spans)
                          if spans else None)
             assert (absorb_ms is not None) == (label == "bench --qed")
+            if label == "bench --qed":
+                # one envelope pair a bracketed absorb call, passes of K1
+                assert qed["cell_envelopes"] == len(spans), (qed, len(spans))
+                assert qed["absorb_pass"] > 0 and qed["invert_many"] > 0, qed
+            elif "--qed" in argv:
+                assert qed["absorb_pass"] == qed["cell_envelopes"] == 0, qed
+                assert qed["invert_many"] > 0, qed
+            else:
+                assert not any(qed.values()), qed
             extra = dict(absorb_ms_per_step=absorb_ms,
+                         **{f"{k}_launches": v for k, v in qed.items()},
                          peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                          **I.absorb.events)
             if "--qed" in argv:
@@ -1733,7 +1939,7 @@ def qed_bench_twin(smi: str):
                     + f"; on {smi}")
     finally:
         S.absorb = real
-    return out
+    return out, captured
 
 
 #: the colliding_beams deck with absorption, cut to the crossing (the run
@@ -1754,7 +1960,8 @@ def cb_absorption_drive(tmp: Path, smi: str):
     event, and the radiated-energy ledger with the laser's work on the
     electrons (ROADMAP C8) from the states the CLI's ``Simulation.run``
     calls took and returned, summed in f64, within 1e-4.  Returns the
-    launches."""
+    launches of the kernel forms and K1-K3, the steps a second, the
+    closure and the largest K1-K3 calls, for phase 29."""
     from opal_tpu_torch import cli
     from opal_tpu_torch import interactions as I
     from opal_tpu_torch import sim as S
@@ -1784,15 +1991,18 @@ def cb_absorption_drive(tmp: Path, smi: str):
     I.absorb.events.update(absorbed=0, stimulated=0)
     S.Simulation.run, S.absorb = run_spy, absorb_spy
     reset_launches()
+    captured = {}
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+        with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se), \
+                no_plain_qed(), capture_qed(captured):
             rc = cli.main([str(run / "deck.yaml"), "--f32"])
         torch.cuda.synchronize()
     finally:
         S.Simulation.run, S.absorb = real_run, real_absorb
     wall = time.perf_counter() - t0
     launches = launched()
+    qed = qed_launched()
     out, err = so.getvalue(), se.getvalue()
     assert rc == 0, (rc, out, err)
     assert "[fused pusher: electron]" in out, out
@@ -1802,6 +2012,9 @@ def cb_absorption_drive(tmp: Path, smi: str):
     assert launches == {"vay_full_dep_skip": steps} and steps == 5 * (
         2368 // 5), launches
     assert set(calls) == {True} and len(calls) == steps
+    # one envelope pair a bracketed absorb call, passes of K1, K3
+    assert qed["cell_envelopes"] == steps, qed
+    assert qed["absorb_pass"] > 0 and qed["invert_many"] > 0, qed
     n_out = int(out.splitlines()[-1].split()[1])
     for i in range(n_out + 1):
         g = np.loadtxt(run / f"{i}_grid.dat")
@@ -1829,7 +2042,8 @@ def cb_absorption_drive(tmp: Path, smi: str):
     log(22, f"python -m opal_tpu_torch colliding_beams.yaml with "
             f"photon_absorption: true --f32 (nx 4000, 50,000 electrons, cut "
             f"to the crossing: {steps} steps over {n_out} outputs): launches "
-            f"{launches}, {len(calls)} bracketed absorption passes, "
+            f"{launches}, K1-K3 launches {qed} (no plain QED code on the "
+            f"card), {len(calls)} bracketed absorption calls, "
             f"{I.absorb.events['absorbed']} absorbed and "
             f"{I.absorb.events['stimulated']} stimulated events, no losses, "
             f"outputs finite; electron loss {e_loss:.6e} J, laser work "
@@ -1841,7 +2055,7 @@ def cb_absorption_drive(tmp: Path, smi: str):
     assert I.absorb.events["absorbed"] > 0, I.absorb.events
     assert I.absorb.events["stimulated"] > 0, I.absorb.events
     assert closure_w < 1e-4, closure_w
-    return launches, steps / wall, closure_w
+    return {**launches, **qed}, steps / wall, closure_w, captured
 
 
 def _field_err(got, want) -> float:
@@ -2708,7 +2922,7 @@ def _gloo_deck(rings, rank, out: Path):
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got[dev] = dict(
-            launches=launched(), steps=steps, wall=wall,
+            launches=launched(), qed=qed_launched(), steps=steps, wall=wall,
             lost={k: int(v) for k, v in counters.items()
                   if k != "qed_deferred"},
             applied=dict(I.absorb.events),
@@ -2742,9 +2956,9 @@ def replicated_absorb_on_card(tmp: Path, smi: str):
     draws: the kernel's full Vay form without the deposit once a step on
     each rank, no loss, both kinds of event, the ranks' fields alike,
     and the photons and energies card vs CPU within phase 10's bars (1%
-    of the photons, 1e-3 of each energy).  Returns the launches of the
-    deck's run on the card, summed over the ranks (0 if gloo took no
-    CUDA tensor)."""
+    of the photons, 1e-3 of each energy), K1-K3 launched on each rank.
+    Returns the launches of the deck's run on the card and K1-K3's, each
+    summed over the ranks (0 if gloo took no CUDA tensor)."""
     import pickle
 
     from opal_tpu_torch import interactions as I
@@ -2800,7 +3014,7 @@ def replicated_absorb_on_card(tmp: Path, smi: str):
         log(28, f"gloo does not take CUDA tensors in this PyTorch "
                 f"({torch.__version__}): {ranks[0]['probe_error']}; the two "
                 f"gloo ranks on the card are left out")
-        return 0
+        return 0, dict.fromkeys(QED_KERNELS, 0)
     for r, res in enumerate(ranks):
         assert res["probe"] == ([3], [[0], [1]]), res["probe"]
     log(28, f"gloo reduces and gathers CUDA tensors (torch "
@@ -2818,12 +3032,15 @@ def replicated_absorb_on_card(tmp: Path, smi: str):
                     f"{a['worst']:.3e} of its scale (bar 1e-12); card "
                     f"{a['ms'][0]:.1f} ms, CPU {a['ms'][1]:.1f} ms")
             assert a["worst"] <= 1e-12, (mode, r, a["worst"])
-    launches = 0
+    launches, qed = 0, collections.Counter()
     for r, res in enumerate(ranks):
         c, h = res["deck"]["cuda"], res["deck"]["cpu"]
         steps = c["steps"]
         assert c["launches"] == {"vay_full_dep_skip": steps}, c["launches"]
+        # each rank walks through K1 and K2 and samples through K3
+        assert all(c["qed"].values()), c["qed"]
         launches += steps
+        qed.update(c["qed"])
         for d in (c, h):
             assert not any(d["lost"].values()), d["lost"]
             # the ranks hold the whole grid alike
@@ -2835,7 +3052,8 @@ def replicated_absorb_on_card(tmp: Path, smi: str):
     log(28, f"the small absorption deck (nx 400, 600 electrons, "
             f"{c0['steps']} steps, --f32, blocks of 128, replicate_fields: "
             f"1, host-made draws) on 2 gloo ranks on the card vs the CPU: "
-            f"launches {c0['launches']} a rank, events {applied['cuda']} vs "
+            f"launches {c0['launches']} a rank, K1-K3 launches {dict(qed)} "
+            f"over the ranks, events {applied['cuda']} vs "
             f"{applied['cpu']}, photons {c0['photons']} vs {h0['photons']}, "
             f"energies (field, electrons, photons) "
             f"{[f'{v:.6e}' for v in c0['energies']]} vs "
@@ -2848,7 +3066,194 @@ def replicated_absorb_on_card(tmp: Path, smi: str):
         0.01 * h0["photons"], (c0, h0)
     for a, b in zip(c0["energies"], h0["energies"]):
         assert abs(a - b) <= 1e-3 * abs(b), (c0["energies"], h0["energies"])
-    return launches
+    return launches, dict(qed)
+
+
+def _cast_floats(obj, dtype):
+    """``obj`` (a tensor, or a tuple, list or dict of them and other
+    values) with its floating tensors cast to ``dtype``."""
+    if torch.is_tensor(obj):
+        return obj.to(dtype) if obj.is_floating_point() else obj
+    if isinstance(obj, dict):
+        return {k: _cast_floats(v, dtype) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_cast_floats(v, dtype) for v in obj)
+    return obj
+
+
+def _elem_rel(got, want) -> tuple[float, float]:
+    """(largest |got - want| over |want| where want is non-zero, largest
+    |got - want|); got must be exactly 0 where want is."""
+    got, want = got.double(), want.double()
+    zero = want == 0
+    assert torch.equal(got[zero], want[zero])
+    d = (got - want).abs()
+    rel = (d[~zero] / want[~zero].abs()).max() if (~zero).any() else d.sum()
+    return float(rel), float(d.max()) if d.numel() else 0.0
+
+
+def _k1_needs(a, kw, res):
+    """What one pass needs by the reference's scan of these inputs:
+    (valid pairs up to each photon's event column, or all of its pass's
+    without an event; bytes: the photons' columns read and the results
+    written once, and the candidate rows the walking photons' cells (or
+    segments) hold)."""
+    k4, chi, tau_abs, tau_st, done, cell, bi, B = a[:8]
+    isz, tsz = k4.element_size(), tau_abs.element_size()
+    nw = k4.shape[0]
+    cols = torch.arange(B, device=k4.device)
+    live = ~done
+    if "cand" in kw:
+        cand = kw["cand"]
+        rows = cand[cell, bi * B:(bi + 1) * B]
+        valid = live[:, None] & (rows[..., 6] > 0.5)
+        cand_bytes = (int(torch.unique(cell[live]).numel()) * B
+                      * cand.shape[2] * isz)
+    else:
+        et = kw["e_table"]
+        r = kw["start"][:, None] + bi * B + cols
+        valid = live[:, None] & (r < kw["end"][:, None]) & (
+            bi * B + cols < kw["K"])
+        if kw["bracketed"]:
+            rows = et[torch.clamp(r, 0, et.shape[0] - 1)]
+            valid = valid & (rows[..., 6] == cell[:, None].to(et.dtype))
+        cand_bytes = int(torch.unique(r[valid]).numel()) * et.shape[1] * isz
+    k_ev = torch.minimum(res.k_abs, res.k_st)
+    pairs = int((valid & (cols <= torch.clamp(k_ev, max=B - 1)[:, None]))
+                .sum())
+    bytes_ = nw * (5 * isz + 2 * tsz + 1 + 8 + 16 + 4 * isz) + cand_bytes
+    return pairs, bytes_
+
+
+def qed_kernels(captured: dict, smi: str) -> dict:
+    """Phase 29: K1-K3 against their plain versions on the card, on the
+    arguments of the largest call each made on the main paths
+    (:func:`capture_qed` in phases 21 and 22): K1 on the first pass of
+    the walk with the most photons, K2 on the longest cell column, K3 on
+    the emission call with the most queries, at ``bench --qed
+    --particles 2097152`` and at the colliding_beams crossing with
+    absorption, each as captured (f32) and cast to f64; and K1 and K2 on
+    phase 19's forced-event state (bracketed, compaction 2048), where
+    most photons fire in the first pass (the main paths' largest passes
+    fire none). K2 and K3 bitwise; K1 equal first columns of both depths
+    (so equal events) and the sums and probabilities at the event within
+    1e-12 (f64) and 1e-5 (f32) of each value. Each kernel's device ms
+    (20 calls behind a device spin), the call's ms with its host launch,
+    the plain version's, K2's ``torch.cummax`` with ``torch.cummin`` as
+    the library call, and the bound from the bytes each input and output
+    needs once at 3.35 TB/s and the operations this run's data needs at
+    the f32 or f64 peak. Returns {(kernel, label): row values}."""
+    from opal_tpu_torch.ops import absorb_walk as AW
+    from opal_tpu_torch.qed import pwmci
+
+    out = {}
+
+    def bound(bytes_, ops, f64):
+        t_b = bytes_ / HBM_BYTES_PER_S * 1e3
+        t_o = ops / (F64_OPS_PER_S if f64 else F32_OPS_PER_S) * 1e3
+        return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+    def timed(kernel, plain, library=None):
+        ms, call_ms = device_ms(kernel), cuda_ms(kernel)
+        plain_ms = cuda_ms(plain, reps=5)
+        lib_ms = cuda_ms(library) if library is not None else None
+        return ms, call_ms, plain_ms, lib_ms
+
+    for path, store in captured.items():
+        # K1: one pass of the walk
+        a, kw = store["absorb_pass"][1]
+        for dtype in (torch.float32, torch.float64):
+            ac, kwc = _cast_floats(a, dtype), _cast_floats(kw, dtype)
+            got = AW.absorb_pass(*ac, **kwc)
+            ref = AW.absorb_pass_reference(*ac, **kwc)
+            torch.cuda.synchronize()
+            assert torch.equal(got.k_abs, ref.k_abs), path
+            assert torch.equal(got.k_st, ref.k_st), path
+            errs = [_elem_rel(g, w) for g, w in zip(got[2:], ref[2:])]
+            rel = max(e[0] for e in errs)
+            events = int((torch.minimum(ref.k_abs, ref.k_st) < ac[7]).sum())
+            both = int(((ref.k_abs == ref.k_st) & (ref.k_abs < ac[7])).sum())
+            pairs, bytes_ = _k1_needs(ac, kwc, ref)
+            f64 = dtype == torch.float64
+            bound_ms, by = bound(bytes_, pairs * OPS_PAIR[bool(ac[9])], f64)
+            ms, call_ms, plain_ms, _ = timed(
+                lambda: AW.absorb_pass(*ac, **kwc),
+                lambda: AW.absorb_pass_reference(*ac, **kwc))
+            tag = "f64" if f64 else "f32"
+            src = ("per-cell table (n_cells, cols, CC) = "
+                   f"{tuple(kwc['cand'].shape)}" if "cand" in kwc else
+                   f"segment rows {tuple(kwc['e_table'].shape)}")
+            log(29, f"K1 absorb_pass at the {path} shape, {tag}: "
+                    f"{ac[0].shape[0]} photons ({int((~ac[4]).sum())} "
+                    f"walking), B {ac[7]}, {src}: {events} events "
+                    f"({both} with both depths crossing at one column), first "
+                    f"columns equal to the plain version's; sums and "
+                    f"probabilities within {rel:.3e} of each value (bar "
+                    f"{1e-12 if f64 else 1e-5:g}); {pairs} pairs needed; "
+                    f"kernel {ms:.4f} ms, call {call_ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}); "
+                    f"on {smi}")
+            assert rel <= (1e-12 if f64 else 1e-5), (path, tag, rel)
+            # a comparison that sees no event proves nothing of the fire
+            # tests: the forced-event state fires in most photons
+            assert events > 0 or path != "forced-event state", path
+            out["absorb_pass", f"{path} shape, {tag}"] = dict(
+                max_abs_err=max(e[1] for e in errs), ms=ms, call_ms=call_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=None)
+
+        # K2: the cell envelopes
+        cell = store["cell_envelopes"][1]
+        got = AW.cell_envelopes(cell)
+        ref = AW.cell_envelopes_reference(cell)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        n = cell.shape[0]
+        bound_ms, by = bound(12 * n, 2 * n, False)
+        ms, call_ms, plain_ms, lib_ms = timed(
+            lambda: AW.cell_envelopes(cell),
+            lambda: AW.cell_envelopes_reference(cell),
+            lambda: (torch.cummax(cell, 0), torch.cummin(cell.flip(0), 0)))
+        log(29, f"K2 cell_envelopes at the {path} shape: {n} int32 cells, "
+                f"both envelopes bitwise the plain version's; kernel "
+                f"{ms:.4f} ms, call {call_ms:.4f} ms, plain {plain_ms:.4f} "
+                f"ms, torch.cummax + torch.cummin {lib_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({by}); on {smi}")
+        out["cell_envelopes", f"{path} shape"] = dict(
+            max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+
+        # K3: one invert_many call of the emission sampler
+        problems = store["invert_many"][1] if "invert_many" in store else []
+        for dtype in (torch.float32, torch.float64) if problems else ():
+            pc = [(p, t, f.to(dtype)) for p, t, f in problems]
+            got = pwmci.invert_many(pc)
+            ref = pwmci.invert_many_reference(pc)
+            torch.cuda.synchronize()
+            for (x, ok), (xr, okr) in zip(got, ref):
+                assert torch.equal(x, xr) and torch.equal(ok, okr), path
+            f64 = dtype == torch.float64
+            isz = 8 if f64 else 4
+            nq = sum(f.shape[0] for _, _, f in pc)
+            ops = sum(f.shape[0] * (p.x.shape[1] + 10
+                                    + pwmci.BISECTION_ITERS * OPS_HALVING)
+                      for p, _, f in pc)
+            tables = sum(4 * p.x.size * isz + 8 * p.x.shape[0]
+                         for p in {id(p.x): p for p, _, _ in pc}.values())
+            bound_ms, by = bound(nq * (2 * isz + 9) + tables, ops, f64)
+            ms, call_ms, plain_ms, _ = timed(
+                lambda: pwmci.invert_many(pc),
+                lambda: pwmci.invert_many_reference(pc))
+            tag = "f64" if f64 else "f32"
+            log(29, f"K3 invert_many at the {path} shape, {tag}: "
+                    f"{len(pc)} problems, {nq} queries, every x and in_range "
+                    f"bitwise the plain version's; kernel {ms:.4f} ms, call "
+                    f"{call_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                    f"{bound_ms:.6f} ms ({by}); on {smi}")
+            out["invert_many", f"{path} shape, {tag}"] = dict(
+                max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=None)
+    return out
 
 
 def main(argv=None) -> int:
@@ -2891,14 +3296,15 @@ def main(argv=None) -> int:
 
     lib, seconds = _build.build()
     report = ptxas_report(lib.with_suffix(".log").read_text())
-    assert set(report) == set(F.FORMS), report
+    forms = (*F.FORMS, *QED_FORMS)
+    assert set(report) == set(forms), report
     _build.library()
     log(2, f"built {lib.name} in {seconds:.1f} s; ptxas: " + "; ".join(
-        f"{form} {report[form]}" for form in F.FORMS))
+        f"{form} {report[form]}" for form in forms))
     atomics = sass_atomics(lib)
     log(2, "atomics in the SASS (cuobjdump -sass): " + (
         "cuobjdump not found" if atomics is None else "; ".join(
-            f"{form} {atomics.get(form, {})}" for form in F.FORMS)))
+            f"{form} {atomics.get(form, {})}" for form in forms)))
     if args.ranks:
         rows = ranks_drive(args.ranks, smi)
         print(json.dumps({"ranks": rows}))
@@ -2957,16 +3363,20 @@ def main(argv=None) -> int:
         ts_packed, *_ = cli_drive(tmp, steps=1000, packed=True)
         stress_kernels()
         cross_sections_card_vs_cpu()
-        absorb_card_vs_cpu()
+        _, captured_19 = absorb_card_vs_cpu()
         full_dep = full_deposit_kernels()
-        qtwin = qed_bench_twin(smi)
-        cb_abs_launches, _, _ = cb_absorption_drive(tmp, smi)
+        qtwin, captured_21 = qed_bench_twin(smi)
+        cb_abs_launches, _, _, captured_22 = cb_absorption_drive(tmp, smi)
         field_setup_card_vs_cpu()
         resume = hb_resume_drive(tmp, smi)
         qed_resume_on_card(tmp)
         ts_group, twin_group = dist_world_one(tmp, smi, ts_rate, ts_alive,
                                               twin_values["vay"])
-        rep_launches = replicated_absorb_on_card(tmp, smi)
+        rep_launches, rep_qed = replicated_absorb_on_card(tmp, smi)
+        qk = qed_kernels({"bench --qed": captured_21,
+                          "colliding_beams crossing": captured_22,
+                          "forced-event state": captured_19}, smi)
+        del captured_19, captured_21, captured_22
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3040,11 +3450,46 @@ def main(argv=None) -> int:
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                     call_ms=call_ms)
 
+    # K1-K3 by the paths that launch them; the crossing's kernel at the
+    # bench --qed shape, the sampler's at the colliding_beams crossing
+    qed_paths = {
+        k: {"colliding_beams": cb_launches[k],
+            "colliding_beams with absorption": cb_abs_launches[k],
+            "bench --qed": qtwin["bench --qed"][2][f"{k}_launches"],
+            "bench --qed --no-absorption":
+                qtwin["bench --qed --no-absorption"][2][f"{k}_launches"],
+            "small absorption deck, replicated over 2 gloo ranks":
+                rep_qed[k]}
+        for k in QED_KERNELS}
+    qed_main = {"absorb_pass": "bench --qed shape, f32",
+                "cell_envelopes": "bench --qed shape",
+                "invert_many": "colliding_beams crossing shape, f32"}
+
+    shape_paths = {
+        "bench --qed": ("bench --qed", "bench --qed --no-absorption"),
+        "colliding_beams crossing": ("colliding_beams",
+                                     "colliding_beams with absorption")}
+
+    def qed_row(kernel, label):
+        paths = {p: n for p, n in qed_paths[kernel].items() if n}
+        if label != qed_main[kernel]:
+            # a second shape: the launches of its paths; f64 and phase
+            # 19's state have none
+            shape, _, tag = label.partition(" shape")
+            paths = {} if tag.endswith("f64") else {
+                p: paths[p] for p in shape_paths.get(shape, ()) if p in paths}
+        return dict(name=f"{kernel} ({label})", **QED_KERNELS[kernel],
+                    launches=sum(paths.values()), launches_by_path=paths,
+                    **qk[kernel, label])
+
     # the forms no shipped deck's main path reaches are held against their
     # plain versions all the same, and listed apart
     print(json.dumps({
-        "kernels": [row(f) for f in by_path],
-        "other_shapes": [row(f) for f in other_shapes],
+        "kernels": [row(f) for f in by_path]
+        + [qed_row(k, label) for k, label in qed_main.items()],
+        "other_shapes": [row(f) for f in other_shapes]
+        + [qed_row(k, label) for k, label in qk
+           if label != qed_main[k]],
         "forms_off_path": [row(f) for f in timed
                            if f not in by_path and f not in other_shapes],
     }))

@@ -27,7 +27,7 @@ NVCC_FLAGS = [
     # no FMA contraction, IEEE division and square root: the push
     # columns then match the plain PyTorch version bit for bit
     "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
-    "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v", "-Xcompiler", "-fPIC",
 ]
 
 
@@ -46,10 +46,11 @@ def _nvcc() -> str:
 
 
 def build() -> tuple[Path, float]:
-    """Compile the sources if no library for their hash exists yet.
-    Returns the library path and the seconds the build took (0 when
-    the library was already there).  The compiler's resource report
-    (``-Xptxas -v``) is kept beside it as ``<name>.log``."""
+    """Compile the sources if no library for their hash exists yet: one
+    ``nvcc -c`` a source, all started together, then one link.  Returns
+    the library path and the seconds the build took (0 when the library
+    was already there).  The compiler's resource report (``-Xptxas
+    -v``) is kept beside it as ``<name>.log``."""
     sources = sorted(SRC_DIR.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in sources:
@@ -60,17 +61,29 @@ def build() -> tuple[Path, float]:
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-        capture_output=True, text=True,
-    )
+    objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in sources]
+    jobs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for s, o in zip(sources, objs)]
+    logs = [j.communicate()[0] for j in jobs]
+    failed = [s.name for s, j in zip(sources, jobs) if j.returncode != 0]
+    if not failed:
+        res = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(res.stdout)
+        if res.returncode != 0:
+            failed.append("the link")
     seconds = time.perf_counter() - t0
-    lib.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}"
-        )
+    for o in objs:
+        o.unlink(missing_ok=True)
+    log = "".join(logs)
+    lib.with_suffix(".log").write_text(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     tmp.replace(lib)
     return lib, seconds
 
@@ -92,4 +105,14 @@ def library() -> ctypes.CDLL:
     fn.argtypes = (
         [vp] * 8 + [ctypes.c_longlong] + [i32] * 7 + [f32] * 10 + [vp]
     )
+    i64, f64 = ctypes.c_longlong, ctypes.c_double
+    fn = L.opal_absorb_pass
+    fn.restype = i32
+    fn.argtypes = [vp] * 17 + [i64] * 3 + [i32] * 9 + [f64] * 3 + [vp]
+    fn = L.opal_cell_envelope
+    fn.restype = i32
+    fn.argtypes = [vp] * 4 + [i64] * 2 + [vp]
+    fn = L.opal_pwmci_invert
+    fn.restype = i32
+    fn.argtypes = [vp] * 6 + [i64] * 2 + [i32] * 3 + [vp]
     return L

@@ -45,10 +45,11 @@ import torch
 
 from . import constants as const
 from .grid import HALO
+from .ops.absorb_walk import absorb_pass, cell_envelopes
 from .ops.fused import misfit_compact
 from .parallel.dist import SOLO, Ring
 from .parallel.migrate import _put, insert
-from .qed import cross_sections, emission
+from .qed import emission
 from .species import ParticleState
 from .vec3 import orthogonal, rotate_around
 
@@ -218,17 +219,6 @@ def emit_radiation(sim, species, t, rng):
 
 
 
-def _cummax(v):
-    """Inclusive running maximum along dim 0 (opal_tpu's
-    ``_blocked_cummax``; the TPU's two-level blocking is not needed)."""
-    return torch.cummax(v, dim=0).values
-
-
-def _suffix_min(v):
-    """min(v[i:]) for each i (nondecreasing)."""
-    return torch.flip(torch.cummin(torch.flip(v, [0]), dim=0).values, [0])
-
-
 def _abs_draw(rng, name, index, dtype, lead=()):
     """Absorption draws ``name`` for the rows whose draw index is
     ``index``: from opal_tpu's arrays (a dict: ``abs_r`` (passes, nw)
@@ -353,9 +343,9 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
         # dead rows keep in-range placeholder cells and weight 0: an
         # admitted dead candidate has zero probability
         cell_mask = (e.cell + pad).to(torch.int32)
-        seg_start = torch.searchsorted(_cummax(cell_mask), cells)
-        seg_end = torch.searchsorted(_suffix_min(cell_mask), cells,
-                                     right=True)
+        lo_env, hi_env = cell_envelopes(cell_mask)
+        seg_start = torch.searchsorted(lo_env, cells)
+        seg_end = torch.searchsorted(hi_env, cells, right=True)
     else:
         key = torch.where(e.alive, e.cell + pad, n_cells).to(torch.int32)
         if not presorted:
@@ -465,7 +455,6 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
                 n_cells, nb * B, CC)
 
     cdt_dx = const.SPEED_OF_LIGHT * opt.dt / geom.dx
-    ar = torch.arange(B, device=dev)
     tau_abs, tau_st = w_tau_abs0.clone(), w_tau_st0.clone()
     done = torch.zeros(n_w, dtype=torch.bool, device=dev)
     ev_kind = torch.zeros(n_w, dtype=torch.int32, device=dev)
@@ -476,57 +465,26 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
         ev_dev = torch.zeros(n_w, dtype=torch.int64, device=dev)
         ev_we = torch.zeros(n_w, dtype=dtype, device=dev)
         ev_p4chi = torch.zeros((n_w, 5), dtype=dtype, device=dev)
+    source = (dict(cand=cand) if use_cell_table else dict(
+        e_table=e_table, start=w_start, end=w_end, K=K, bracketed=bracketed))
     for bi in range(nb if n_w else 0):
-        if use_cell_table:
-            # this pass's rows of each photon's cell
-            rows = cand[w_cell, bi * B:(bi + 1) * B]
-            valid = (~done)[:, None] & (rows[..., 6] > 0.5)
-            w_e = rows[..., 5]
-        else:
-            # transient gathers of the photons' own segment rows
-            cidx = w_start[:, None] + bi * B + ar[None, :]
-            in_seg = (cidx < w_end[:, None]) & (bi * B + ar < K)[None, :]
-            rows = e_table[torch.clamp(cidx, 0, n_e - 1)]
-            if bracketed:
-                in_seg = in_seg & (rows[..., 6] == w_cell[:, None].to(dtype))
-            valid = (~done)[:, None] & in_seg
-            w_e = torch.where(valid, rows[..., 5], 0.0)
-        p4, chi_e = rows[..., 0:4], rows[..., 4]
-        if opt.stimulated_emission:
-            sig_abs, sig_st = cross_sections.pair_cross_sections(
-                w_k4[:, None, :], p4, w_chi[:, None], chi_e)
-            p_abs = torch.where(valid, w_e * cdt_dx * sig_abs, 0.0)
-            p_st = torch.where(valid, w_e * cdt_dx * sig_st, 0.0)
-        else:
-            sig_abs, _ = cross_sections.photon_absorption(
-                w_k4[:, None, :], p4, w_chi[:, None], chi_e)
-            p_abs = torch.where(valid, w_e * cdt_dx * sig_abs, 0.0)
-            p_st = torch.zeros_like(p_abs)
-        cum_abs = torch.cumsum(p_abs, dim=1)
-        cum_st = torch.cumsum(p_st, dim=1)
-        # only a valid candidate can fire: a finished photon's negative
-        # depth must not fire again
-        abs_fire = valid & ((tau_abs[:, None] - cum_abs) < 0.0)
-        st_fire = valid & ((tau_st[:, None] - cum_st) < 0.0)
-        # the first firing column of each, B for none
-        k_abs = torch.where(abs_fire, ar, B).min(dim=1).values
-        k_st = torch.where(st_fire, ar, B).min(dim=1).values
+        # the pass's cross sections, running sums and first crossings
+        res = absorb_pass(w_k4, w_chi, tau_abs, tau_st, done, w_cell, bi, B,
+                          cdt_dx, opt.stimulated_emission, **source)
+        k_abs, k_st = res.k_abs, res.k_st
         k_ev = torch.minimum(k_abs, k_st)
         event = k_ev < B
         both = event & (k_abs == k_st)
-        kc = torch.clamp(k_ev, 0, B - 1)[:, None]
-        take = lambda m: m.gather(1, kc)[:, 0]
-        pa_k, ps_k = take(p_abs), take(p_st)
+        kc = torch.clamp(k_ev, 0, B - 1)
+        pa_k, ps_k = res.p_abs, res.p_st
         r = _abs_draw(rng, "abs_r", didx, dtype, bi)
         choose_abs = r < pa_k / torch.clamp(pa_k + ps_k, min=tiny)
         absorbed_now = event & ((both & choose_abs) | (~both & (k_abs < k_st)))
         stim_now = event & ~absorbed_now
         # the depths fall by the whole pass without an event, else up to
         # the event's column (the reference stops scanning there)
-        new_abs = (tau_abs - torch.where(event, take(cum_abs), cum_abs[:, -1])
-                   ).to(tau_abs.dtype)
-        new_st = (tau_st - torch.where(event, take(cum_st), cum_st[:, -1])
-                  ).to(tau_st.dtype)
+        new_abs = (tau_abs - res.s_abs).to(tau_abs.dtype)
+        new_st = (tau_st - res.s_st).to(tau_st.dtype)
         exp1 = _abs_draw(rng, "abs_exp", didx, dtype, bi)
         tau_abs = torch.where(stim_now & both, exp1[0].to(tau_abs.dtype),
                               new_abs)
@@ -534,19 +492,18 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
         ev_kind = torch.where(event, torch.where(absorbed_now, 1, 2),
                               ev_kind).to(torch.int32)
         if replicated:
-            # the event's electron: its buffer row on its rank
-            ev_idx = torch.where(event, take(rows[..., 7]).long(), ev_idx)
+            # the event's row of the table: its electron's buffer row on
+            # its rank, weight, p4 and chi
+            row = cand[w_cell, bi * B + kc]
+            ev_idx = torch.where(event, row[:, 7].long(), ev_idx)
             ev_dev = torch.where(event, bi // nb_loc, ev_dev)
-            ev_we = torch.where(event, take(w_e), ev_we)
+            ev_we = torch.where(event, row[:, 5], ev_we)
             if want_events:
-                p4chi = rows[..., :5].gather(
-                    1, kc[:, :, None].expand(-1, 1, 5))[:, 0]
-                ev_p4chi = torch.where(event[:, None], p4chi, ev_p4chi)
+                ev_p4chi = torch.where(event[:, None], row[:, :5], ev_p4chi)
         else:
             # the event's electron, as a row of the cell-sorted view
             ev_idx = torch.where(
-                event, torch.clamp(w_start + bi * B + kc[:, 0], 0, n_e - 1),
-                ev_idx)
+                event, torch.clamp(w_start + bi * B + kc, 0, n_e - 1), ev_idx)
         done = done | event
 
     # ---- the event capacity: events past EVC are cancelled (depths

@@ -72,6 +72,22 @@ _BRANCHES = (
 )
 
 
+def _coefficient_table() -> np.ndarray:
+    """Every constant of :func:`airy_ai` as one flat f64 host array, in
+    the order the absorption walk's kernel (``csrc/absorb_pass.cu``)
+    reads it: the Taylor terms' count n, the n f then the n g
+    coefficients, ``_SCALE``, the branches' count, then per branch its
+    lower bound, its u-map's ``a`` and ``b - a`` (the plain code divides
+    by that difference), its coefficients' count and the coefficients."""
+    out = [len(_TAYLOR_F), *_TAYLOR_F, *_TAYLOR_G, _SCALE, len(_BRANCHES)]
+    for x_lo, _x_hi, coef, a, b in _BRANCHES:
+        out += [x_lo, a, b - a, len(coef), *coef]
+    return np.asarray(out, dtype=np.float64)
+
+
+COEFFICIENTS = _coefficient_table()
+
+
 def _clenshaw(u, coef):
     """Chebyshev series at ``u`` by the Clenshaw recurrence; ``coef`` is
     a host tuple of plain floats."""

@@ -9,13 +9,17 @@ halvings, far below the reference's 1e-6 relative tolerance).
 
 f32 queries read the tables rounded to f32 (the values opal_tpu's
 one-hot MXU fetch returns), f64 queries the f64 tables, both by plain
-indexing.  :func:`invert_many` runs the bisections of several
-inversions as one stacked loop, so that each halving is one pass over
-all of them.
+indexing.  :func:`invert_many` solves several inversions at once: on
+CUDA tensors in one launch of ``csrc/pwmci_invert.cu`` (the port of
+opal_tpu's ``invert``, whose unrolled bisection XLA fuses), on CPU
+tensors through its plain version :func:`invert_many_reference`, one
+stacked loop whose halvings are each one pass over all of them.
+``invert_many.launches`` counts the kernel's launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -113,8 +117,9 @@ def evaluate(prep: PreparedTables, tidx, x):
     return _hermite(x, *_segment(T, tidx, seg)), in_range
 
 
-def invert_many(problems):
-    """Solve ``hermite(x) == fq`` for several inversions at once.
+def invert_many_reference(problems):
+    """Solve ``hermite(x) == fq`` for several inversions at once, in
+    plain PyTorch ops.
 
     ``problems`` is a list of ``(prep, tidx, fq)`` with 1-D queries of
     one dtype.  Returns a list of ``(x, in_range)``, one per problem;
@@ -138,6 +143,83 @@ def invert_many(problems):
         b = torch.where(go_right, b, mid)
     sol = torch.split(0.5 * (a + b), sizes)
     return list(zip(sol, ranges))
+
+
+_STACKS: dict = {}
+
+
+def _stack_as(preps, dtype, device):
+    """The table stacks of ``preps`` concatenated for the kernel, cached
+    per stacks, dtype and device: ``(tab, meta, bases)`` with ``tab``
+    (4, total) of the rows x, f, m0, m1 of every table back to back (m0
+    and m1 padded to n entries a table; f64 values rounded once),
+    ``meta`` (2, tables) int32 of each table's offset and n, and
+    ``bases`` the first global table of each stack."""
+    key = (tuple(id(p.x) for p in preps), dtype, str(device))
+    hit = _STACKS.get(key)
+    if hit is None:
+        pad = lambda m: np.pad(m, ((0, 0), (0, 1)))
+        tab = np.stack([np.concatenate([a.ravel() for a in arrs])
+                        for arrs in zip(*((p.x, p.f, pad(p.m0), pad(p.m1))
+                                          for p in preps))])
+        ns = np.concatenate([np.full(p.x.shape[0], p.x.shape[1])
+                             for p in preps])
+        offs = np.cumsum(ns) - ns
+        bases = np.cumsum([0] + [p.x.shape[0] for p in preps])[:-1].tolist()
+        tab = torch.as_tensor(tab, dtype=dtype, device=device)
+        meta = torch.as_tensor(np.stack([offs, ns]), dtype=torch.int32,
+                               device=device)
+        hit = _STACKS[key] = (tab, meta, bases)
+    return hit
+
+
+def invert_many(problems):
+    """Solve ``hermite(x) == fq`` for several inversions at once
+    (arguments and result as :func:`invert_many_reference`).  CPU
+    tensors go through the plain version; CUDA tensors launch
+    ``csrc/pwmci_invert.cu`` once over every problem's queries (a
+    thread a query: its segment, then the halvings in registers), or
+    raise.  Bitwise equal to the plain version."""
+    fq0 = problems[0][2]
+    dev, dtype = fq0.device, fq0.dtype
+    if dev.type == "cpu":
+        return invert_many_reference(problems)
+    if dev.type != "cuda":
+        raise ValueError(f"no pwmci inversion kernel for device {dev}")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"queries must be f32 or f64, got {dtype}")
+    for _, tidx, fq in problems:
+        if fq.dtype != dtype or fq.device != dev or tidx.device != dev:
+            raise ValueError("every problem's queries and table indices "
+                             f"must be {dtype} on {dev}")
+        if fq.dim() != 1 or tidx.shape != fq.shape:
+            raise ValueError("queries and table indices must be 1-D of "
+                             "one length a problem")
+    tab, meta, bases = _stack_as([p for p, _, _ in problems], dtype, dev)
+    sizes = [fq.shape[0] for _, _, fq in problems]
+    fq = torch.cat([f for _, _, f in problems])
+    gidx = torch.cat([t.to(torch.int64) + b
+                      for (_, t, _), b in zip(problems, bases)])
+    x = torch.empty_like(fq)
+    ok = torch.empty(fq.shape, dtype=torch.bool, device=dev)
+    if fq.numel():
+        from .._build import library
+
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = library().opal_pwmci_invert(
+                *(ctypes.c_void_p(t.data_ptr())
+                  for t in (tab, meta, fq, gidx, x, ok)),
+                tab.shape[1], fq.shape[0], meta.shape[1], BISECTION_ITERS,
+                int(dtype == torch.float64), ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(f"pwmci_invert kernel failed: cudaError {rc}")
+        invert_many.launches += 1
+    return list(zip(torch.split(x, sizes), torch.split(ok, sizes)))
+
+
+#: kernel launches since the count was last set to 0
+invert_many.launches = 0
 
 
 def invert(prep: PreparedTables, tidx, fq):
