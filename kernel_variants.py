@@ -1,7 +1,9 @@
-"""Time variants of the fused kernel on one NVIDIA GPU.
+"""Time variants of the fused kernel, or of the absorption walk's, on one
+NVIDIA GPU.
 
     python3 kernel_variants.py base threads=256 segments=4 nosum cheaptaps
     python3 kernel_variants.py threads=512,segments=16 base
+    python3 kernel_variants.py --walk base window=16 threads=128
 
 Each argument is one variant of ``opal_tpu_torch/csrc/fused_push_deposit.cu``:
 ``base`` (the source as it is), or edits joined by commas:
@@ -31,6 +33,33 @@ in it, each timed deposit form is first held against its plain version
 scale).  One JSON line a variant, with each form's ptxas registers;
 compare variants within one call only.  Needs a card: without one it
 exits 1.
+
+With ``--walk`` each variant is one of ``opal_tpu_torch/csrc/absorb_walk.cu``
+(kernel K1, the whole absorption walk): ``base``, or edits joined by
+commas:
+
+* ``threads=N``: N threads (N / 32 warps) a CTA (``kThreads``);
+* ``minblocks=N``: N CTAs an SM in ``__launch_bounds__`` (``kMinBlocks``,
+  which caps the registers);
+* ``window=N``: N candidate slots of each photon screened a round
+  before the warp computes their valid ones (``kWindow``: 8, 16 or 32).
+
+The walk's arguments are captured once, before the variants: the largest
+walk of ``python -m opal_tpu_torch.bench --qed --particles 2097152
+--steps 50``, of ``chip_smoke.py``'s colliding_beams crossing with
+absorption (phase 22) and of one ``absorb`` call on its forced-event
+state (bracketed, compaction 2048, the per-cell table).  A first line
+gives their shape: the photon-passes by their count of valid candidates,
+and the valid pairs by the Airy branch of each cross section (the
+series below 1, the quadrature branches from 1, 2 and 10, none past 50
+or where the plain code zeroes the pair).  Each variant is held against
+the plain walk on them (events equal, depths within one ulp at f32
+and 1e-14 at f64 of each photon's scale) and timed (device time of one
+call), as captured (f32) and at f64, and as captured with each group of
+photons a warp (1-32; events equal to the default group's).  With ``--groups`` (on the source
+as it is, no variant) the sampler's largest ``invert_many`` call of that
+run, and the same cut to 2,370 queries, are timed at each lane group of
+kernel K3 (1-32 lanes a query), each bitwise the plain version.
 """
 
 from __future__ import annotations
@@ -48,6 +77,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SOURCE = Path("opal_tpu_torch") / "csrc" / "fused_push_deposit.cu"
+WALK_SOURCE = Path("opal_tpu_torch") / "csrc" / "absorb_walk.cu"
 CONSTANTS = {"threads": "kThreads", "segments": "kMaxSegments"}
 DIAGNOSTICS = ("nosum", "noother", "cheaptaps")
 # the deposit's 15 taps, and its summing from the warp vote to the
@@ -71,6 +101,30 @@ _CHEAPTAPS = """\
 #pragma unroll
     for (int c = 0; c < kCols - 1; ++c) v[c] = q * (float)(c + 1);
 """
+
+
+def edit_walk(src: str, variant: str) -> str:
+    """The walk kernel's source ``src`` with the edits of ``variant``
+    made; raises if an edit is unknown or no longer applies."""
+    for e in variant.split(","):
+        name, _, value = e.partition("=")
+        if name == "base":
+            continue
+        if name == "threads":
+            src, n = re.subn(r"constexpr int kThreads = \d+;",
+                             f"constexpr int kThreads = {int(value)};", src)
+        elif name == "minblocks":
+            src, n = re.subn(r"constexpr int kMinBlocks = \d+;",
+                             f"constexpr int kMinBlocks = {int(value)};",
+                             src)
+        elif name == "window" and int(value) in (8, 16, 32):
+            src, n = re.subn(r"constexpr int kWindow = \d+;",
+                             f"constexpr int kWindow = {int(value)};", src)
+        else:
+            raise ValueError(f"unknown edit {e!r}")
+        if n != 1:
+            raise ValueError(f"edit {e!r} does not apply to {WALK_SOURCE}")
+    return src
 
 
 def edit(src: str, variant: str) -> str:
@@ -180,10 +234,154 @@ def time_forms(check: bool) -> dict:
     return out
 
 
-def run_variant(variant: str) -> dict:
+def capture_walks(path: Path):
+    """Saves to ``path`` the walk arguments of the module's docstring, as
+    ``{state: (args, kwargs)}`` of CUDA tensors; returns the ``bench
+    --qed`` run's largest ``invert_many`` problems."""
+    import contextlib
+    import io
+    from types import SimpleNamespace
+
+    import chip_smoke as C
+    from opal_tpu_torch import bench
+    from opal_tpu_torch import interactions as I
+    from opal_tpu_torch.convert import state_from_numpy
+    from opal_tpu_torch.grid import GridGeometry
+
+    walks = {}
+    store = {}
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()), C.capture_qed(store):
+        rc = bench.main(["--qed", "--particles", "2097152", "--steps", "50"])
+    assert rc == 0, rc
+    walks["bench --qed"] = store["absorb_walk"][1]
+    inversions = store["invert_many"][1]
+    tmp = Path(tempfile.mkdtemp(prefix="kernel_variants_cb_"))
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            *_, store = C.cb_absorption_drive(tmp, C.nvidia_smi())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    walks["colliding_beams crossing"] = store["absorb_walk"][1]
+    presorted, bracketed = C.ABSORB_MODES["bracketed"]
+    e, ph = C.forced_absorb_state("bracketed")
+    opt = C._absorb_opts(2048)
+    sim = SimpleNamespace(geom=GridGeometry(nx=4096, dx=1e-6, xmin=0.0,
+                                            n_devices=1), options=opt)
+    sp = {"electron": state_from_numpy(e, device="cuda"),
+          "photon": state_from_numpy(ph, device="cuda")}
+    store = {}
+    with C.capture_qed(store):
+        I.absorb(sim, sp, 1e-15,
+                 C._absorb_draws(opt, len(e["x"]), len(ph["x"]), 1, 5),
+                 presorted=presorted, bracketed=bracketed)
+    walks["forced-event state"] = store["absorb_walk"][1]
+    torch.save(walks, path)
+    return inversions
+
+
+def walk_shape(a, kw) -> dict:
+    """The walk's photon-passes by their valid candidates (0, 1-31, all
+    32) and its valid pairs by the Airy branch each cross section takes
+    (``series``, ``quad1``, ``quad2``, ``quad10``, ``none``), at f64
+    (the per-cell table's walks)."""
+    import chip_smoke as C
+
+    k4, chi, cell, r = a[0], a[1], a[4], a[6]
+    B, nb, cand = a[8], r.shape[0], kw["cand"]
+    by_valid = [0, 0, 0]
+    branch = {s: dict.fromkeys(("series", "quad1", "quad2", "quad10",
+                                "none"), 0) for s in ("abs", "st")}
+    for bi in range(nb):
+        rows = cand[cell, bi * B:(bi + 1) * B]
+        valid = rows[..., 6] > 0.5
+        n = valid.sum(1)
+        by_valid[0] += int((n == 0).sum())
+        by_valid[1] += int(((n > 0) & (n < B)).sum())
+        by_valid[2] += int((n == B).sum())
+        for s, (kept, x) in C.airy_arguments(k4, chi, rows, True).items():
+            ok, x = (kept & (x >= 0) & (x < 50))[valid], x[valid]
+            branch[s]["none"] += int((~ok).sum())
+            for name, lo, hi in (("series", -1.0, 1.0), ("quad1", 1.0, 2.0),
+                                 ("quad2", 2.0, 10.0), ("quad10", 10.0, 50.0)):
+                branch[s][name] += int((ok & (x >= lo) & (x < hi)).sum())
+    return dict(photon_passes_by_valid={"0": by_valid[0], f"1-{B - 1}":
+                                        by_valid[1], str(B): by_valid[2]},
+                pairs_by_airy_branch=branch)
+
+
+def time_groups(inversions) -> dict:
+    """K3's device time (as ``chip_smoke.py``'s ``device_ms``) at each
+    lane group on the ``bench --qed`` run's largest ``invert_many``
+    problems and on them cut to 2,370 queries, each bitwise the plain
+    version."""
+    import chip_smoke as C
+    from opal_tpu_torch.qed import pwmci
+
+    total = sum(f.shape[0] for _, _, f in inversions)
+    keep = 2370 / total
+    cut = [(p, t[:max(1, round(keep * len(t)))], f[:max(1, round(keep *
+                                                              len(f)))])
+           for p, t, f in inversions]
+    out = {}
+    for label, problems in (("bench --qed", inversions),
+                            ("2370 queries", cut)):
+        nq = sum(f.shape[0] for _, _, f in problems)
+        ref = pwmci.invert_many_reference(problems)
+        for g in (1, 2, 4, 8, 16, 32):
+            got = pwmci.invert_many(problems, group=g)
+            for (x, ok), (xr, okr) in zip(got, ref):
+                assert torch.equal(x, xr) and torch.equal(ok, okr), (label, g)
+            out[f"{label} ({nq} queries), group {g}"] = C.device_ms(
+                lambda: pwmci.invert_many(problems, group=g))
+        out[f"{label}: default group"] = pwmci.inversion_group(nq)
+    return out
+
+
+def time_walks(path: Path) -> dict:
+    """The child's work with ``--walk``: build the walk kernel of this
+    tree, hold it against its plain version on the saved arguments and
+    time it."""
+    import chip_smoke as C
+    from opal_tpu_torch import _build
+    from opal_tpu_torch.ops import absorb_walk as AW
+
+    lib, _ = _build.build()
+    _build.library()
+    regs = C.ptxas_report(lib.with_suffix(".log").read_text())
+    out = {"registers": {f: int(r.split()[0]) for f, r in regs.items()
+                         if f.startswith("absorb_walk")}}
+    for state, (a, kw) in torch.load(path).items():
+        for dtype in (torch.float32, torch.float64):
+            ac, kwc = C._cast_floats(a, dtype), C._cast_floats(kw, dtype)
+            got = AW.absorb_walk(*ac, **kwc)
+            ref = AW.absorb_walk_reference(*ac, **kwc)
+            for name in ("ev_kind", "ev_idx", "done"):
+                assert torch.equal(getattr(got, name), getattr(ref, name)), (
+                    state, name)
+            rel = max(C._depth_rel(got.tau_abs, ref.tau_abs, ac[2]),
+                      C._depth_rel(got.tau_st, ref.tau_st, ac[3]))
+            assert rel <= C.DEPTH_BAR[dtype], (state, rel)
+            tag = "f64" if dtype == torch.float64 else "f32"
+            out[f"{state}, {tag}"] = C.device_ms(
+                lambda: AW.absorb_walk(*ac, **kwc))
+        want = AW.absorb_walk(*a, **kw)
+        for g in (1, 2, 4, 8, 16, 32):
+            got = AW.absorb_walk(*a, **kw, group=g)
+            assert torch.equal(got.ev_kind, want.ev_kind), (state, g)
+            out[f"{state}, group {g}"] = C.device_ms(
+                lambda: AW.absorb_walk(*a, **kw, group=g))
+        out[f"{state}: default group"] = AW.walk_group(a[0].shape[0])
+    return out
+
+
+def run_variant(variant: str, walks: Path | None = None) -> dict:
     """Build ``variant`` in a temporary copy of the package and time it
-    in a child process; returns its JSON line as a dict."""
-    src = edit((ROOT / SOURCE).read_text(), variant)
+    in a child process (the walk's, on the arguments saved at ``walks``,
+    if given); returns its JSON line as a dict."""
+    source = SOURCE if walks is None else WALK_SOURCE
+    src = (edit if walks is None else edit_walk)(
+        (ROOT / source).read_text(), variant)
     tmp = Path(tempfile.mkdtemp(prefix="kernel_variant_"))
     try:
         shutil.copytree(ROOT / "opal_tpu_torch", tmp / "opal_tpu_torch",
@@ -192,11 +390,12 @@ def run_variant(variant: str) -> dict:
         shutil.copytree(ROOT / "examples", tmp / "examples")
         for script in ("chip_smoke.py", "kernel_variants.py"):
             shutil.copy(ROOT / script, tmp / script)
-        (tmp / SOURCE).write_text(src)
+        (tmp / source).write_text(src)
         check = not any(d in variant.split(",") for d in DIAGNOSTICS)
+        mode = ["--time"] + (["--check"] if check else []) if walks is None \
+            else ["--time-walks", str(walks)]
         res = subprocess.run(
-            [sys.executable, str(tmp / "kernel_variants.py"), "--time"]
-            + (["--check"] if check else []),
+            [sys.executable, str(tmp / "kernel_variants.py"), *mode],
             capture_output=True, text=True, timeout=900, cwd=tmp)
         if res.returncode != 0:
             raise RuntimeError(f"variant {variant!r} failed:\n"
@@ -214,6 +413,11 @@ def main(argv=None) -> int:
                         help=argparse.SUPPRESS)
     parser.add_argument("--check", action="store_true",
                         help=argparse.SUPPRESS)
+    parser.add_argument("--walk", action="store_true",
+                        help="variants of the absorption walk's kernel")
+    parser.add_argument("--groups", action="store_true",
+                        help="with --walk: time kernel K3's lane groups too")
+    parser.add_argument("--time-walks", type=Path, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device (torch.cuda.is_available() "
@@ -223,15 +427,41 @@ def main(argv=None) -> int:
     if args.time:
         print(json.dumps(time_forms(args.check)))
         return 0
+    if args.time_walks:
+        print(json.dumps(time_walks(args.time_walks)))
+        return 0
     for variant in args.variants:
-        edit((ROOT / SOURCE).read_text(), variant)  # refuse before building
+        # refuse before building
+        if args.walk:
+            edit_walk((ROOT / WALK_SOURCE).read_text(), variant)
+        else:
+            edit((ROOT / SOURCE).read_text(), variant)
     import chip_smoke as C
 
     print(C.nvidia_smi(), flush=True)
-    for variant in args.variants:
-        line = run_variant(variant)
-        print(json.dumps({k: round(v, 4) if isinstance(v, float) else v
-                          for k, v in line.items()}), flush=True)
+    tmp = Path(tempfile.mkdtemp(prefix="kernel_variants_walks_"))
+    try:
+        walks = None
+        if args.walk:
+            from opal_tpu_torch import _build
+
+            _build.library()
+            walks = tmp / "walks.pt"
+            inversions = capture_walks(walks)
+            shapes = {state: walk_shape(a, kw)
+                      for state, (a, kw) in torch.load(walks).items()}
+            print(json.dumps({"walk shapes": shapes}), flush=True)
+            if args.groups:
+                print(json.dumps({"inversion groups": {
+                    k: round(v, 4) if isinstance(v, float) else v
+                    for k, v in time_groups(inversions).items()}}),
+                    flush=True)
+        for variant in args.variants:
+            line = run_variant(variant, walks)
+            print(json.dumps({k: round(v, 4) if isinstance(v, float) else v
+                              for k, v in line.items()}), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return 0
 
 

@@ -106,13 +106,13 @@ def library() -> ctypes.CDLL:
         [vp] * 8 + [ctypes.c_longlong] + [i32] * 7 + [f32] * 10 + [vp]
     )
     i64, f64 = ctypes.c_longlong, ctypes.c_double
-    fn = L.opal_absorb_pass
+    fn = L.opal_absorb_walk
     fn.restype = i32
-    fn.argtypes = [vp] * 17 + [i64] * 3 + [i32] * 9 + [f64] * 3 + [vp]
+    fn.argtypes = [vp] * 20 + [i64] * 4 + [i32] * 11 + [f64] * 3 + [vp]
     fn = L.opal_cell_envelope
     fn.restype = i32
     fn.argtypes = [vp] * 4 + [i64] * 2 + [vp]
     fn = L.opal_pwmci_invert
     fn.restype = i32
-    fn.argtypes = [vp] * 6 + [i64] * 2 + [i32] * 3 + [vp]
+    fn.argtypes = [vp] * 2 + [i32] + [vp] * 6 + [i64] + [i32] * 4 + [vp]
     return L

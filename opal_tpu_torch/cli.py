@@ -502,9 +502,11 @@ def build(path: Path, dtype=torch.float32, field_dtype=torch.float64,
     return sim, states, run_params
 
 
-#: the named ranges of the step that a profile reports on their own
+#: the named ranges of the step that a profile reports on their own (the
+#: absorb_* ranges are stages of ``interactions.absorb``)
 PROFILE_RANGES = ("tau_decrement", "absorb", "emit_radiation",
-                  "emission_sample")
+                  "emission_sample", "absorb_segments", "absorb_working_set",
+                  "absorb_table", "absorb_draws", "absorb_walk")
 
 
 def _profiled(fn, out_dir: Path, device: torch.device):

@@ -45,7 +45,7 @@ import torch
 
 from . import constants as const
 from .grid import HALO
-from .ops.absorb_walk import absorb_pass, cell_envelopes
+from .ops.absorb_walk import absorb_walk, cell_envelopes
 from .ops.fused import misfit_compact
 from .parallel.dist import SOLO, Ring
 from .parallel.migrate import _put, insert
@@ -337,174 +337,151 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
             f"devices={world}): lower tpu: absorption_candidates")
 
     # ---- the electrons by cell ----------------------------------------
-    cols = (e.gamma, e.ux, e.uy, e.uz, e.chi, e.weight)
-    order = cell_mask = None  # the identity; no per-candidate cell test
-    if bracketed:
-        # dead rows keep in-range placeholder cells and weight 0: an
-        # admitted dead candidate has zero probability
-        cell_mask = (e.cell + pad).to(torch.int32)
-        lo_env, hi_env = cell_envelopes(cell_mask)
-        seg_start = torch.searchsorted(lo_env, cells)
-        seg_end = torch.searchsorted(hi_env, cells, right=True)
-    else:
-        key = torch.where(e.alive, e.cell + pad, n_cells).to(torch.int32)
-        if not presorted:
-            order = torch.argsort(key, stable=True)
-            key = key[order]
-            cols = tuple(c[order] for c in cols)
-        seg_start = torch.searchsorted(key, cells)
-        seg_end = torch.searchsorted(key, cells, right=True)
-    seg_len = seg_end - seg_start
-    # (n_e, 6) [p4 | chi | w], with the row's cell when bracketed
-    e_table = torch.stack(
-        [c.to(dtype) for c in cols]
-        + ([cell_mask.to(dtype)] if cell_mask is not None else []), dim=-1)
-    unsort = (lambda i: i) if order is None else (lambda i: order[i])
+    with torch.profiler.record_function("absorb_segments"):
+        cols = (e.gamma, e.ux, e.uy, e.uz, e.chi, e.weight)
+        order = cell_mask = None  # the identity; no per-candidate cell test
+        if bracketed:
+            # dead rows keep in-range placeholder cells and weight 0: an
+            # admitted dead candidate has zero probability
+            cell_mask = (e.cell + pad).to(torch.int32)
+            lo_env, hi_env = cell_envelopes(cell_mask)
+            seg_start = torch.searchsorted(lo_env, cells)
+            seg_end = torch.searchsorted(hi_env, cells, right=True)
+        else:
+            key = torch.where(e.alive, e.cell + pad, n_cells).to(torch.int32)
+            if not presorted:
+                order = torch.argsort(key, stable=True)
+                key = key[order]
+                cols = tuple(c[order] for c in cols)
+            seg_start = torch.searchsorted(key, cells)
+            seg_end = torch.searchsorted(key, cells, right=True)
+        seg_len = seg_end - seg_start
+        # (n_e, 6) [p4 | chi | w], with the row's cell when bracketed
+        e_table = torch.stack(
+            [c.to(dtype) for c in cols]
+            + ([cell_mask.to(dtype)] if cell_mask is not None else []), dim=-1)
+        unsort = (lambda i: i) if order is None else (lambda i: order[i])
 
     # ---- which photons can pair (interactions.rs:176-192) -------------
-    energy = ph.gamma * const.ELECTRON_MASS_MEV
-    active = ph.alive & (
-        ph.chi * const.ELECTRON_MASS_MEV / torch.clamp(energy, min=tiny)
-        >= PHOTON_E_ECRIT_CUTOFF)
-    if opt.absorption_stop_time is not None:
-        active = active & (t - ph.birth_time <= opt.absorption_stop_time)
-    if opt.max_displacement is not None:
-        active = active & (torch.hypot(ph.y, ph.z) <= opt.max_displacement)
-    any_active = True
-    if replicated:
-        # pairing sees the cells' global lengths (a photon whose mates
-        # are all on other ranks still walks, and is deferred past the
-        # bound): one sum over the ranks, which also counts the active
-        # photons of every rank.  With none, no rank walks or gathers
-        both = ring.psum(torch.cat([seg_len, active.sum()[None]]))
-        seg_len = both[:-1]
-        any_active = int(both[-1]) > 0  # the host read before the walk
-    pcell = torch.clamp(ph.cell.long() + pad, 0, n_cells - 1)
-    # the cell-mate screen: photons inside the occupied cell range (a
-    # superset of those with cell-mates; the rest have an empty segment
-    # and can never fire)
-    occ = seg_len > 0
-    cmin = torch.min(torch.where(occ, cells, n_cells))
-    cmax = torch.max(torch.where(occ, cells, -1))
-    has_mates = active & (pcell >= cmin) & (pcell <= cmax)
+    with torch.profiler.record_function("absorb_working_set"):
+        energy = ph.gamma * const.ELECTRON_MASS_MEV
+        active = ph.alive & (
+            ph.chi * const.ELECTRON_MASS_MEV / torch.clamp(energy, min=tiny)
+            >= PHOTON_E_ECRIT_CUTOFF)
+        if opt.absorption_stop_time is not None:
+            active = active & (t - ph.birth_time <= opt.absorption_stop_time)
+        if opt.max_displacement is not None:
+            active = active & (torch.hypot(ph.y, ph.z) <= opt.max_displacement)
+        any_active = True
+        if replicated:
+            # pairing sees the cells' global lengths (a photon whose mates
+            # are all on other ranks still walks, and is deferred past the
+            # bound): one sum over the ranks, which also counts the active
+            # photons of every rank.  With none, no rank walks or gathers
+            both = ring.psum(torch.cat([seg_len, active.sum()[None]]))
+            seg_len = both[:-1]
+            any_active = int(both[-1]) > 0  # the host read before the walk
+        pcell = torch.clamp(ph.cell.long() + pad, 0, n_cells - 1)
+        # the cell-mate screen: photons inside the occupied cell range (a
+        # superset of those with cell-mates; the rest have an empty segment
+        # and can never fire)
+        occ = seg_len > 0
+        cmin = torch.min(torch.where(occ, cells, n_cells))
+        cmax = torch.max(torch.where(occ, cells, -1))
+        has_mates = active & (pcell >= cmin) & (pcell <= cmax)
 
-    # ---- the working set ----------------------------------------------
-    compact = nw_len < n_ph
-    if compact:
-        # the first A photons with cell-mates from a random scan origin,
-        # so that under sustained overflow none starves
-        rot = _abs_rotation(rng, n_ph, dev)
-        rows_rot = (torch.arange(n_ph, device=dev) + rot) % n_ph
-        R = torch.cumsum(has_mates[rows_rot].long(), dim=0)
-        total = int(R[-1])  # the one host read before the walk
-        n_w = min(total, nw_len)
-        aovf = total - n_w
-        sel = torch.searchsorted(R, torch.arange(1, n_w + 1, device=dev))
-        # the walked photons in buffer order
-        idx = torch.sort((sel + rot) % n_ph).values
-        didx = torch.arange(n_w, device=dev)
-    else:
-        idx = torch.nonzero(has_mates)[:, 0]
-        n_w, aovf = idx.shape[0], 0
-        didx = idx
-    # a rank of the replicated mode without walkers still joins the
-    # table's and the kicks' gathers while another rank walks
-    if n_w == 0 and not (replicated and any_active):
-        res = (species, zero, zero + aovf)
-        return res + ((torch.zeros((0, 14), dtype=dtype, device=dev),
-                       torch.zeros(0, dtype=torch.bool, device=dev)),
-                      ) if want_events else res
+        # ---- the working set ----------------------------------------------
+        compact = nw_len < n_ph
+        if compact:
+            # the first A photons with cell-mates from a random scan origin,
+            # so that under sustained overflow none starves
+            rot = _abs_rotation(rng, n_ph, dev)
+            rows_rot = (torch.arange(n_ph, device=dev) + rot) % n_ph
+            R = torch.cumsum(has_mates[rows_rot].long(), dim=0)
+            total = int(R[-1])  # the one host read before the walk
+            n_w = min(total, nw_len)
+            aovf = total - n_w
+            sel = torch.searchsorted(R, torch.arange(1, n_w + 1, device=dev))
+            # the walked photons in buffer order
+            idx = torch.sort((sel + rot) % n_ph).values
+            didx = torch.arange(n_w, device=dev)
+        else:
+            idx = torch.nonzero(has_mates)[:, 0]
+            n_w, aovf = idx.shape[0], 0
+            didx = idx
+        # a rank of the replicated mode without walkers still joins the
+        # table's and the kicks' gathers while another rank walks
+        if n_w == 0 and not (replicated and any_active):
+            res = (species, zero, zero + aovf)
+            return res + ((torch.zeros((0, 14), dtype=dtype, device=dev),
+                           torch.zeros(0, dtype=torch.bool, device=dev)),
+                          ) if want_events else res
 
-    k4_ph = torch.stack([ph.gamma, ph.ux, ph.uy, ph.uz], dim=1)
-    w_k4 = k4_ph[idx].to(dtype)
-    w_chi = ph.chi[idx].to(dtype)
-    w_tau_abs0, w_tau_st0 = ph.tau_abs[idx], ph.tau_st[idx]
-    w_weight = ph.weight[idx]
-    w_cell = pcell[idx]
-    w_start = seg_start[w_cell]
-    # the global length when replicated
-    w_end = w_start + seg_len[w_cell]
-    # photons whose cell holds more than K electrons (of every rank)
-    # walk only those: a delay
-    overflow_pairs = torch.sum(w_end - w_start > K * world)
+        k4_ph = torch.stack([ph.gamma, ph.ux, ph.uy, ph.uz], dim=1)
+        w_k4 = k4_ph[idx].to(dtype)
+        w_chi = ph.chi[idx].to(dtype)
+        w_tau_abs0, w_tau_st0 = ph.tau_abs[idx], ph.tau_st[idx]
+        w_weight = ph.weight[idx]
+        w_cell = pcell[idx]
+        w_start = seg_start[w_cell]
+        # the global length when replicated
+        w_end = w_start + seg_len[w_cell]
+        # photons whose cell holds more than K electrons (of every rank)
+        # walk only those: a delay
+        overflow_pairs = torch.sum(w_end - w_start > K * world)
 
     # ---- the per-cell candidate table: every photon of a cell walks
     # the same first K rows of its segment (of each rank) ----------------
-    if use_cell_table:
-        karr = torch.arange(nb_loc * B, device=dev)
-        cand_idx = torch.clamp(seg_start[:, None] + karr[None, :], 0,
-                               n_e - 1)
-        cand_ok = (karr[None, :] < K) & (
-            seg_start[:, None] + karr[None, :] < seg_end[:, None])
-        rows = e_table[cand_idx]
-        if bracketed:
-            # neighbour-cell rows inside a bracket are masked exactly
-            cand_ok = cand_ok & (rows[..., 6] == cells[:, None].to(dtype))
-        parts = [rows[..., :5],
-                 torch.where(cand_ok, rows[..., 5], 0.0)[..., None],
-                 cand_ok.to(dtype)[..., None]]
-        if replicated:
-            # the candidate's buffer row on its rank, where its kick
-            # lands (exact in f32 below 2**24 rows, as in opal_tpu)
-            parts.append(unsort(cand_idx).to(dtype)[..., None])
-        cand = torch.cat(parts, dim=-1)  # (n_cells, nb_loc*B, CC)
-        if replicated:
-            # every rank's table, rank-major along the candidates: pass
-            # bi serves rank bi // nb_loc
-            cand = ring.all_gather(cand).transpose(0, 1).reshape(
-                n_cells, nb * B, CC)
+    with torch.profiler.record_function("absorb_table"):
+        if use_cell_table:
+            karr = torch.arange(nb_loc * B, device=dev)
+            cand_idx = torch.clamp(seg_start[:, None] + karr[None, :], 0,
+                                   n_e - 1)
+            cand_ok = (karr[None, :] < K) & (
+                seg_start[:, None] + karr[None, :] < seg_end[:, None])
+            rows = e_table[cand_idx]
+            if bracketed:
+                # neighbour-cell rows inside a bracket are masked exactly
+                cand_ok = cand_ok & (rows[..., 6] == cells[:, None].to(dtype))
+            parts = [rows[..., :5],
+                     torch.where(cand_ok, rows[..., 5], 0.0)[..., None],
+                     cand_ok.to(dtype)[..., None]]
+            if replicated:
+                # the candidate's buffer row on its rank, where its kick
+                # lands (exact in f32 below 2**24 rows, as in opal_tpu)
+                parts.append(unsort(cand_idx).to(dtype)[..., None])
+            cand = torch.cat(parts, dim=-1)  # (n_cells, nb_loc*B, CC)
+            if replicated:
+                # every rank's table, rank-major along the candidates: pass
+                # bi serves rank bi // nb_loc
+                cand = ring.all_gather(cand).transpose(0, 1).reshape(
+                    n_cells, nb * B, CC)
 
     cdt_dx = const.SPEED_OF_LIGHT * opt.dt / geom.dx
-    tau_abs, tau_st = w_tau_abs0.clone(), w_tau_st0.clone()
-    done = torch.zeros(n_w, dtype=torch.bool, device=dev)
-    ev_kind = torch.zeros(n_w, dtype=torch.int32, device=dev)
-    ev_idx = torch.zeros(n_w, dtype=torch.int64, device=dev)
-    if replicated:
-        # the partner's rank, weight and (for the records) p4 and chi
-        # ride the walk: the partner may sit on another rank
-        ev_dev = torch.zeros(n_w, dtype=torch.int64, device=dev)
-        ev_we = torch.zeros(n_w, dtype=dtype, device=dev)
-        ev_p4chi = torch.zeros((n_w, 5), dtype=dtype, device=dev)
-    source = (dict(cand=cand) if use_cell_table else dict(
-        e_table=e_table, start=w_start, end=w_end, K=K, bracketed=bracketed))
-    for bi in range(nb if n_w else 0):
-        # the pass's cross sections, running sums and first crossings
-        res = absorb_pass(w_k4, w_chi, tau_abs, tau_st, done, w_cell, bi, B,
-                          cdt_dx, opt.stimulated_emission, **source)
-        k_abs, k_st = res.k_abs, res.k_st
-        k_ev = torch.minimum(k_abs, k_st)
-        event = k_ev < B
-        both = event & (k_abs == k_st)
-        kc = torch.clamp(k_ev, 0, B - 1)
-        pa_k, ps_k = res.p_abs, res.p_st
-        r = _abs_draw(rng, "abs_r", didx, dtype, bi)
-        choose_abs = r < pa_k / torch.clamp(pa_k + ps_k, min=tiny)
-        absorbed_now = event & ((both & choose_abs) | (~both & (k_abs < k_st)))
-        stim_now = event & ~absorbed_now
-        # the depths fall by the whole pass without an event, else up to
-        # the event's column (the reference stops scanning there)
-        new_abs = (tau_abs - res.s_abs).to(tau_abs.dtype)
-        new_st = (tau_st - res.s_st).to(tau_st.dtype)
-        exp1 = _abs_draw(rng, "abs_exp", didx, dtype, bi)
-        tau_abs = torch.where(stim_now & both, exp1[0].to(tau_abs.dtype),
-                              new_abs)
-        tau_st = torch.where(stim_now, exp1[1].to(tau_st.dtype), new_st)
-        ev_kind = torch.where(event, torch.where(absorbed_now, 1, 2),
-                              ev_kind).to(torch.int32)
-        if replicated:
-            # the event's row of the table: its electron's buffer row on
-            # its rank, weight, p4 and chi
-            row = cand[w_cell, bi * B + kc]
-            ev_idx = torch.where(event, row[:, 7].long(), ev_idx)
-            ev_dev = torch.where(event, bi // nb_loc, ev_dev)
-            ev_we = torch.where(event, row[:, 5], ev_we)
-            if want_events:
-                ev_p4chi = torch.where(event[:, None], row[:, :5], ev_p4chi)
-        else:
-            # the event's electron, as a row of the cell-sorted view
-            ev_idx = torch.where(
-                event, torch.clamp(w_start + bi * B + kc, 0, n_e - 1), ev_idx)
-        done = done | event
+    with torch.profiler.record_function("absorb_draws"):
+        # every pass's draws before the walk, in the order the pass-by-
+        # pass loop drew them (r, then the two exponentials, pass by
+        # pass): the generator's stream and opal_tpu's replayed arrays
+        # line up as before
+        draws = [(_abs_draw(rng, "abs_r", didx, dtype, bi),
+                  _abs_draw(rng, "abs_exp", didx, dtype, bi))
+                 for bi in range(nb if n_w else 0)]
+        r_all = (torch.stack([d[0] for d in draws]) if draws
+                 else torch.empty((nb, 0), dtype=dtype, device=dev))
+        exp_all = (torch.stack([d[1] for d in draws]) if draws
+                   else torch.empty((nb, 2, 0), dtype=dtype, device=dev))
+    with torch.profiler.record_function("absorb_walk"):
+        source = (dict(cand=cand) if use_cell_table else dict(
+            e_table=e_table, end=w_end, K=K, bracketed=bracketed))
+        # the walk: every pass's cross sections, running sums, first
+        # crossings, event choices and depth updates
+        walk = absorb_walk(
+            w_k4, w_chi, w_tau_abs0, w_tau_st0, w_cell, w_start, r_all,
+            exp_all, B, cdt_dx, opt.stimulated_emission, n_e,
+            nb_loc=nb_loc if replicated else 0,
+            p4chi=replicated and bool(want_events), **source)
+        tau_abs, tau_st, ev_kind, ev_idx = walk[:4]
+        ev_dev, ev_we, ev_p4chi = walk[5:]
 
     # ---- the event capacity: events past EVC are cancelled (depths
     # restored; the photon walks again next step), a counted delay ------

@@ -1,18 +1,19 @@
-"""The absorption walk's pass and the bracketed mode's cell envelopes:
-the two stages of ``interactions.absorb`` that opal_tpu's XLA fuses,
-as hand CUDA kernels.
+"""The absorption walk and the bracketed mode's cell envelopes: the two
+stages of ``interactions.absorb`` that opal_tpu's XLA fuses, as hand
+CUDA kernels.
 
-* :func:`absorb_pass` (kernel ``csrc/absorb_pass.cu``) is one pass of
-  the walk, the body of opal_tpu's ``fori_loop``
-  (``opal_tpu/interactions.py:705``, run at ``:843``): for each walked
-  photon, both scaled cross sections against the pass's B candidates,
-  the running sums of ``w_e c dt/dx sigma`` in candidate order, the
-  first column where either optical depth crosses, and the sums and
-  probabilities at that column (or the pass's totals).  The candidates
+* :func:`absorb_walk` (kernel ``csrc/absorb_walk.cu``) is the whole
+  walk, opal_tpu's ``fori_loop`` (body at ``opal_tpu/interactions.py:
+  705``, run at ``:843``): pass by pass, for each walked photon, both
+  scaled cross sections against the pass's B candidates, the running
+  sums of ``w_e c dt/dx sigma`` in candidate order, the first column
+  where either optical depth crosses, the event's choice by the pass's
+  draws, the depth updates and the event's columns.  The candidates
   come from the per-cell table (``cand``, (n_cells, nb*B, CC), CC = 7 or
   8 with the replicated mode's buffer row) or from the transient
   segment rows of ``e_table`` ((n_e, 6), or 7 with the row's cell in
-  the bracketed mode).
+  the bracketed mode).  :func:`absorb_pass_reference` is one pass, the
+  plain walk's body.
 * :func:`cell_envelopes` (kernel ``csrc/cell_envelope.cu``) is the
   bracketed mode's pair of envelopes, the inclusive prefix maximum and
   the suffix minimum of the electrons' int32 cells (opal_tpu's
@@ -20,9 +21,9 @@ as hand CUDA kernels.
   298-318``).
 
 Each has its plain PyTorch version beside it
-(:func:`absorb_pass_reference`, :func:`cell_envelopes_reference`), which
+(:func:`absorb_walk_reference`, :func:`cell_envelopes_reference`), which
 the wrapper runs for CPU tensors; CUDA tensors launch the kernel or
-raise, and any other device raises.  ``absorb_pass.launches`` and
+raise, and any other device raises.  ``absorb_walk.launches`` and
 ``cell_envelopes.launches`` count the kernel launches.
 """
 
@@ -31,6 +32,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..qed import airy, cross_sections
@@ -53,8 +55,8 @@ class PassResult(NamedTuple):
 def absorb_pass_reference(k4, chi, tau_abs, tau_st, done, cell, bi, B,
                           cdt_dx, stimulated, cand=None, e_table=None,
                           start=None, end=None, K=0, bracketed=False):
-    """Pass ``bi`` of the walk in plain PyTorch ops (the loop body of
-    ``interactions.absorb``).  ``k4`` (nw, 4) and ``chi`` (nw,) are the
+    """Pass ``bi`` of the walk in plain PyTorch ops (the body of
+    :func:`absorb_walk_reference`).  ``k4`` (nw, 4) and ``chi`` (nw,) are the
     walked photons' four-momenta and chi, ``tau_abs``/``tau_st`` their
     depths (in their own dtype), ``done`` the photons that already had
     their event, ``cell`` their (halo-extended) cells.  The candidates
@@ -113,6 +115,97 @@ def absorb_pass_reference(k4, chi, tau_abs, tau_st, done, cell, bi, B,
                       take(p_abs), take(p_st))
 
 
+class WalkResult(NamedTuple):
+    """The walk's outcome per photon: its depths after the walk, its
+    event (kind 0 none, 1 absorbed, 2 stimulated) and the event's
+    electron (a row of the cell-sorted view, or in the replicated mode
+    the candidate's buffer row on its rank), and whether it fired; in
+    the replicated mode also the partner's rank and weight and, when
+    asked for, its p4 and chi (None otherwise)."""
+
+    tau_abs: torch.Tensor  # (nw,) the depths' dtype
+    tau_st: torch.Tensor
+    ev_kind: torch.Tensor  # (nw,) int32
+    ev_idx: torch.Tensor  # (nw,) int64
+    done: torch.Tensor  # (nw,) bool
+    ev_dev: torch.Tensor | None  # (nw,) int64
+    ev_we: torch.Tensor | None  # (nw,) the candidates' dtype
+    ev_p4chi: torch.Tensor | None  # (nw, 5)
+
+
+def absorb_walk_reference(k4, chi, tau_abs, tau_st, cell, start, r, exp, B,
+                          cdt_dx, stimulated, n_e, cand=None, e_table=None,
+                          end=None, K=0, bracketed=False, nb_loc=0,
+                          p4chi=False) -> WalkResult:
+    """The whole walk in plain PyTorch ops: :func:`absorb_pass_reference`
+    a pass, then the event choice, the depth updates and the event
+    columns (the loop of ``interactions.absorb`` as it ran pass by
+    pass).  ``r`` (nb, nw) and ``exp`` (nb, 2, nw) are every pass's
+    draws, ``start`` each photon's first segment row (the event's
+    electron is ``start + column``, clipped to the ``n_e`` rows), the
+    other arguments as :func:`absorb_pass_reference`'s.  With
+    ``nb_loc`` > 0 (the replicated mode: ``cand`` has the buffer row in
+    column 7, pass ``bi`` serves rank ``bi // nb_loc``) the event's
+    columns come from the table's row, and ``p4chi`` keeps its p4 and
+    chi for the records."""
+    dtype = (cand if cand is not None else e_table).dtype
+    tiny = cross_sections._tiny(dtype)
+    nw, dev = k4.shape[0], k4.device
+    replicated = nb_loc > 0
+    tau_abs, tau_st = tau_abs.clone(), tau_st.clone()
+    done = torch.zeros(nw, dtype=torch.bool, device=dev)
+    ev_kind = torch.zeros(nw, dtype=torch.int32, device=dev)
+    ev_idx = torch.zeros(nw, dtype=torch.int64, device=dev)
+    ev_dev = ev_we = ev_p4chi = None
+    if replicated:
+        # the partner's rank, weight and (for the records) p4 and chi
+        # ride the walk: the partner may sit on another rank
+        ev_dev = torch.zeros(nw, dtype=torch.int64, device=dev)
+        ev_we = torch.zeros(nw, dtype=dtype, device=dev)
+        ev_p4chi = torch.zeros((nw, 5), dtype=dtype, device=dev)
+    source = (dict(cand=cand) if cand is not None else dict(
+        e_table=e_table, start=start, end=end, K=K, bracketed=bracketed))
+    for bi in range(r.shape[0]):
+        # the pass's cross sections, running sums and first crossings
+        res = absorb_pass_reference(k4, chi, tau_abs, tau_st, done, cell, bi,
+                                    B, cdt_dx, stimulated, **source)
+        k_abs, k_st = res.k_abs, res.k_st
+        k_ev = torch.minimum(k_abs, k_st)
+        event = k_ev < B
+        both = event & (k_abs == k_st)
+        kc = torch.clamp(k_ev, 0, B - 1)
+        pa_k, ps_k = res.p_abs, res.p_st
+        choose_abs = r[bi] < pa_k / torch.clamp(pa_k + ps_k, min=tiny)
+        absorbed_now = event & ((both & choose_abs) | (~both & (k_abs < k_st)))
+        stim_now = event & ~absorbed_now
+        # the depths fall by the whole pass without an event, else up to
+        # the event's column (the reference stops scanning there)
+        new_abs = (tau_abs - res.s_abs).to(tau_abs.dtype)
+        new_st = (tau_st - res.s_st).to(tau_st.dtype)
+        exp1 = exp[bi]
+        tau_abs = torch.where(stim_now & both, exp1[0].to(tau_abs.dtype),
+                              new_abs)
+        tau_st = torch.where(stim_now, exp1[1].to(tau_st.dtype), new_st)
+        ev_kind = torch.where(event, torch.where(absorbed_now, 1, 2),
+                              ev_kind).to(torch.int32)
+        if replicated:
+            # the event's row of the table: its electron's buffer row on
+            # its rank, weight, p4 and chi
+            row = cand[cell, bi * B + kc]
+            ev_idx = torch.where(event, row[:, 7].long(), ev_idx)
+            ev_dev = torch.where(event, bi // nb_loc, ev_dev)
+            ev_we = torch.where(event, row[:, 5], ev_we)
+            if p4chi:
+                ev_p4chi = torch.where(event[:, None], row[:, :5], ev_p4chi)
+        else:
+            # the event's electron, as a row of the cell-sorted view
+            ev_idx = torch.where(
+                event, torch.clamp(start + bi * B + kc, 0, n_e - 1), ev_idx)
+        done = done | event
+    return WalkResult(tau_abs, tau_st, ev_kind, ev_idx, done, ev_dev, ev_we,
+                      ev_p4chi if p4chi else None)
+
+
 _FLOATS = (torch.float32, torch.float64)
 #: cells a CTA of the envelope kernel scans (``kTile`` of
 #: ``csrc/cell_envelope.cu``)
@@ -120,13 +213,44 @@ ENVELOPE_TILE = 2048
 _AIRY: dict = {}
 
 
+#: the walk kernel's Airy constants (``csrc/absorb_walk.cu``): the series'
+#: terms, the quadrature branches and the longest branch's Chebyshev
+#: coefficients
+AIRY_TERMS, AIRY_BRANCHES, AIRY_CHEB = 14, 3, 17
+
+
+def airy_table() -> np.ndarray:
+    """``airy.COEFFICIENTS`` rearranged as the walk kernel reads it: the
+    series' f then g coefficients, ``_SCALE``, each branch's lower bound,
+    then each one's u-map ``a``, then each one's ``b - a``, then each
+    one's Chebyshev coefficients padded with zeros to the longest
+    branch's count (the leading zero terms leave the recurrence's b1 and
+    b2 exactly 0, so every branch runs one loop to the same result)."""
+    c = airy.COEFFICIENTS
+    nt, nbr = int(c[0]), int(c[2 + 2 * int(c[0])])
+    branches, at = [], 3 + 2 * nt
+    for _ in range(nbr):
+        nc = int(c[at + 3])
+        branches.append((c[at:at + 3], c[at + 4:at + 4 + nc]))
+        at += 4 + nc
+    ncmax = max(len(coef) for _, coef in branches)
+    if (nt, nbr, ncmax) != (AIRY_TERMS, AIRY_BRANCHES, AIRY_CHEB):
+        raise ValueError(f"airy.COEFFICIENTS has {nt} terms, {nbr} branches "
+                         f"of up to {ncmax} coefficients; the walk kernel "
+                         f"takes {AIRY_TERMS}, {AIRY_BRANCHES}, {AIRY_CHEB}")
+    pad = [np.pad(coef, (0, ncmax - len(coef))) for _, coef in branches]
+    return np.concatenate([c[1:1 + 2 * nt], c[1 + 2 * nt:2 + 2 * nt]]
+                          + [np.array([h[k] for h, _ in branches])
+                             for k in range(3)] + pad)
+
+
 def _airy_table(dtype, device):
-    """``airy.COEFFICIENTS`` as a tensor of ``dtype`` on ``device``
-    (rounded once, as the plain code's Python floats are), cached."""
+    """:func:`airy_table` as a tensor of ``dtype`` on ``device`` (rounded
+    once, as the plain code's Python floats are), cached."""
     key = (dtype, str(device))
     hit = _AIRY.get(key)
     if hit is None:
-        hit = _AIRY[key] = torch.as_tensor(airy.COEFFICIENTS, dtype=dtype,
+        hit = _AIRY[key] = torch.as_tensor(airy_table(), dtype=dtype,
                                            device=device)
     return hit
 
@@ -146,65 +270,107 @@ def _check(name, t, dev, dtypes, shape=None):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
 
 
-def absorb_pass(k4, chi, tau_abs, tau_st, done, cell, bi, B, cdt_dx,
-                stimulated, cand=None, e_table=None, start=None, end=None,
-                K=0, bracketed=False) -> PassResult:
-    """Pass ``bi`` of the absorption walk (arguments as
-    :func:`absorb_pass_reference`).  CPU tensors go through the plain
-    version; CUDA tensors launch ``csrc/absorb_pass.cu`` on the current
-    stream (one thread a photon, its B candidates in order, the running
-    sums in f64 as the CPU's ``cumsum`` keeps them), or raise."""
-    args = (k4, chi, tau_abs, tau_st, done, cell, bi, B, cdt_dx, stimulated,
-            cand, e_table, start, end, K, bracketed)
+#: warps a launch of the walk kernel aims at: ``group`` photons a warp,
+#: the largest power of two up to 32 that leaves at least this many
+#: warps (on an H100, 132 SMs of 24 warps each at the kernel's 80
+#: registers, so ~2.6 waves); from the kernel's times by group: 32
+#: photons a warp at the ``bench --qed`` shape (655,360 photons), 8 at
+#: the colliding_beams crossing (75,776), one for a few thousand
+WALK_WARPS = 8192
+
+
+def walk_group(n_photons: int) -> int:
+    """Photons a warp of the walk kernel for ``n_photons`` walkers: 32
+    while they fill the card so, fewer as they shrink (a warp computes
+    its photons' pairs 32 at a time, so a warp of few photons finishes
+    its walk sooner)."""
+    g = 32
+    while g > 1 and n_photons < g * WALK_WARPS:
+        g //= 2
+    return g
+
+
+def absorb_walk(k4, chi, tau_abs, tau_st, cell, start, r, exp, B, cdt_dx,
+                stimulated, n_e, cand=None, e_table=None, end=None, K=0,
+                bracketed=False, nb_loc=0, p4chi=False,
+                group: int | None = None) -> WalkResult:
+    """The absorption walk (arguments and result as
+    :func:`absorb_walk_reference`).  CPU tensors go through the plain
+    version; CUDA tensors launch ``csrc/absorb_walk.cu`` once on the
+    current stream (``group`` photons a warp, :func:`walk_group` of
+    their count by default, each warp's valid pairs computed 32 at a
+    time, a lane a candidate, every pass in the one launch, each
+    photon's running sums in f64 in candidate order as the CPU's
+    ``cumsum`` keeps them), or raise.  Without photons nothing is
+    launched."""
+    args = (k4, chi, tau_abs, tau_st, cell, start, r, exp, B, cdt_dx,
+            stimulated, n_e, cand, e_table, end, K, bracketed, nb_loc, p4chi)
     dev = k4.device
     if dev.type == "cpu":
-        return absorb_pass_reference(*args)
+        return absorb_walk_reference(*args)
     if dev.type != "cuda":
-        raise ValueError(f"no absorption pass kernel for device {dev}")
+        raise ValueError(f"no absorption walk kernel for device {dev}")
+    if group is None:
+        group = walk_group(k4.shape[0])
+    if group not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"group must be a power of two up to 32, got "
+                         f"{group}")
     src = cand if cand is not None else e_table
     dtype = src.dtype
-    nw = k4.shape[0]
+    nw, nb = k4.shape[0], r.shape[0]
+    replicated = nb_loc > 0
     _check("k4", k4, dev, (dtype,), (nw, 4))
     _check("chi", chi, dev, (dtype,), (nw,))
     _check("tau_abs", tau_abs, dev, _FLOATS, (nw,))
     _check("tau_st", tau_st, dev, (tau_abs.dtype,), (nw,))
-    _check("done", done, dev, (torch.bool,), (nw,))
     _check("cell", cell, dev, (torch.int64,), (nw,))
+    _check("r", r, dev, (dtype,), (nb, nw))
+    _check("exp", exp, dev, (dtype,), (nb, 2, nw))
+    if not replicated or cand is None:
+        _check("start", start, dev, (torch.int64,), (nw,))
     if cand is not None:
         _check("cand", cand, dev, (dtype,))
-        if cand.dim() != 3 or cand.shape[2] not in (7, 8) \
-                or cand.shape[1] < (bi + 1) * B:
+        if cand.dim() != 3 or cand.shape[2] != (8 if replicated else 7) \
+                or cand.shape[1] < nb * B:
             raise ValueError(f"cand has shape {tuple(cand.shape)}; want "
-                             f"(cells, >= {(bi + 1) * B}, 7 or 8)")
+                             f"(cells, >= {nb * B}, "
+                             f"{8 if replicated else 7})")
     else:
+        if replicated:
+            raise ValueError("the replicated walk reads the per-cell table")
         _check("e_table", e_table, dev, (dtype,))
         if e_table.dim() != 2 or e_table.shape[1] != (7 if bracketed else 6):
             raise ValueError(f"e_table has shape {tuple(e_table.shape)}")
-        _check("start", start, dev, (torch.int64,), (nw,))
         _check("end", end, dev, (torch.int64,), (nw,))
+    empty = lambda *shape, dt=dtype: torch.empty(shape, dtype=dt, device=dev)
+    out = WalkResult(
+        empty(nw, dt=tau_abs.dtype), empty(nw, dt=tau_abs.dtype),
+        empty(nw, dt=torch.int32), empty(nw, dt=torch.int64),
+        empty(nw, dt=torch.bool),
+        empty(nw, dt=torch.int64) if replicated else None,
+        empty(nw) if replicated else None,
+        empty(nw, 5) if replicated and p4chi else None)
+    if nw == 0:
+        return out
     from .._build import library
 
     lib = library()
-    out = PassResult(
-        torch.empty(nw, dtype=torch.int64, device=dev),
-        torch.empty(nw, dtype=torch.int64, device=dev),
-        *(torch.empty(nw, dtype=dtype, device=dev) for _ in range(4)))
     coef = _airy_table(dtype, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.opal_absorb_pass(
-            _ptr(k4), _ptr(chi), _ptr(tau_abs), _ptr(tau_st), _ptr(done),
-            _ptr(cell), _ptr(cand), _ptr(e_table), _ptr(start), _ptr(end),
-            _ptr(coef), *(_ptr(t) for t in out),
-            nw, src.shape[0], src.shape[1] if cand is not None else 0,
-            src.shape[-1], coef.numel(), bi, B, K, int(stimulated),
-            int(bracketed),
-            int(dtype == torch.float64), int(tau_abs.dtype == torch.float64),
-            cdt_dx, cross_sections._PREF, cross_sections._tiny(dtype),
+        rc = lib.opal_absorb_walk(
+            _ptr(k4), _ptr(chi), _ptr(tau_abs), _ptr(tau_st), _ptr(cell),
+            _ptr(start), _ptr(end), _ptr(cand), _ptr(e_table), _ptr(r),
+            _ptr(exp), _ptr(coef), *(_ptr(t) for t in out),
+            nw, src.shape[0], src.shape[1] if cand is not None else 0, n_e,
+            src.shape[-1], coef.numel(), nb, B, K, nb_loc, int(stimulated),
+            int(bracketed), group, int(dtype == torch.float64),
+            int(tau_abs.dtype == torch.float64), cdt_dx,
+            cross_sections._PREF, cross_sections._tiny(dtype),
             ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"absorb_pass kernel failed: cudaError {rc}")
-    absorb_pass.launches += 1
+        raise RuntimeError(f"absorb_walk kernel failed: cudaError {rc}")
+    absorb_walk.launches += 1
     return out
 
 
@@ -251,5 +417,5 @@ def cell_envelopes(cell):
 
 
 #: kernel launches since the counts were last set to 0
-absorb_pass.launches = 0
+absorb_walk.launches = 0
 cell_envelopes.launches = 0

@@ -73,9 +73,10 @@ _BRANCHES = (
 
 
 def _coefficient_table() -> np.ndarray:
-    """Every constant of :func:`airy_ai` as one flat f64 host array, in
-    the order the absorption walk's kernel (``csrc/absorb_pass.cu``)
-    reads it: the Taylor terms' count n, the n f then the n g
+    """Every constant of :func:`airy_ai` as one flat f64 host array (the
+    absorption walk's kernel reads them rearranged,
+    ``ops/absorb_walk.py::airy_table``): the Taylor terms' count n, the n
+    f then the n g
     coefficients, ``_SCALE``, the branches' count, then per branch its
     lower bound, its u-map's ``a`` and ``b - a`` (the plain code divides
     by that difference), its coefficients' count and the coefficients."""

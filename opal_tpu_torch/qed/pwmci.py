@@ -11,7 +11,8 @@ f32 queries read the tables rounded to f32 (the values opal_tpu's
 one-hot MXU fetch returns), f64 queries the f64 tables, both by plain
 indexing.  :func:`invert_many` solves several inversions at once: on
 CUDA tensors in one launch of ``csrc/pwmci_invert.cu`` (the port of
-opal_tpu's ``invert``, whose unrolled bisection XLA fuses), on CPU
+opal_tpu's ``invert``, whose unrolled bisection XLA fuses; a group of
+lanes a query), on CPU
 tensors through its plain version :func:`invert_many_reference`, one
 stacked loop whose halvings are each one pass over all of them.
 ``invert_many.launches`` counts the kernel's launches.
@@ -173,13 +174,37 @@ def _stack_as(preps, dtype, device):
     return hit
 
 
-def invert_many(problems):
+#: problems an inversion launch takes (``kMaxProblems`` of
+#: ``csrc/pwmci_invert.cu``)
+MAX_PROBLEMS = 8
+#: lanes in flight a launch of the inversion kernel aims at: a group of
+#: lanes a query, the largest power of two up to a warp whose groups stay
+#: within this many lanes.  On an H100 a group of 16 was the fastest at
+#: 2,370 queries and one lane at 32,718 (``kernel_variants.py --walk
+#: --groups``): past ~40k lanes the rounds' extra work costs more than
+#: their shorter chain saves
+INVERSION_LANES = 40_960
+
+
+def inversion_group(n_queries: int) -> int:
+    """Lanes a query of the inversion kernel for ``n_queries`` queries: a
+    warp while they are few, fewer as they grow (a group of G lanes does
+    about G / L times a thread's work in L rounds)."""
+    g = 32
+    while g > 1 and g * n_queries > INVERSION_LANES:
+        g //= 2
+    return g
+
+
+def invert_many(problems, group: int | None = None):
     """Solve ``hermite(x) == fq`` for several inversions at once
     (arguments and result as :func:`invert_many_reference`).  CPU
     tensors go through the plain version; CUDA tensors launch
-    ``csrc/pwmci_invert.cu`` once over every problem's queries (a
-    thread a query: its segment, then the halvings in registers), or
-    raise.  Bitwise equal to the plain version."""
+    ``csrc/pwmci_invert.cu`` once over every problem's queries (a group
+    of ``group`` lanes a query, :func:`inversion_group` of their count
+    by default: its segment by ballots, then the halvings in rounds, a
+    node of the bisection tree a lane), or raise.  Bitwise equal to the
+    plain version."""
     fq0 = problems[0][2]
     dev, dtype = fq0.device, fq0.dtype
     if dev.type == "cpu":
@@ -188,6 +213,9 @@ def invert_many(problems):
         raise ValueError(f"no pwmci inversion kernel for device {dev}")
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"queries must be f32 or f64, got {dtype}")
+    if len(problems) > MAX_PROBLEMS:
+        raise ValueError(f"at most {MAX_PROBLEMS} problems a call, got "
+                         f"{len(problems)}")
     for _, tidx, fq in problems:
         if fq.dtype != dtype or fq.device != dev or tidx.device != dev:
             raise ValueError("every problem's queries and table indices "
@@ -195,27 +223,36 @@ def invert_many(problems):
         if fq.dim() != 1 or tidx.shape != fq.shape:
             raise ValueError("queries and table indices must be 1-D of "
                              "one length a problem")
+    nq = sum(fq.shape[0] for _, _, fq in problems)
+    if group is None:
+        group = inversion_group(nq)
+    if group not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"group must be a power of two up to 32, got "
+                         f"{group}")
     tab, meta, bases = _stack_as([p for p, _, _ in problems], dtype, dev)
-    sizes = [fq.shape[0] for _, _, fq in problems]
-    fq = torch.cat([f for _, _, f in problems])
-    gidx = torch.cat([t.to(torch.int64) + b
-                      for (_, t, _), b in zip(problems, bases)])
-    x = torch.empty_like(fq)
-    ok = torch.empty(fq.shape, dtype=torch.bool, device=dev)
-    if fq.numel():
+    fqs = [fq.contiguous() for _, _, fq in problems]
+    tidxs = [t.to(torch.int64).contiguous() for _, t, _ in problems]
+    out = [(torch.empty_like(fq), torch.empty(fq.shape, dtype=torch.bool,
+                                              device=dev)) for fq in fqs]
+    if nq:
         from .._build import library
 
+        n = len(problems)
+        ptrs = lambda ts: (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             rc = library().opal_pwmci_invert(
-                *(ctypes.c_void_p(t.data_ptr())
-                  for t in (tab, meta, fq, gidx, x, ok)),
-                tab.shape[1], fq.shape[0], meta.shape[1], BISECTION_ITERS,
-                int(dtype == torch.float64), ctypes.c_void_p(stream))
+                ctypes.c_void_p(tab.data_ptr()),
+                ctypes.c_void_p(meta.data_ptr()), n, ptrs(fqs), ptrs(tidxs),
+                ptrs([x for x, _ in out]), ptrs([ok for _, ok in out]),
+                (ctypes.c_longlong * n)(*(f.shape[0] for f in fqs)),
+                (ctypes.c_int * n)(*bases), tab.shape[1], meta.shape[1],
+                BISECTION_ITERS, group, int(dtype == torch.float64),
+                ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(f"pwmci_invert kernel failed: cudaError {rc}")
         invert_many.launches += 1
-    return list(zip(torch.split(x, sizes), torch.split(ok, sizes)))
+    return out
 
 
 #: kernel launches since the count was last set to 0
