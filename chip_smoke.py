@@ -72,7 +72,8 @@ the port on the card, phase by phase, each printing one line or more:
 15. the bench twin, ``python -m opal_tpu_torch.bench`` at its defaults
     with and without ``--packed`` (and ``--packed --no-deposition`` at 64
     steps a block): one JSON line each with no loss, one launch of the
-    layout's form a step;
+    layout's form a step, and the twin's set-up seconds (the state drawn
+    on the card);
 16. the two_stream CLI drive of phase 4 with ``tpu: packed_fused: 1``,
     cut to 1000 steps: every step through the packed Vay form, no loss,
     energy drift below 1e-3;
@@ -154,7 +155,14 @@ the port on the card, phase by phase, each printing one line or more:
     electrons and done masks (and the replicated mode's columns) and its
     depths within 1e-14 (f64) and one ulp (f32, in at most 1e-5 of them)
     of each photon's scale, with each kernel's device, call, plain and
-    library times and its bound.
+    library times and its bound; K2 (one cooperative launch a call) with
+    its grid's CTAs, tiles and shared memory;
+30. the initial state drawn on the card: the bench twin's electrons at
+    its default deck and at ``--qed --particles 2097152`` (with the QED
+    deck's empty photon buffer) through ``species.initialize_device``
+    on the card against the host draw ``species.initialize`` of the
+    same deck copied to it: equal cells, alive masks and weights, row
+    for row, and each draw's seconds.
 
 ``python3 chip_smoke.py --ranks N`` runs phases 1-2, then phase 27
 instead of 3-28: the two_stream deck (2000 steps), phase 24's
@@ -234,8 +242,7 @@ QED_KERNELS = {
 #: their instantiations, as :func:`_form_of` names them
 QED_FORMS = ("absorb_walk<f32,f32>", "absorb_walk<f32,f64>",
              "absorb_walk<f64,f32>", "absorb_walk<f64,f64>",
-             "cell_envelope_reduce", "cell_envelope_carry",
-             "cell_envelope_apply", "pwmci_invert<f32>", "pwmci_invert<f64>")
+             "cell_envelope", "pwmci_invert<f32>", "pwmci_invert<f64>")
 #: operations of K1 by what a valid (photon, candidate) pair needs,
 #: counted from its source with each pow, exp, log and sqrt as one: the
 #: shared invariants with the probabilities, sums and fire tests (with
@@ -410,7 +417,7 @@ _FORM_BITS = re.compile(r"fused_push_deposit_kernelILb([01])ELb([01])ELb([01])"
 #: K1-K3's kernels in their mangled names (:data:`QED_FORMS`)
 _QED_FORM = re.compile(r"(absorb_walk)_kernelI([fd])([fd])E|"
                        r"(pwmci_invert)_kernelI([fd])E|"
-                       r"(cell_envelope_(?:reduce|carry|apply))")
+                       r"(cell_envelope)_kernel")
 _TYPE = {"f": "f32", "d": "f64"}
 
 
@@ -3310,8 +3317,11 @@ def qed_kernels(captured: dict, smi: str) -> dict:
             lambda: AW.cell_envelopes(cell),
             lambda: AW.cell_envelopes_reference(cell),
             lambda: (torch.cummax(cell, 0), torch.cummin(cell.flip(0), 0)))
-        log(29, f"K2 cell_envelopes at the {path} shape: {n} int32 cells, "
-                f"both envelopes bitwise the plain version's; kernel "
+        ctas, tiles, stored, smem = AW.cell_envelope_plan(n)
+        log(29, f"K2 cell_envelopes at the {path} shape: {n} int32 cells "
+                f"({ctas} CTAs of {tiles} tiles of 128 cells, {stored} of "
+                f"them in {smem} B of shared memory), both envelopes "
+                f"bitwise the plain version's; kernel "
                 f"{ms:.4f} ms, call {call_ms:.4f} ms, plain {plain_ms:.4f} "
                 f"ms, torch.cummax + torch.cummin {lib_ms:.4f} ms, bound "
                 f"{bound_ms:.4f} ms ({by}); on {smi}")
@@ -3349,6 +3359,83 @@ def qed_kernels(captured: dict, smi: str) -> dict:
             out["invert_many", f"{path} shape, {tag}"] = dict(
                 max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by, library_ms=None)
+    return out
+
+
+def device_init_on_card(smi: str):
+    """Phase 30: the bench twin's initial state drawn on the card
+    (``bench.draw``: ``species.initialize_device`` of the electrons, and
+    of the empty photon buffer on the QED deck) at its default deck and
+    at ``--qed --particles 2097152``, against the host draw
+    ``species.initialize`` of the same deck copied to the card: the
+    cells, alive masks and weights equal row for row (both place cell
+    ``c``'s particles in rows ``c * npc`` on), the device draw's x in
+    [0, 1) with mean 0.5 within 1e-3 and its momenta the deck's.  Each
+    draw's seconds on the host clock with the card synchronised (the
+    second of two calls).  Returns {deck: (device s, host s)}."""
+    from opal_tpu_torch import bench
+    from opal_tpu_torch import species as SP
+
+    out = {}
+    for label, argv in (("bench", []),
+                        ("bench --qed", ["--qed", "--particles", "2097152"])):
+        args = bench._parser().parse_args(argv)
+        sim, _, species, n = bench.build(args)
+        cap = species["electron"].alive.shape[0]
+        npc = n // sim.geom.nx
+        del species
+        qed = args.qed
+
+        def on_card():
+            return bench.draw(sim, npc, cap, qed)
+
+        if qed:
+            ux = lambda x, u, r: -1000.0 * (1.0 + 0.01 * r)
+        else:
+            ux = lambda x, u, r: bench.BENCH_DRIFT_U * (1.0 + 0.001 * r) * \
+                np.sign(u - 0.5)
+        zeros = lambda x, u, r: np.zeros_like(x)
+
+        def on_host():
+            return SP.initialize(
+                sim.specs["electron"], sim.geom, npc,
+                lambda x: np.full_like(x, 20.0), ux, zeros, zeros,
+                sim.options.dt, cap, seed=0, dtype=np.float32,
+                device="cuda")
+
+        def timed(fn):
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = fn()
+                torch.cuda.synchronize()
+            return got, time.perf_counter() - t0
+
+        dev, dev_s = timed(on_card)
+        host, host_s = timed(on_host)
+        e = dev["electron"]
+        for name in ("cell", "alive", "weight"):
+            assert torch.equal(getattr(e, name), getattr(host, name)), (
+                label, name)
+        alive = e.alive
+        assert int(alive.sum()) == n, (label, int(alive.sum()), n)
+        x = e.x[alive].double()
+        assert bool(((x >= 0) & (x < 1)).all()), label
+        assert abs(float(x.mean()) - 0.5) < 1e-3, (label, float(x.mean()))
+        ux_abs = float(e.ux[alive].double().abs().mean())
+        want = 1000.0 if qed else bench.BENCH_DRIFT_U
+        assert abs(ux_abs - want) < 1e-3 * want, (label, ux_abs, want)
+        if qed:
+            ph = dev["photon"]
+            assert ph.alive.shape[0] == cap and not bool(ph.alive.any())
+        out[label] = (dev_s, host_s)
+        log(30, f"{label}: {n} electrons in {cap} rows drawn on the card "
+                f"(species.initialize_device) in {dev_s:.4f} s against "
+                f"{host_s:.4f} s for the host draw copied to the card; "
+                f"cells, alive masks and weights equal row for row, x mean "
+                f"{float(x.mean()):.6f}, |ux| mean {ux_abs:.6g}; on {smi}")
+        del sim, dev, e, host
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3473,6 +3560,7 @@ def main(argv=None) -> int:
                           "colliding_beams crossing": captured_22,
                           "forced-event state": captured_19}, smi)
         del captured_19, captured_21, captured_22
+        device_init_on_card(smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

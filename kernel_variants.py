@@ -4,6 +4,7 @@ NVIDIA GPU.
     python3 kernel_variants.py base threads=256 segments=4 nosum cheaptaps
     python3 kernel_variants.py threads=512,segments=16 base
     python3 kernel_variants.py --walk base window=16 threads=128
+    python3 kernel_variants.py --envelope base threads=256 mintiles=4 nokeep
 
 Each argument is one variant of ``opal_tpu_torch/csrc/fused_push_deposit.cu``:
 ``base`` (the source as it is), or edits joined by commas:
@@ -60,6 +61,29 @@ photons a warp (1-32; events equal to the default group's).  With ``--groups`` (
 as it is, no variant) the sampler's largest ``invert_many`` call of that
 run, and the same cut to 2,370 queries, are timed at each lane group of
 kernel K3 (1-32 lanes a query), each bitwise the plain version.
+
+With ``--envelope`` each variant is one of
+``opal_tpu_torch/csrc/cell_envelope.cu`` (kernel K2, the bracketed
+mode's cell envelopes in one cooperative launch): ``base``, or edits
+joined by commas:
+
+* ``threads=N``: N threads a CTA (``kThreads``: 256, 512 or 1024);
+* ``ctas=N``: at most N CTAs an SM (``kMaxCtasPerSm``);
+* ``mintiles=N``: at least N tiles of 128 cells a CTA while the grid
+  could be larger (``kMinTiles``, a tile a warp);
+* ``nokeep``: no tile kept in shared memory, every cell read twice from
+  global memory (a diagnostic: what the kept chunk saves).
+
+Each variant is held bitwise against the plain version and timed
+(device time of one call, and the call's time with its host launch, as
+``chip_smoke.py``'s ``device_ms`` and ``cuda_ms``) on the cells of the
+``bench --qed`` shape (2,621,440 rows: 2,097,152 electrons sorted over
+16,392 cells, then dead rows in cell 4) and of the colliding_beams
+crossing (75,776 rows, 50,000 of them alive over 4212 cells), and on
+16,777,216 random cells; with each shape's launch plan.  With
+``--envelope-parent DIR`` the kernel of the checkout DIR (an earlier
+commit, as it is) is timed the same way before the variants and again
+after them.
 """
 
 from __future__ import annotations
@@ -78,6 +102,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SOURCE = Path("opal_tpu_torch") / "csrc" / "fused_push_deposit.cu"
 WALK_SOURCE = Path("opal_tpu_torch") / "csrc" / "absorb_walk.cu"
+ENVELOPE_SOURCE = Path("opal_tpu_torch") / "csrc" / "cell_envelope.cu"
 CONSTANTS = {"threads": "kThreads", "segments": "kMaxSegments"}
 DIAGNOSTICS = ("nosum", "noother", "cheaptaps")
 # the deposit's 15 taps, and its summing from the warp vote to the
@@ -125,6 +150,80 @@ def edit_walk(src: str, variant: str) -> str:
         if n != 1:
             raise ValueError(f"edit {e!r} does not apply to {WALK_SOURCE}")
     return src
+
+
+def edit_envelope(src: str, variant: str) -> str:
+    """The envelope kernel's source ``src`` with the edits of ``variant``
+    made; raises if an edit is unknown or no longer applies."""
+    for e in variant.split(","):
+        name, _, value = e.partition("=")
+        if name == "base":
+            continue
+        if name == "threads" and int(value) in (256, 512, 1024):
+            src, n = re.subn(r"constexpr int kThreads = \d+;",
+                             f"constexpr int kThreads = {int(value)};", src)
+        elif name == "mintiles":
+            src, n = re.subn(r"constexpr int kMinTiles = [^;]+;",
+                             f"constexpr int kMinTiles = {int(value)};", src)
+        elif name == "ctas":
+            src, n = re.subn(r"constexpr int kMaxCtasPerSm = [^;]+;",
+                             f"constexpr int kMaxCtasPerSm = {int(value)};",
+                             src)
+        elif name == "nokeep":
+            old = "    plan[2] = (smem - meta) / (kTile * 4);"
+            n = src.count(old)
+            src = src.replace(old, "    plan[2] = 0;")
+        else:
+            raise ValueError(f"unknown edit {e!r}")
+        if n != 1:
+            raise ValueError(f"edit {e!r} does not apply to "
+                             f"{ENVELOPE_SOURCE}")
+    return src
+
+
+def envelope_cells() -> dict:
+    """{shape: int32 cells on the card} of the module's docstring."""
+    import numpy as np
+
+    rng = np.random.default_rng(29)
+    out = {}
+    for shape, rows, alive, cells in (("bench --qed", 2_621_440, 2_097_152,
+                                       16_392),
+                                      ("colliding_beams crossing", 75_776,
+                                       50_000, 4212)):
+        c = np.full(rows, 4, np.int32)
+        c[:alive] = np.sort(rng.integers(4, cells - 4, alive))
+        out[shape] = c
+    out["16,777,216 random cells"] = rng.integers(
+        -5, 4000, 16_777_216).astype(np.int32)
+    return {k: torch.from_numpy(v).cuda() for k, v in out.items()}
+
+
+def time_envelopes() -> dict:
+    """The child's work with ``--envelope``: build the envelope kernel of
+    this tree, hold it against its plain version and time it."""
+    import chip_smoke as C
+    from opal_tpu_torch import _build
+    from opal_tpu_torch.ops import absorb_walk as AW
+
+    lib, _ = _build.build()
+    _build.library()
+    regs = C.ptxas_report(lib.with_suffix(".log").read_text())
+    # an earlier tree's kernels (--envelope-parent) have other names and
+    # no plan
+    out = {"registers": {f: r for f, r in regs.items()
+                         if f.startswith("cell_envelope")}}
+    plan = getattr(AW, "cell_envelope_plan", None)
+    for shape, cell in envelope_cells().items():
+        got = AW.cell_envelopes(cell)
+        ref = AW.cell_envelopes_reference(cell)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), \
+            shape
+        if plan is not None:
+            out[f"{shape}: plan"] = plan(cell.shape[0])
+        out[f"{shape}: ms"] = C.device_ms(lambda: AW.cell_envelopes(cell))
+        out[f"{shape}: call ms"] = C.cuda_ms(lambda: AW.cell_envelopes(cell))
+    return out
 
 
 def edit(src: str, variant: str) -> str:
@@ -375,25 +474,29 @@ def time_walks(path: Path) -> dict:
     return out
 
 
-def run_variant(variant: str, walks: Path | None = None) -> dict:
-    """Build ``variant`` in a temporary copy of the package and time it
-    in a child process (the walk's, on the arguments saved at ``walks``,
-    if given); returns its JSON line as a dict."""
-    source = SOURCE if walks is None else WALK_SOURCE
-    src = (edit if walks is None else edit_walk)(
-        (ROOT / source).read_text(), variant)
+def run_variant(variant: str, walks: Path | None = None,
+                envelope: bool = False, root: Path = ROOT) -> dict:
+    """Build ``variant`` in a temporary copy of the package of ``root``
+    (this tree, or the checkout of ``--envelope-parent``) and time it in
+    a child process (the walk's, on the arguments saved at ``walks``, if
+    given; the envelope kernel's with ``envelope``); returns its JSON
+    line as a dict."""
+    source, editor = (ENVELOPE_SOURCE, edit_envelope) if envelope else (
+        (SOURCE, edit) if walks is None else (WALK_SOURCE, edit_walk))
+    src = editor((root / source).read_text(), variant)
     tmp = Path(tempfile.mkdtemp(prefix="kernel_variant_"))
     try:
-        shutil.copytree(ROOT / "opal_tpu_torch", tmp / "opal_tpu_torch",
+        shutil.copytree(root / "opal_tpu_torch", tmp / "opal_tpu_torch",
                         ignore=shutil.ignore_patterns("_build",
                                                       "__pycache__"))
-        shutil.copytree(ROOT / "examples", tmp / "examples")
-        for script in ("chip_smoke.py", "kernel_variants.py"):
-            shutil.copy(ROOT / script, tmp / script)
+        shutil.copytree(root / "examples", tmp / "examples")
+        shutil.copy(root / "chip_smoke.py", tmp / "chip_smoke.py")
+        shutil.copy(ROOT / "kernel_variants.py", tmp / "kernel_variants.py")
         (tmp / source).write_text(src)
         check = not any(d in variant.split(",") for d in DIAGNOSTICS)
-        mode = ["--time"] + (["--check"] if check else []) if walks is None \
-            else ["--time-walks", str(walks)]
+        mode = ["--time-envelopes"] if envelope else ["--time"] + (
+            ["--check"] if check else []) if walks is None else [
+            "--time-walks", str(walks)]
         res = subprocess.run(
             [sys.executable, str(tmp / "kernel_variants.py"), *mode],
             capture_output=True, text=True, timeout=900, cwd=tmp)
@@ -418,6 +521,14 @@ def main(argv=None) -> int:
     parser.add_argument("--groups", action="store_true",
                         help="with --walk: time kernel K3's lane groups too")
     parser.add_argument("--time-walks", type=Path, help=argparse.SUPPRESS)
+    parser.add_argument("--envelope", action="store_true",
+                        help="variants of the cell envelopes' kernel")
+    parser.add_argument("--envelope-parent", type=Path, metavar="DIR",
+                        help="with --envelope: time the envelope kernel of "
+                             "the checkout DIR (an earlier commit) too, "
+                             "before the variants and after them")
+    parser.add_argument("--time-envelopes", action="store_true",
+                        help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device (torch.cuda.is_available() "
@@ -430,9 +541,14 @@ def main(argv=None) -> int:
     if args.time_walks:
         print(json.dumps(time_walks(args.time_walks)))
         return 0
+    if args.time_envelopes:
+        print(json.dumps(time_envelopes()))
+        return 0
     for variant in args.variants:
         # refuse before building
-        if args.walk:
+        if args.envelope:
+            edit_envelope((ROOT / ENVELOPE_SOURCE).read_text(), variant)
+        elif args.walk:
             edit_walk((ROOT / WALK_SOURCE).read_text(), variant)
         else:
             edit((ROOT / SOURCE).read_text(), variant)
@@ -456,8 +572,14 @@ def main(argv=None) -> int:
                     k: round(v, 4) if isinstance(v, float) else v
                     for k, v in time_groups(inversions).items()}}),
                     flush=True)
-        for variant in args.variants:
-            line = run_variant(variant, walks)
+        runs = [(v, ROOT) for v in args.variants]
+        if args.envelope and args.envelope_parent:
+            parent = ("base", args.envelope_parent.resolve())
+            runs = [parent, *runs, parent]
+        for variant, root in runs:
+            line = run_variant(variant, walks, args.envelope, root)
+            if root != ROOT:
+                line["tree"] = str(args.envelope_parent)
             print(json.dumps({k: round(v, 4) if isinstance(v, float) else v
                               for k, v in line.items()}), flush=True)
     finally:

@@ -112,6 +112,9 @@ def library() -> ctypes.CDLL:
     fn = L.opal_cell_envelope
     fn.restype = i32
     fn.argtypes = [vp] * 4 + [i64] * 2 + [vp]
+    fn = L.opal_cell_envelope_plan
+    fn.restype = i32
+    fn.argtypes = [i64, vp]
     fn = L.opal_pwmci_invert
     fn.restype = i32
     fn.argtypes = [vp] * 2 + [i32] + [vp] * 6 + [i64] + [i32] * 4 + [vp]

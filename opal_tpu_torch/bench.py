@@ -56,6 +56,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .constants import ELECTRON_MASS, SPEED_OF_LIGHT
+
 #: the estimated throughput of one 64-core CPU node of the reference
 #: code, and the measured C++ proxy's (``bench.py:27-38``)
 BASELINE_NODE_PUSHES_PER_SEC = 3.2e8
@@ -65,6 +67,9 @@ METRIC = "macroparticle-pushes/sec/chip"
 #: the deck's drift: the two counter-streaming populations move 0.0095
 #: cells a step under CFL (``bench.py:333-336``)
 BENCH_DRIFT_CELLS = 0.0095
+
+#: the two streams' drift momentum in units of m_e c (``bench.py:508``)
+BENCH_DRIFT_U = 2.5e-24 / (ELECTRON_MASS * SPEED_OF_LIGHT)
 
 #: flags of bench.py the port refuses, with the reason
 REFUSED = {
@@ -207,7 +212,7 @@ def build(args, ring=None):
     from .grid import GridGeometry
     from .parallel.dist import Ring
     from .sim import SimOptions, Simulation
-    from .species import SpeciesSpec, initialize, rank_rows
+    from .species import SpeciesSpec
 
     if ring is None:
         ring = Ring(device=torch.device(args.device))
@@ -253,8 +258,6 @@ def build(args, ring=None):
         args.emission_active = max(4096, cap // 32) if qed else 0
     if args.absorption_active < 0:
         args.absorption_active = max(4096, cap // 4) if qed else 0
-    # the deck's drift momentum in units of m_e c
-    drift = 2.5e-24 / (const.ELECTRON_MASS * const.SPEED_OF_LIGHT)
     drift_cells = 0.95 if qed else BENCH_DRIFT_CELLS
     ceil8 = lambda v: -(-int(v) // 8) * 8
     opts = SimOptions(
@@ -276,7 +279,7 @@ def build(args, ring=None):
         # the QED beam is one-directional at ~c: no velocity spread
         fused_window=args.fused_window or _auto_window(
             args.fused_block, npc, args.fused_resort,
-            0.0 if qed else 2.0 * drift),
+            0.0 if qed else 2.0 * BENCH_DRIFT_U),
         fused_block=args.fused_block,
         fused_resort_every=args.fused_resort,
         migration_every=args.migrate_every,
@@ -290,36 +293,47 @@ def build(args, ring=None):
             npc * (drift_cells * args.fused_resort + 3))),
     )
     dtype = torch.float64 if args.f64 else torch.float32
-    np_dtype = np.float64 if args.f64 else np.float32
     espec = SpeciesSpec.electron()
     specs = {"electron": espec}
     if qed:
         specs["photon"] = SpeciesSpec.photon()
     sim = Simulation(geom, opts, specs, device=ring.device, dtype=dtype,
                      ring=ring)
-    zeros = lambda x, u, n: np.zeros_like(x)
-    if qed:
-        ux = lambda x, u, n: -1000.0 * (1.0 + 0.01 * n)
-    else:
-        ux = lambda x, u, n: drift * (1.0 + 0.001 * n) * np.sign(u - 0.5)
-    # every rank draws the whole deck on the host and keeps its block
-    species = {"electron": rank_rows(initialize(
-        espec, geom, npc,
-        density=lambda x: np.full_like(np.asarray(x, float), 20.0),
-        ux=ux, uy=zeros, uz=zeros, dt=dt, capacity_per_device=cap, seed=0,
-        dtype=np_dtype, device="cpu",
-    ), ring.rank, cap, ring.device)}
+    species = draw(sim, npc, cap, qed)
     E, B, J, rho = sim.init_fields()
     if qed:
-        species["photon"] = rank_rows(initialize(
-            specs["photon"], geom, 0, lambda x: x * 0, None, None, None, dt,
-            cap, seed=1, dtype=np_dtype, device="cpu"), ring.rank, cap,
-            ring.device)
         # the static transverse field that gives the gamma-1000 beam the
         # quantum parameter chi = gamma B / B_crit (bench.py:535-548)
         B[:, 2] = args.chi * const.CRITICAL_FIELD / (
             1000.0 * const.SPEED_OF_LIGHT)
     return sim, (E, B, J, rho), species, n_particles
+
+
+def draw(sim, npc: int, cap: int, qed: bool) -> dict:
+    """The deck's initial state (``bench.py:505-532``): the rank's block
+    of the electrons (seed 0, ``npc`` a cell, the two streams' drift or
+    the QED beam's gamma 1000) and, on the QED deck, of the photon
+    buffer (seed 1, empty), each ``cap`` rows drawn on the rank's device
+    by ``species.initialize_device``."""
+    from .species import initialize_device
+
+    ring, geom = sim.ring, sim.geom
+    zeros = lambda x, u, n: torch.zeros_like(x)
+    if qed:
+        ux = lambda x, u, n: -1000.0 * (1.0 + 0.01 * n)
+    else:
+        ux = lambda x, u, n: BENCH_DRIFT_U * (1.0 + 0.001 * n) * torch.sign(
+            u - 0.5)
+    common = dict(dt=sim.options.dt, capacity_per_device=cap,
+                  dtype=sim.dtype, rank=ring.rank, device=ring.device)
+    species = {"electron": initialize_device(
+        sim.specs["electron"], geom, npc, lambda x: np.full_like(x, 20.0),
+        ux, zeros, zeros, seed=0, **common)}
+    if qed:
+        species["photon"] = initialize_device(
+            sim.specs["photon"], geom, 0, lambda x: x * 0, zeros, zeros,
+            zeros, seed=1, **common)
+    return species
 
 
 def chunk_steps(steps: int, steps_per_program: int, n_particles: int,
@@ -397,7 +411,7 @@ def _bench(args, ring=None) -> int:
     spp = chunk_steps(args.steps, args.steps_per_program, n_particles,
                       args.qed)
     # the QED draws: one generator a rank on its device
-    from .checkpoint import rank_seed
+    from .species import rank_seed
 
     rng = (torch.Generator(device=device).manual_seed(rank_seed(0, ring.rank))
            if args.qed else None)
@@ -454,7 +468,7 @@ def _bench(args, ring=None) -> int:
                    if args.qed else "")
         print(f"# device={kind} x{ndev} N={n_particles:.3g} "
               f"steps={args.steps} "
-              f"chunk={spp} setup={setup_s:.1f}s warmup={warm_s:.1f}s "
+              f"chunk={spp} setup={setup_s:.3f}s warmup={warm_s:.1f}s "
               f"run={elapsed:.2f}s steps/s={args.steps / elapsed:.2f}"
               f"{photons}", file=sys.stderr)
     print(json.dumps({

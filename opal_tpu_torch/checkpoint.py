@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from .convert import fields_from_numpy, state_from_numpy, to_numpy
-from .species import ParticleState, dead_default
+from .species import ParticleState, dead_default, rank_seed
 
 FORMAT_VERSION = 1
 FILENAME = "checkpoint.npz"
@@ -196,17 +196,6 @@ def load(directory, sim):
     return (
         manifest["step"], manifest["t"], E, B, J, rho, species, rng, counters
     )
-
-
-def rank_seed(seed: int, rank: int) -> int:
-    """The seed of rank ``rank``'s generator for the deck's ``tpu:
-    seed`` (opal_tpu folds the rank into its key, ``opal_tpu/sim.py:
-    1143, 1176``): the seed itself on rank 0, so a world of 1 draws what
-    a one-device run draws."""
-    if rank == 0:
-        return seed
-    return int(np.random.SeedSequence([seed, rank]).generate_state(
-        1, np.uint64)[0] >> 1)
 
 
 def _generator(arrays, sim) -> torch.Generator:

@@ -56,7 +56,8 @@ from .grid import HALO, GridGeometry, balanced_counts, load_imbalance
 from .interactions import CAND_TABLE_MAX_BYTES
 from .ops.fused import PAD
 from .parallel import dist
-from .species import SpeciesSpec, initialize, rank_rows, shard_even
+from .species import (SpeciesSpec, initialize, rank_rows, rank_seed,
+                      shard_even)
 
 
 class NoDevice(RuntimeError):
@@ -719,7 +720,7 @@ def _run(args, ring) -> int:
     # QED draws: one generator a rank on its device, seeded from the deck
     # and the rank
     rng = torch.Generator(device=sim.device).manual_seed(
-        checkpoint.rank_seed(opt.seed, ring.rank))
+        rank_seed(opt.seed, ring.rank))
 
     def run_span(E, B, J, rho, species, t, counters, nsteps):
         """``nsteps`` steps in calls of at most ``run_chunk``, threading

@@ -207,9 +207,11 @@ def absorb_walk_reference(k4, chi, tau_abs, tau_st, cell, start, r, exp, B,
 
 
 _FLOATS = (torch.float32, torch.float64)
-#: cells a CTA of the envelope kernel scans (``kTile`` of
-#: ``csrc/cell_envelope.cu``)
-ENVELOPE_TILE = 2048
+#: the most CTAs an SM holds (32 on Hopper), which bounds the envelope
+#: kernel's grid (``kMaxCtasPerSm`` of ``csrc/cell_envelope.cu`` an SM)
+MAX_CTAS_PER_SM = 32
+#: each (device, stream)'s scratch of the envelope kernel
+_ENVELOPE_AGG: dict = {}
 _AIRY: dict = {}
 
 
@@ -383,12 +385,38 @@ def cell_envelopes_reference(cell):
     return lo, hi
 
 
+def cell_envelope_plan(n: int) -> tuple[int, int, int, int]:
+    """The envelope kernel's launch of ``n`` cells on the current CUDA
+    device: (CTAs, warp tiles of 128 cells a CTA, of them kept in shared
+    memory between the two reads, dynamic shared bytes a CTA)."""
+    from .._build import library
+
+    out = (ctypes.c_longlong * 4)()
+    rc = library().opal_cell_envelope_plan(n, out)
+    if rc != 0:
+        raise RuntimeError(f"cell_envelope plan failed: cudaError {rc}")
+    return tuple(out)
+
+
+def _envelope_agg(dev, stream):
+    """The kernel's scratch on ``dev`` for ``stream`` (each CTA's max and
+    min, written before they are read in every launch), kept: launches
+    on one stream run in order."""
+    key = (dev.index, stream)
+    agg = _ENVELOPE_AGG.get(key)
+    if agg is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        agg = _ENVELOPE_AGG[key] = torch.empty(
+            2 * MAX_CTAS_PER_SM * sms, dtype=torch.int32, device=dev)
+    return agg
+
+
 def cell_envelopes(cell):
     """The bracketed mode's envelopes of the electrons' int32 cells:
     ``(cummax(cell), min(cell[i:]))``.  CPU tensors go through the plain
-    version; CUDA tensors launch ``csrc/cell_envelope.cu`` (a two-level
-    scan: per tile, then across tiles) on the current stream, or
-    raise."""
+    version; CUDA tensors launch ``csrc/cell_envelope.cu`` once on the
+    current stream (one cooperative grid that reads each cell once), or
+    raise.  Without cells nothing is launched."""
     dev = cell.device
     if dev.type == "cpu":
         return cell_envelopes_reference(cell)
@@ -397,18 +425,18 @@ def cell_envelopes(cell):
     _check("cell", cell, dev, (torch.int32,))
     if cell.dim() != 1:
         raise ValueError(f"cell must be 1-D, got shape {tuple(cell.shape)}")
+    n = cell.shape[0]
+    lo, hi = torch.empty_like(cell), torch.empty_like(cell)
+    if n == 0:
+        return lo, hi
     from .._build import library
 
     lib = library()
-    n = cell.shape[0]
-    lo, hi = torch.empty_like(cell), torch.empty_like(cell)
-    tiles = -(-n // ENVELOPE_TILE)
-    # each tile's max and min, then the carries into each tile
-    scratch = torch.empty((4, tiles), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
+        agg = _envelope_agg(dev, stream)
         rc = lib.opal_cell_envelope(_ptr(cell), _ptr(lo), _ptr(hi),
-                                    _ptr(scratch), n, tiles,
+                                    _ptr(agg), n, agg.numel(),
                                     ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"cell_envelope kernel failed: cudaError {rc}")

@@ -255,6 +255,127 @@ def initialize(
     })
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank ``rank``'s generator for the seed ``seed``
+    (opal_tpu folds the rank into its key, ``opal_tpu/sim.py:1143,
+    1176``, ``opal_tpu/species.py:368``): the seed itself on rank 0, so
+    a world of 1 draws what a one-device run draws."""
+    if rank == 0:
+        return seed
+    return int(np.random.SeedSequence([seed, rank]).generate_state(
+        1, np.uint64)[0] >> 1)
+
+
+def initialize_device(
+    spec: SpeciesSpec,
+    geom: GridGeometry,
+    npc: int,
+    density: Callable,
+    ux: Callable,
+    uy: Callable,
+    uz: Callable,
+    dt: float,
+    capacity_per_device: int,
+    seed: int = 0,
+    dtype=torch.float64,
+    work_dtype=None,
+    rank: int = 0,
+    device="cuda",
+) -> ParticleState:
+    """Sample rank ``rank``'s block of the initial distribution on
+    ``device`` (``opal_tpu/species.py:305-450``): the ``capacity_per_device``
+    rows that :func:`rank_rows` would cut from opal_tpu's sharded result.
+
+    Only the rank's per-cell weights cross from the host (``density``
+    is evaluated with numpy at the nx cell centres).  Row ``lane`` holds
+    the ``lane % npc``-th particle of local cell ``lane // npc`` while
+    ``lane < n_loc * npc``; a row is alive where its cell's weight is
+    positive.  The draws come from one ``torch.Generator`` on ``device``
+    seeded with :func:`rank_seed` of ``seed``, in the order xi, urand,
+    nrand, then tau for electrons or tau_abs and tau_st for photons, a
+    ``(capacity,)`` column each (opal_tpu draws from threefry keys
+    folded by rank: the same distribution, other numbers).  The
+    momentum callables take and return torch tensors on ``device``.
+    Dead rows take opal_tpu's values: x, prev_x, weight and u 0, gamma
+    1 (photons 0), the depths inf, ``birth_time`` -inf.
+    """
+    n_loc, cap = geom.n_loc, capacity_per_device
+    if npc > 0 and cap < n_loc * npc:
+        raise ValueError(
+            f"device init needs capacity >= n_loc*npc = {n_loc * npc}, "
+            f"got {cap}")
+    x_centre = geom.xmin + (np.arange(geom.nx) + 0.5) * geom.dx
+    nreal = np.broadcast_to(
+        np.asarray(density(x_centre), dtype=np.float64), x_centre.shape
+    ) * geom.dx
+    w_cell = np.zeros(geom.n_ext, np.float64)
+    if npc > 0:
+        w_cell[geom.interior_start:geom.interior_end] = np.where(
+            nreal > 0.0, nreal / npc, 0.0)
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(rank_seed(seed, rank))
+    w_loc = torch.from_numpy(w_cell[rank * n_loc:(rank + 1) * n_loc]).to(
+        device=dev, dtype=dtype)
+
+    lane = torch.arange(cap, device=dev)
+    in_range = lane < n_loc * npc
+    local_cell = torch.where(in_range, lane // max(npc, 1), 0)
+    w = torch.where(in_range, w_loc[local_cell], 0.0)
+    alive = in_range & (w > 0.0)
+    local_cell = local_cell.to(torch.int32)
+
+    def uniform():
+        return torch.rand(cap, generator=gen, dtype=dtype, device=dev)
+
+    def exponential():
+        return torch.empty(cap, dtype=dtype, device=dev).exponential_(
+            generator=gen)
+
+    xi = uniform()
+    g = rank * n_loc + local_cell  # extended-grid cell
+    real_x = (g - geom.left_pad + xi) * geom.dx + geom.xmin
+    urand = uniform()
+    nrand = torch.randn(cap, generator=gen, dtype=dtype, device=dev)
+    u = torch.stack([
+        torch.broadcast_to(torch.as_tensor(f(real_x, urand, nrand),
+                                           dtype=dtype, device=dev), (cap,))
+        for f in (ux, uy, uz)], dim=-1)
+    u2 = torch.sum(u * u, dim=-1)
+    photon = spec.kind == "photon"
+    if photon:
+        k0 = torch.sqrt(u2)
+        vx_over_c = torch.where(k0 > 0, u[:, 0] / torch.clamp(k0, min=1e-30),
+                                0.0)
+        gamma_like = k0
+    else:
+        gamma_like = torch.sqrt(1.0 + u2)
+        vx_over_c = u[:, 0] / gamma_like
+    prev_x = xi - const.SPEED_OF_LIGHT * vx_over_c * dt / geom.dx
+
+    def live(a, dead=0.0):
+        return torch.where(alive, a, dead)
+
+    zero = torch.zeros(cap, dtype=dtype, device=dev)
+    fields = dict(
+        cell=local_cell, x=live(xi), prev_x=live(prev_x), y=zero,
+        z=zero.clone(), weight=live(w), ux=live(u[:, 0]), uy=live(u[:, 1]),
+        uz=live(u[:, 2]), gamma=live(gamma_like, 0.0 if photon else 1.0),
+        chi=zero.clone(), tau=None, tau_abs=None, tau_st=None, work=None,
+        birth_time=None, alive=alive)
+    if spec.kind == "electron":
+        fields["tau"] = live(exponential(), np.inf)
+        fields["work"] = torch.zeros(cap, dtype=work_dtype or dtype,
+                                     device=dev)
+    if photon:
+        fields["tau_abs"] = live(exponential(), np.inf)
+        fields["tau_st"] = live(exponential(), np.inf)
+        fields["birth_time"] = live(zero, -np.inf)
+        fields["pol"] = torch.zeros((cap, 4), dtype=dtype, device=dev)
+        fields["basis"] = torch.where(alive[:, None], torch.cat([u, u], 1),
+                                      0.0)
+    return ParticleState(**fields)
+
+
 def kinetic_energy_weights(spec: SpeciesSpec, state: ParticleState):
     """Per-particle kinetic energy in joules (macroparticle), with
     gamma - 1 in a cancellation-free form: u^2 / (gamma + 1) for

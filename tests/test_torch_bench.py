@@ -243,6 +243,38 @@ def test_bench_qed_and_no_lite_run(argv, form, capsys, monkeypatch):
     assert interactions.absorb is real_a
 
 
+@pytest.mark.parametrize("qed", [False, True], ids=["default", "qed"])
+def test_bench_draws_on_the_device(qed, monkeypatch):
+    """``build`` draws each rank's block with ``species.initialize_device``
+    (it never calls the host draw ``species.initialize``): its electrons'
+    per-cell counts and weight total equal the host draw's of the same
+    deck, and the QED deck's photons are all dead rows."""
+    from opal_tpu_torch import species as SP
+
+    real = SP.initialize
+    calls = []
+    monkeypatch.setattr(SP, "initialize",
+                        lambda *a, **kw: calls.append(a) or real(*a, **kw))
+    argv = ["--qed", "--particles", "16384"] if qed else TINY
+    args = bench._parser().parse_args(argv + ["--device", "cpu"])
+    sim, _, species, n = bench.build(args)
+    assert calls == []
+    e = species["electron"]
+    geom, cap = sim.geom, e.alive.shape[0]
+    host = real(SP.SpeciesSpec.electron(), geom, n // geom.nx,
+                lambda x: np.full_like(x, 20.0), *(lambda x, u, r: 0 * x,) * 3,
+                1.0, cap, dtype=np.float32, device="cpu")
+    count = lambda st: torch.bincount(st.cell[st.alive].long(),
+                                      minlength=geom.n_loc)
+    assert int(e.alive.sum()) == n
+    assert torch.equal(count(e), count(host))
+    assert float(e.weight.double().sum()) == float(host.weight.double().sum())
+    assert e.x.dtype == torch.float32 and e.x.device.type == "cpu"
+    if qed:
+        ph = species["photon"]
+        assert ph.alive.shape[0] == cap and not bool(ph.alive.any())
+
+
 def test_bench_without_card_exits_1(capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -699,6 +699,21 @@ def test_kernel_variant_walk_edits_apply(variant):
     with pytest.raises(ValueError):
         KV.edit_walk(src, variant + ",segments=4")
 
+@pytest.mark.parametrize("variant", ["threads=1024", "ctas=1", "nokeep",
+                                     "threads=256,ctas=2,mintiles=4,nokeep"])
+def test_kernel_variant_envelope_edits_apply(variant):
+    """``kernel_variants.py --envelope``'s edits still find what they
+    change in the envelope kernel's source, each once; an unknown edit
+    is refused."""
+    import kernel_variants as KV
+
+    src = (KV.ROOT / KV.ENVELOPE_SOURCE).read_text()
+    out = KV.edit_envelope(src, variant)
+    assert out != src
+    assert ("plan[2] = 0;" in out) == ("nokeep" in variant)
+    with pytest.raises(ValueError):
+        KV.edit_envelope(src, variant + ",window=8")
+
 # ---------------------------------------------------------------------
 # K2: the cell envelopes
 # ---------------------------------------------------------------------
@@ -904,15 +919,63 @@ def test_absorb_walk_kernel_matches_plain(source, stimulated, dtypes):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [5, 70_001, 2_621_440])
+@pytest.mark.parametrize("n", [5, 70_001, 2_621_440, 16_777_216])
 @pytest.mark.parametrize("kind", ["random", "sorted", "nearly_sorted"])
 def test_cell_envelopes_kernel_matches_plain(kind, n):
+    """One launch a call, bitwise the plain version's; 16,777,216 cells
+    take more than the grid's shared memory, so most tiles are read
+    twice."""
     _need_cuda()
     c = torch.from_numpy(_cells(kind, n)).cuda()
+    n0 = AW.cell_envelopes.launches
     got = AW.cell_envelopes(c)
     ref = AW.cell_envelopes_reference(c)
     torch.cuda.synchronize()
+    assert AW.cell_envelopes.launches == n0 + 1
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    ctas, tiles, stored, smem = AW.cell_envelope_plan(n)
+    assert ctas * tiles * 128 >= n > (ctas - 1) * tiles * 128
+    assert (stored < tiles) == (n == 16_777_216)
+
+
+def _envelope_sizes():
+    """Cells that end a CTA's chunk exactly, one short of it and one past
+    it, at the ``bench --qed`` shape's chunk and at a chunk of one tile a
+    warp; none, one and a few cells; a start that is not 16-byte
+    aligned."""
+    sizes = [0, 1, 3, 127, 128, 129]
+    for n in (2_621_440, 75_776):
+        ctas, tiles, _, _ = AW.cell_envelope_plan(n)
+        sizes += [ctas * tiles * 128 + d for d in (-1, 0, 1)]
+        sizes += [(ctas - 1) * tiles * 128 + d for d in (-1, 0, 1)]
+    return sizes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+def test_cell_envelopes_kernel_edges(offset):
+    """Bitwise the plain version's at the chunk and tile boundaries, at
+    no, one and a few cells, from an unaligned start, and on cells that
+    reach int32's extremes; no launch without cells."""
+    _need_cuda()
+    rng = np.random.default_rng(23)
+    for n in _envelope_sizes():
+        for extremes in (False, True):
+            c = rng.integers(-5, 4000, n + offset).astype(np.int32)
+            if extremes and n:
+                i = rng.integers(0, n + offset, max(1, n // 100))
+                c[i] = rng.choice(np.array([np.iinfo(np.int32).min,
+                                            np.iinfo(np.int32).max,
+                                            np.iinfo(np.int32).min + 1],
+                                           np.int32), i.size)
+            c = torch.from_numpy(c).cuda()[offset:]
+            n0 = AW.cell_envelopes.launches
+            got = AW.cell_envelopes(c)
+            ref = AW.cell_envelopes_reference(c)
+            torch.cuda.synchronize()
+            assert AW.cell_envelopes.launches == n0 + (n > 0)
+            assert torch.equal(got[0], ref[0]), (n, extremes)
+            assert torch.equal(got[1], ref[1]), (n, extremes)
 
 
 @pytest.mark.cuda
