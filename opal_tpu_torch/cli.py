@@ -48,6 +48,7 @@ import torch
 
 from . import checkpoint
 from . import constants as const
+from . import trace
 from .config import Config, ConfigError
 from .convert import to_numpy
 from .diagnostics import output as out
@@ -503,20 +504,16 @@ def build(path: Path, dtype=torch.float32, field_dtype=torch.float64,
     return sim, states, run_params
 
 
-#: the named ranges of the step that a profile reports on their own (the
-#: absorb_* ranges are stages of ``interactions.absorb``)
-PROFILE_RANGES = ("tau_decrement", "absorb", "emit_radiation",
-                  "emission_sample", "absorb_segments", "absorb_working_set",
-                  "absorb_table", "absorb_draws", "absorb_walk")
-
-
 def _profiled(fn, out_dir: Path, device: torch.device):
     """Run ``fn()`` under ``torch.profiler`` and return its result.
     Writes the operator table, sorted by device time (CPU time on the
     CPU), to ``out_dir/profile.txt`` and prints the wall time, the time
     the device was busy (the union of its kernel and copy intervals) and
-    the idle share to stderr; the table ends with the total time of each
-    of :data:`PROFILE_RANGES` that ran."""
+    the idle share to stderr.  The table ends with each of the program's
+    spans (:mod:`trace`) that ran: its host ms, its device ms (a phase's
+    extent on the device, :func:`trace.snapshot`; for the other spans
+    the device time of the kernels launched inside) and its calls, then
+    the counters a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -529,12 +526,13 @@ def _profiled(fn, out_dir: Path, device: torch.device):
         res = fn()
         sync()
     wall = time.perf_counter() - t0
+    snap = trace.snapshot()
     # device work only: a named range also shows as a device-side span
     # from its first kernel to its last, idle gaps included
     spans = sorted((e.time_range.start, e.time_range.end) for e in
                    prof.events() if e.device_type == DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False)
-                   and e.name not in PROFILE_RANGES)
+                   and e.name not in trace.SPANS)
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:
         busy_us += max(0.0, b - max(a, end))
@@ -543,15 +541,20 @@ def _profiled(fn, out_dir: Path, device: torch.device):
     out_dir.mkdir(parents=True, exist_ok=True)
     avg = prof.key_averages()
     sort = "device_time_total" if cuda else "cpu_time_total"
-    # the step's named ranges (their host side): host time, and the
-    # device time of the kernels launched inside
-    lines = [f"{e.key}: host {e.cpu_time_total * 1e-3:.3f} ms, device "
-             f"{e.device_time_total * 1e-3:.3f} ms in {e.count} calls"
-             for e in avg
-             if e.key in PROFILE_RANGES and e.device_type == DeviceType.CPU]
+    lines = []
+    for e in avg:
+        if e.key in trace.SPANS and e.device_type == DeviceType.CPU:
+            dev_ms = snap["spans"].get(e.key, {}).get(
+                "device_ms", e.device_time_total * 1e-3)
+            lines.append(f"{e.key}: host {e.cpu_time_total * 1e-3:.3f} ms, "
+                         f"device {dev_ms:.3f} ms in {e.count} calls")
+    steps = snap["spans"].get(trace.STEP, {}).get("calls", 0)
+    counts = [f"{k}: {v / max(steps, 1):.3f}"
+              for k, v in snap["counters"].items()]
     (out_dir / "profile.txt").write_text(avg.table(
         sort_by="self_" + sort, row_limit=40, max_name_column_width=100,
-    ) + "\nranges:\n" + "\n".join(lines) + "\n")
+    ) + "\nspans:\n" + "\n".join(lines) + f"\ncounters a step ({steps} "
+        "steps):\n" + "\n".join(counts) + "\n")
     busy_txt = (f", device busy {busy:.3f} s ({len(spans)} device events, "
                 f"idle {1.0 - busy / wall:.1%})" if cuda else "")
     print(f"profile: {wall:.3f} s wall{busy_txt}; table in "

@@ -44,6 +44,7 @@ import dataclasses
 import torch
 
 from . import constants as const
+from . import trace
 from .grid import HALO
 from .ops.absorb_walk import absorb_walk, cell_envelopes
 from .ops.fused import misfit_compact
@@ -117,7 +118,7 @@ def emit_radiation(sim, species, t, rng):
     n_ph = ph.alive.shape[0]
     ph_top = torch.max(torch.where(
         ph.alive, torch.arange(n_ph, device=dev), -1)) + 1
-    total, ph_hi = torch.stack([emits.sum(), ph_top]).tolist()
+    total, ph_hi = trace.host_read(torch.stack([emits.sum(), ph_top]))
     if total == 0:
         return species, zero, zero
     n_w = min(total, m)
@@ -132,7 +133,7 @@ def emit_radiation(sim, species, t, rng):
     chi_w, gamma_w = e.chi[idx], e.gamma[idx]
     sampler = emission.sample if opt.radiation_reaction \
         else emission.classical_sample
-    with torch.profiler.record_function("emission_sample"):
+    with trace.span(trace.EMIT_SAMPLE):
         omega_mc2, theta, cphi = sampler(chi_w, gamma_w, r1, r2, r3)
 
     u_w = torch.stack([e.ux[idx], e.uy[idx], e.uz[idx]], dim=1)
@@ -337,7 +338,7 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
             f"devices={world}): lower tpu: absorption_candidates")
 
     # ---- the electrons by cell ----------------------------------------
-    with torch.profiler.record_function("absorb_segments"):
+    with trace.span(trace.ABSORB_SEGMENTS):
         cols = (e.gamma, e.ux, e.uy, e.uz, e.chi, e.weight)
         order = cell_mask = None  # the identity; no per-candidate cell test
         if bracketed:
@@ -363,7 +364,7 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
         unsort = (lambda i: i) if order is None else (lambda i: order[i])
 
     # ---- which photons can pair (interactions.rs:176-192) -------------
-    with torch.profiler.record_function("absorb_working_set"):
+    with trace.span(trace.ABSORB_WORKING_SET):
         energy = ph.gamma * const.ELECTRON_MASS_MEV
         active = ph.alive & (
             ph.chi * const.ELECTRON_MASS_MEV / torch.clamp(energy, min=tiny)
@@ -380,7 +381,8 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
             # photons of every rank.  With none, no rank walks or gathers
             both = ring.psum(torch.cat([seg_len, active.sum()[None]]))
             seg_len = both[:-1]
-            any_active = int(both[-1]) > 0  # the host read before the walk
+            # the host read before the walk
+            any_active = trace.host_read(both[-1]) > 0
         pcell = torch.clamp(ph.cell.long() + pad, 0, n_cells - 1)
         # the cell-mate screen: photons inside the occupied cell range (a
         # superset of those with cell-mates; the rest have an empty segment
@@ -398,7 +400,8 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
             rot = _abs_rotation(rng, n_ph, dev)
             rows_rot = (torch.arange(n_ph, device=dev) + rot) % n_ph
             R = torch.cumsum(has_mates[rows_rot].long(), dim=0)
-            total = int(R[-1])  # the one host read before the walk
+            # the one host read before the walk
+            total = trace.host_read(R[-1])
             n_w = min(total, nw_len)
             aovf = total - n_w
             sel = torch.searchsorted(R, torch.arange(1, n_w + 1, device=dev))
@@ -406,8 +409,11 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
             idx = torch.sort((sel + rot) % n_ph).values
             didx = torch.arange(n_w, device=dev)
         else:
-            idx = torch.nonzero(has_mates)[:, 0]
-            n_w, aovf = idx.shape[0], 0
+            # every photon with cell-mates, in buffer order: the count is
+            # the one host read before the walk
+            n_w, aovf = trace.host_read(has_mates.sum()), 0
+            idx = (misfit_compact(has_mates.to(torch.float32), n_w)[0] if n_w
+                   else torch.zeros(0, dtype=torch.int64, device=dev))
             didx = idx
         # a rank of the replicated mode without walkers still joins the
         # table's and the kicks' gathers while another rank walks
@@ -432,7 +438,7 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
 
     # ---- the per-cell candidate table: every photon of a cell walks
     # the same first K rows of its segment (of each rank) ----------------
-    with torch.profiler.record_function("absorb_table"):
+    with trace.span(trace.ABSORB_TABLE):
         if use_cell_table:
             karr = torch.arange(nb_loc * B, device=dev)
             cand_idx = torch.clamp(seg_start[:, None] + karr[None, :], 0,
@@ -458,7 +464,7 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
                     n_cells, nb * B, CC)
 
     cdt_dx = const.SPEED_OF_LIGHT * opt.dt / geom.dx
-    with torch.profiler.record_function("absorb_draws"):
+    with trace.span(trace.ABSORB_DRAWS):
         # every pass's draws before the walk, in the order the pass-by-
         # pass loop drew them (r, then the two exponentials, pass by
         # pass): the generator's stream and opal_tpu's replayed arrays
@@ -470,7 +476,7 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
                  else torch.empty((nb, 0), dtype=dtype, device=dev))
         exp_all = (torch.stack([d[1] for d in draws]) if draws
                    else torch.empty((nb, 2, 0), dtype=dtype, device=dev))
-    with torch.profiler.record_function("absorb_walk"):
+    with trace.span(trace.ABSORB_WALK):
         source = (dict(cand=cand) if use_cell_table else dict(
             e_table=e_table, end=w_end, K=K, bracketed=bracketed))
         # the walk: every pass's cross sections, running sums, first
@@ -527,7 +533,8 @@ def absorb(sim, species, t, rng, presorted=False, bracketed=False,
     tau_cols = dict(tau_abs=_put(ph.tau_abs, idx, tau_abs),
                     tau_st=_put(ph.tau_st, idx, tau_st))
     # the one host read after the walk
-    n_abs, n_st = torch.stack([absorbed.sum(), stimulated.sum()]).tolist()
+    n_abs, n_st = trace.host_read(
+        torch.stack([absorbed.sum(), stimulated.sum()]))
     absorb.events["absorbed"] += n_abs
     absorb.events["stimulated"] += n_st
     n_ev = n_abs + n_st

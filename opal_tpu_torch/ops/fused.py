@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -696,13 +697,20 @@ def make_eb_rows(E_slab, B_slab):
     return eb
 
 
+@functools.lru_cache(maxsize=None)
+def _tap_offsets(device: torch.device):
+    """The row offsets of :data:`COLS` on ``device``, made once: a copy
+    from the host's pageable memory waits for the device's queue."""
+    return torch.tensor([off for off, _ in COLS], device=device)
+
+
 def fold_out_slab(out_slab):
     """(n_rows, 16) unshifted tap accumulator -> (n_slab, 3) J and
     (n_slab,) rho: column c with tap offset ``off`` adds at row + off.
     Rows the kernel writes stay >= 2 away from the table edge, so the
     wrapped rows are zero."""
     n_rows = out_slab.shape[0]
-    offs = torch.tensor([off for off, _ in COLS], device=out_slab.device)
+    offs = _tap_offsets(out_slab.device)
     src = (torch.arange(n_rows, device=out_slab.device)[:, None]
            - offs[None, :]) % n_rows
     shifted = torch.gather(out_slab, 0, src)

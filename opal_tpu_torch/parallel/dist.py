@@ -31,6 +31,8 @@ import time
 import torch
 import torch.distributed as dist
 
+from .. import trace
+
 #: how long a collective may wait for the other ranks before it raises
 TIMEOUT_S = 600
 
@@ -79,8 +81,9 @@ class Ring:
             dist.P2POp(dist.irecv, from_left, self.left, self.group, 0),
             dist.P2POp(dist.irecv, from_right, self.right, self.group, 1),
         ]
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+        with trace.span(trace.SHIFT):
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
         return from_left, from_right
 
     def psum(self, x):
@@ -88,7 +91,8 @@ class Ring:
         if self.group is None:
             return x
         x = x.clone()
-        dist.all_reduce(x, group=self.group)
+        with trace.span(trace.PSUM):
+            dist.all_reduce(x, group=self.group)
         return x
 
     def all_gather(self, x):
@@ -109,10 +113,11 @@ class Ring:
         x = (x.to(torch.uint8) if flag else x).contiguous()
         out = ([torch.empty_like(x) for _ in range(self.world)]
                if everyone or self.rank == 0 else None)
-        if everyone:
-            dist.all_gather(out, x, group=self.group)
-        else:
-            dist.gather(x, out, dst=0, group=self.group)
+        with trace.span(trace.ALL_GATHER if everyone else trace.GATHER):
+            if everyone:
+                dist.all_gather(out, x, group=self.group)
+            else:
+                dist.gather(x, out, dst=0, group=self.group)
         if out is None:
             return None
         out = torch.stack(out)
@@ -121,9 +126,10 @@ class Ring:
     def barrier(self):
         """Wait for every rank (a sum of one element)."""
         if self.group is not None:
-            self.psum(torch.zeros((), device=self.device))
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            with trace.span(trace.BARRIER):
+                self.psum(torch.zeros((), device=self.device))
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
 
 
 #: a world of 1 with no process group: what needs no device of its own

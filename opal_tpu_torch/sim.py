@@ -51,6 +51,7 @@ from typing import NamedTuple
 import torch
 
 from . import constants as const
+from . import trace
 from .interactions import absorb, emit_radiation
 from .fields import electrostatic_init, sm_mask, zero_fields
 from .grid import HALO, GridGeometry, apply_boundaries, em_field_energy_local
@@ -376,66 +377,73 @@ class Simulation:
         carry chi 0 there, so rate 0, and the fallback decrements its
         own.
 
-        Returns (state, J_add, rho_add, losses, anchors_next); J_add and
-        rho_add are ``None`` without current deposition."""
+        Returns (state, out_slab, losses, anchors_next): ``out_slab`` is
+        the kernel's tap slab with the fallback's deposit added, folded
+        out by the deposit phase (``None`` without current
+        deposition)."""
         opt = self.options
         spec = self.specs[name]
         fspec = self._fused_spec(name)
-        eb = F.make_eb_rows(E_slab, B_slab)
-        cols, miss, out_slab, anchors_next = F.fused_push_deposit(
-            fspec, anchors, st.cell, st.x, st.y, st.z,
-            st.ux, st.uy, st.uz, st.gamma, st.weight,
-            st.work if fspec.work_out and not fspec.work_inc else None, eb,
-        )
-        upd = {k: cols[k] for k in
-               ("cell", "x", "y", "z", "ux", "uy", "uz", "gamma")}
-        # the lite kernel leaves prev_x and chi unchanged: nothing reads
-        # prev_x between steps and chi is refreshed at output time
-        if not fspec.lite:
-            upd.update(prev_x=cols["prev_x"], chi=cols["chi"])
         emit_on = (spec.kind == "electron" and opt.photon_emission
                    and st.tau is not None)
-        if emit_on:
-            rate = (emission.rate if opt.radiation_reaction
-                    else emission.classical_rate)
-            # a profiler range: the CLI's --profile table reads the time
-            # of the decrement's ~90 elementwise launches under it
-            with torch.profiler.record_function("tau_decrement"):
-                upd["tau"] = (st.tau - rate(cols["chi"], cols["gh"])
-                              * opt.dt).to(st.tau.dtype)
-        if fspec.work_inc:
-            upd["work"] = st.work + cols["winc"].to(st.work.dtype)
-        elif fspec.work_out:
-            upd["work"] = cols["work"]
-
-        n = st.cell.shape[0]
-        mtab, losses = F.misfit_compact(miss, opt.fused_misfit_capacity)
-        # one host read per step: most steps have no misfit at all, and
-        # then the fallback launches nothing
-        n_mis = int((mtab < n).sum())
-        if n_mis:
-            idx = mtab[:n_mis]
-            m_cell = st.cell[idx]
-            m_q = st.weight[idx].to(torch.float32) * spec.charge
-            fb = self._push_rows(
-                name, m_cell, st.x[idx], st.y[idx], st.z[idx],
-                torch.stack([st.ux[idx], st.uy[idx], st.uz[idx]], dim=1),
-                st.gamma[idx], None if st.work is None else st.work[idx],
-                E_slab, B_slab, tau=st.tau[idx] if emit_on else None,
+        with trace.span(trace.PUSH, self.device):
+            eb = F.make_eb_rows(E_slab, B_slab)
+            cols, miss, out_slab, anchors_next = F.fused_push_deposit(
+                fspec, anchors, st.cell, st.x, st.y, st.z,
+                st.ux, st.uy, st.uz, st.gamma, st.weight,
+                st.work if fspec.work_out and not fspec.work_inc else None,
+                eb,
             )
-            for k, v in upd.items():
-                v[idx] = fb[k].to(v.dtype)
-            if opt.current_deposition:
-                out_slab, lost = self._fallback_deposit(out_slab, fb, m_cell,
-                                                        m_q)
-                losses = losses + lost
-        J_add = rho_add = None
-        if out_slab is not None:
-            J_add, rho_add = F.fold_out_slab(out_slab)
-        return (
-            dataclasses.replace(st, **upd), J_add, rho_add, losses,
-            anchors_next,
-        )
+            upd = {k: cols[k] for k in
+                   ("cell", "x", "y", "z", "ux", "uy", "uz", "gamma")}
+            # the lite kernel leaves prev_x and chi unchanged: nothing
+            # reads prev_x between steps and chi is refreshed at output
+            # time
+            if not fspec.lite:
+                upd.update(prev_x=cols["prev_x"], chi=cols["chi"])
+            if emit_on:
+                rate = (emission.rate if opt.radiation_reaction
+                        else emission.classical_rate)
+                with trace.span(trace.TAU_DECREMENT):
+                    upd["tau"] = (st.tau - rate(cols["chi"], cols["gh"])
+                                  * opt.dt).to(st.tau.dtype)
+            if fspec.work_inc:
+                upd["work"] = st.work + cols["winc"].to(st.work.dtype)
+            elif fspec.work_out:
+                upd["work"] = cols["work"]
+
+        with trace.span(trace.MISFIT, self.device):
+            n = st.cell.shape[0]
+            mtab, losses = F.misfit_compact(miss, opt.fused_misfit_capacity)
+            # one host read per step: most steps have no misfit at all,
+            # and then the fallback launches nothing
+            n_mis = self._misfit_count(mtab, n)
+            if n_mis:
+                idx = mtab[:n_mis]
+                m_cell = st.cell[idx]
+                m_q = st.weight[idx].to(torch.float32) * spec.charge
+                fb = self._push_rows(
+                    name, m_cell, st.x[idx], st.y[idx], st.z[idx],
+                    torch.stack([st.ux[idx], st.uy[idx], st.uz[idx]], dim=1),
+                    st.gamma[idx], None if st.work is None else st.work[idx],
+                    E_slab, B_slab, tau=st.tau[idx] if emit_on else None,
+                )
+                for k, v in upd.items():
+                    v[idx] = fb[k].to(v.dtype)
+                if opt.current_deposition:
+                    out_slab, lost = self._fallback_deposit(out_slab, fb,
+                                                            m_cell, m_q)
+                    losses = losses + lost
+        return dataclasses.replace(st, **upd), out_slab, losses, anchors_next
+
+    @staticmethod
+    def _misfit_count(mtab, n: int) -> int:
+        """The misfit rows of a compaction table (its entries below the
+        state's ``n`` rows): the step's host read, counted."""
+        n_mis = trace.host_read((mtab < n).sum())
+        trace.count(trace.MISFIT_ROWS, n_mis)
+        trace.count(trace.MISFIT_STEPS, int(n_mis > 0))
+        return n_mis
 
     def _fallback_deposit(self, out_slab, fb, m_cell, m_q):
         """Deposit the misfit fallback's pushed rows ``fb`` (pre-push
@@ -464,58 +472,57 @@ class Simulation:
         column of the hot matrix; ions pass theirs through.  QED is off
         here (:meth:`_packed_applicable`), so there is no tau update.
 
-        Returns (PackedState, J_add, rho_add, losses, anchors_next)."""
+        Returns (PackedState, out_slab, losses, anchors_next)."""
         opt = self.options
         spec = self.specs[name]
         fspec = self._fused_spec(name)
-        eb = F.make_eb_rows(E_slab, B_slab)
-        h, aux, out_slab, anchors_next = F.fused_push_deposit_packed(
-            fspec, anchors, ps.h, ps.weight, eb)
+        with trace.span(trace.PUSH, self.device):
+            eb = F.make_eb_rows(E_slab, B_slab)
+            h, aux, out_slab, anchors_next = F.fused_push_deposit_packed(
+                fspec, anchors, ps.h, ps.weight, eb)
 
-        nblk, CH, RB, _ = h.shape
-        CA = aux.shape[1]
-        block = RB * 128
-        n = nblk * block
-        mtab, losses = F.misfit_compact(
-            aux[:, F.A_COLS.index("miss")].reshape(n),
-            opt.fused_misfit_capacity)
-        # one host read per step, as in the column path; the table is
-        # ascending with the unused slots (== n) at its end, so its
-        # first n_mis entries are exactly the misfit rows
-        n_mis = int((mtab < n).sum())
-        if n_mis:
-            idx = mtab[:n_mis]
-            # flat indices of each row's columns: indexing h[blk, :, ...]
-            # across the column dim would copy h transposed
-            blk, pin = idx // block, idx % block
-            hidx = (blk * (CH * block) + pin)[:, None] + block * torch.arange(
-                CH, device=idx.device)[None, :]
-            rows = h.view(-1)[hidx]
-            m_cell = rows[:, 0].to(torch.int32)
-            m_q = ps.weight.view(-1)[idx] * float(spec.charge)
-            electron = spec.kind == "electron"
-            fb = self._push_rows(
-                name, m_cell, rows[:, 1], rows[:, 2], rows[:, 3],
-                rows[:, 4:7], rows[:, 7], rows[:, 8] if electron else None,
-                E_slab, B_slab,
-            )
-            h.view(-1)[hidx] = torch.stack(
-                [fb["cell"].to(torch.float32)]
-                + [fb[c] for c in F.H_COLS[1:8]]
-                + [fb["work"] if electron else rows[:, 8]], dim=1)
-            aidx = (blk * (CA * block) + pin)[:, None] + block * torch.arange(
-                2, device=idx.device)[None, :]
-            chi = fb["chi"] if electron else torch.zeros_like(fb["x"])
-            aux.view(-1)[aidx] = torch.stack([fb["prev_x"], chi], dim=1)
-            if opt.current_deposition:
-                out_slab, lost = self._fallback_deposit(out_slab, fb, m_cell,
-                                                        m_q)
-                losses = losses + lost
-        J_add = rho_add = None
-        if out_slab is not None:
-            J_add, rho_add = F.fold_out_slab(out_slab)
+        with trace.span(trace.MISFIT, self.device):
+            nblk, CH, RB, _ = h.shape
+            CA = aux.shape[1]
+            block = RB * 128
+            n = nblk * block
+            mtab, losses = F.misfit_compact(
+                aux[:, F.A_COLS.index("miss")].reshape(n),
+                opt.fused_misfit_capacity)
+            # one host read per step, as in the column path; the table is
+            # ascending with the unused slots (== n) at its end, so its
+            # first n_mis entries are exactly the misfit rows
+            n_mis = self._misfit_count(mtab, n)
+            if n_mis:
+                idx = mtab[:n_mis]
+                # flat indices of each row's columns: indexing h[blk, :,
+                # ...] across the column dim would copy h transposed
+                blk, pin = idx // block, idx % block
+                hidx = (blk * (CH * block) + pin)[:, None] \
+                    + block * torch.arange(CH, device=idx.device)[None, :]
+                rows = h.view(-1)[hidx]
+                m_cell = rows[:, 0].to(torch.int32)
+                m_q = ps.weight.view(-1)[idx] * float(spec.charge)
+                electron = spec.kind == "electron"
+                fb = self._push_rows(
+                    name, m_cell, rows[:, 1], rows[:, 2], rows[:, 3],
+                    rows[:, 4:7], rows[:, 7], rows[:, 8] if electron else None,
+                    E_slab, B_slab,
+                )
+                h.view(-1)[hidx] = torch.stack(
+                    [fb["cell"].to(torch.float32)]
+                    + [fb[c] for c in F.H_COLS[1:8]]
+                    + [fb["work"] if electron else rows[:, 8]], dim=1)
+                aidx = (blk * (CA * block) + pin)[:, None] \
+                    + block * torch.arange(2, device=idx.device)[None, :]
+                chi = fb["chi"] if electron else torch.zeros_like(fb["x"])
+                aux.view(-1)[aidx] = torch.stack([fb["prev_x"], chi], dim=1)
+                if opt.current_deposition:
+                    out_slab, lost = self._fallback_deposit(out_slab, fb,
+                                                            m_cell, m_q)
+                    losses = losses + lost
         return (F.PackedState(h=h, aux=aux, weight=ps.weight, tau=ps.tau),
-                J_add, rho_add, losses, anchors_next)
+                out_slab, losses, anchors_next)
 
     # ------------------------------------------------------------------
     # schedule
@@ -577,52 +584,59 @@ class Simulation:
         """Maintenance sort of every fused species + fresh block
         anchors; runs once per sort period."""
         species, anchors = dict(c.species), dict(c.anchors)
-        for name in self.specs:
-            if self._fused_applicable(name, species[name]):
-                species[name], anchors[name] = self._sort(name, species[name])
+        with trace.span(trace.SORT, self.device):
+            for name in self.specs:
+                if self._fused_applicable(name, species[name]):
+                    species[name], anchors[name] = self._sort(name,
+                                                              species[name])
         return c._replace(species=species, anchors=anchors)
 
     def _migrate_phase(self, c: Carry) -> Carry:
         """The exchange of every species; closes each M-step block."""
         species, counters = dict(c.species), dict(c.counters)
-        for name in self.specs:
-            species[name], ovf = self._migrate(name, species[name])
-            counters[name] = counters[name] + ovf
+        with trace.span(trace.EXCHANGE, self.device):
+            for name in self.specs:
+                species[name], ovf = self._migrate(name, species[name])
+                counters[name] = counters[name] + ovf
         return c._replace(species=species, counters=counters)
 
     def _device_step(self, c: Carry, inline_sort, inline_migrate,
                      rng=None) -> Carry:
-        """One step; ``rng`` gives the QED passes their draws (a
-        ``torch.Generator``, or a dict of opal_tpu's arrays for this
-        step, see ``interactions``)."""
-        geom, opt = self.geom, self.options
+        """One step, phase by phase; ``rng`` gives the QED passes their
+        draws (a ``torch.Generator``, or a dict of opal_tpu's arrays for
+        this step, see ``interactions``)."""
+        geom, opt, dev = self.geom, self.options, self.device
         E = c.E
         species, counters, anchors = (
             dict(c.species), dict(c.counters), dict(c.anchors)
         )
-        E_slab, B_slab = self._exchange(E, c.B)
+        with trace.span(trace.HALO, dev):
+            E_slab, B_slab = self._exchange(E, c.B)
 
-        fused_dep = {}
+        out_slabs = {}
         for name in self.specs:
             st = species[name]
             if self._fused_applicable(name, st):
                 if inline_sort:
-                    st, anch = self._sort(name, st)
+                    with trace.span(trace.SORT, dev):
+                        st, anch = self._sort(name, st)
                 else:
                     anch = anchors[name]
                 push = (self._packed_push_deposit
                         if isinstance(st, F.PackedState)
                         else self._fused_push_deposit)
-                st, J_add, rho_add, losses, anchors[name] = push(
+                st, out_slab, losses, anchors[name] = push(
                     name, st, E_slab, B_slab, anch)
-                if J_add is not None:
-                    fused_dep[name] = (J_add, rho_add)
+                if out_slab is not None:
+                    out_slabs[name] = out_slab
                 counters[name] = counters[name] + losses
             else:
-                st = self._push_species(name, st, E_slab, B_slab)
+                with trace.span(trace.PUSH, dev):
+                    st = self._push_species(name, st, E_slab, B_slab)
             if opt.migration and inline_migrate:
-                st, ovf = self._migrate(name, st)
-                counters[name] = counters[name] + ovf
+                with trace.span(trace.EXCHANGE, dev):
+                    st, ovf = self._migrate(name, st)
+                    counters[name] = counters[name] + ovf
             species[name] = st
 
         events = c.events
@@ -635,45 +649,49 @@ class Simulation:
             # the replicated mode pairs across the ranks
             # (opal_tpu/sim.py:1141-1147; its absorb turns the pairing
             # off at one device)
-            with torch.profiler.record_function("absorb"):
+            with trace.span(trace.ABSORB, dev):
                 species, lost, deferred, *ev = absorb(
                     self, species, c.t, rng, bracketed=bracketed,
                     axis_index=self.axis_index, ring=self.ring,
                     replicated=opt.replicate_fields and self.ring.world > 1)
-            counters["photon"] = counters["photon"] + lost
-            counters["qed_deferred"] = counters["qed_deferred"] + deferred
-            if ev:
-                events = self._log_events(events, *ev[0])
+                counters["photon"] = counters["photon"] + lost
+                counters["qed_deferred"] = counters["qed_deferred"] + deferred
+                if ev:
+                    events = self._log_events(events, *ev[0])
         if opt.photon_emission:
-            with torch.profiler.record_function("emit_radiation"):
+            with trace.span(trace.EMIT, dev):
                 species, lost, deferred = emit_radiation(
                     self, species, c.t, rng)
-            counters["photon"] = counters["photon"] + lost
-            counters["qed_deferred"] = counters["qed_deferred"] + deferred
+                counters["photon"] = counters["photon"] + lost
+                counters["qed_deferred"] = counters["qed_deferred"] + deferred
 
-        n_slab = geom.n_loc + 2 * HALO
-        J_slab = torch.zeros((n_slab, 3), dtype=E.dtype, device=E.device)
-        rho_slab = torch.zeros((n_slab,), dtype=E.dtype, device=E.device)
-        if opt.current_deposition:
-            for J_add, rho_add in fused_dep.values():
-                J_slab = J_slab + J_add.to(E.dtype)
-                rho_slab = rho_slab + rho_add.to(E.dtype)
-            J_slab, rho_slab = self._deposit(
-                J_slab, rho_slab,
-                {n: st for n, st in species.items() if n not in fused_dep})
-        J, rho = self._fold(J_slab, rho_slab)
-        E_own, B_own = apply_boundaries(
-            E_slab[HALO:-HALO], B_slab[HALO:-HALO], geom, self.axis_index,
-            c.t, opt.dt, self.laser_y, self.laser_z,
-        )
-        E_slab = torch.cat([E_slab[:HALO], E_own, E_slab[-HALO:]])
-        B_slab = torch.cat([B_slab[:HALO], B_own, B_slab[-HALO:]])
-        J_slab = torch.nn.functional.pad(J, (0, 0, HALO, HALO))
+        with trace.span(trace.DEPOSIT, dev):
+            n_slab = geom.n_loc + 2 * HALO
+            J_slab = torch.zeros((n_slab, 3), dtype=E.dtype, device=E.device)
+            rho_slab = torch.zeros((n_slab,), dtype=E.dtype, device=E.device)
+            if opt.current_deposition:
+                for out_slab in out_slabs.values():
+                    J_add, rho_add = F.fold_out_slab(out_slab)
+                    J_slab = J_slab + J_add.to(E.dtype)
+                    rho_slab = rho_slab + rho_add.to(E.dtype)
+                J_slab, rho_slab = self._deposit(
+                    J_slab, rho_slab,
+                    {n: st for n, st in species.items()
+                     if n not in out_slabs})
+            J, rho = self._fold(J_slab, rho_slab)
 
-        E_slab, B_slab = maxwell.advance(
-            E_slab, B_slab, J_slab, opt.dt, geom.dx,
-            sm_mask(geom, E.device, self.axis_index),
-        )
+        with trace.span(trace.FIELDS, dev):
+            E_own, B_own = apply_boundaries(
+                E_slab[HALO:-HALO], B_slab[HALO:-HALO], geom,
+                self.axis_index, c.t, opt.dt, self.laser_y, self.laser_z,
+            )
+            E_slab = torch.cat([E_slab[:HALO], E_own, E_slab[-HALO:]])
+            B_slab = torch.cat([B_slab[:HALO], B_own, B_slab[-HALO:]])
+            J_slab = torch.nn.functional.pad(J, (0, 0, HALO, HALO))
+            E_slab, B_slab = maxwell.advance(
+                E_slab, B_slab, J_slab, opt.dt, geom.dx,
+                sm_mask(geom, E.device, self.axis_index),
+            )
         return Carry(E_slab[HALO:-HALO], B_slab[HALO:-HALO], J, rho,
                      species, c.t + opt.dt, counters, anchors, events)
 
@@ -781,8 +799,9 @@ class Simulation:
             # k steps as M-step blocks, each closed by the exchange
             for lo in range(0, k, Mb):
                 for _ in range(min(Mb, k - lo)):
-                    c = self._device_step(c, inline_sort, inline_migrate,
-                                          draws())
+                    with trace.span(trace.STEP):
+                        c = self._device_step(c, inline_sort, inline_migrate,
+                                              draws())
                 if not inline_migrate:
                     c = self._migrate_phase(c)
             return c

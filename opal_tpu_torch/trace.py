@@ -1,0 +1,217 @@
+"""The program's spans and counters: where a step's time goes.
+
+Every span name of the program is written here and only here.  The
+step opens :func:`span` around each of its phases and stages, and turns
+device values into Python numbers only through :func:`host_read`.
+
+All of it is gated on one attribute read: while no ``torch.profiler``
+session records, :func:`span` returns a shared no-op context, and
+:func:`count` and :func:`host_read` record nothing.  While one records:
+
+- a span enters ``torch.profiler.record_function(name)``, so that its
+  host interval lies on the profiler's clock beside the device trace;
+- a *phase* span (:data:`PHASES`) also times its extent on the device:
+  a CUDA event recorded on the device's current stream where it opens
+  and one where it closes, so that its time is its kernels plus the
+  idle gaps between them; on a CPU device, which runs each operation as
+  it is issued, the host clock;
+- counters add up what the host already holds (no read of their own).
+
+Phases never nest inside each other, so their times add up.  Nothing is
+written anywhere: :func:`snapshot` returns what the last profiled
+stretch recorded, resolving the CUDA events (call it after the device
+has been synchronised), and :func:`reset` clears it.  The record clears
+itself when a new profiler session starts.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+
+import torch
+from torch.autograd import profiler as _profiler
+
+#: one step of ``Simulation.run`` (``_device_step``); the parent of the
+#: phases inside it
+STEP = "opal.step"
+#: the halo refresh of the field slabs
+HALO = "opal.halo"
+#: a species' push: the fused kernel with its field table and work and
+#: optical-depth updates, or the unfused push
+PUSH = "opal.push"
+#: the misfit fallback: the compaction, its host read, the unfused push
+#: of the misfit rows and their deposit
+MISFIT = "opal.misfit"
+#: photon absorption and stimulated emission (``interactions.absorb``)
+ABSORB = "opal.absorb"
+#: photon emission (``interactions.emit_radiation``)
+EMIT = "opal.emit"
+#: the kernel's slabs folded out to J and rho, the unfused deposit and
+#: the halo fold of the currents
+DEPOSIT = "opal.deposit"
+#: the boundaries and the Yee advance
+FIELDS = "opal.fields"
+#: the maintenance sort and the block anchors
+SORT = "opal.sort"
+#: the edge exchange (migration) of the species
+EXCHANGE = "opal.exchange"
+
+#: the spans that time their extent on the device
+PHASES = (HALO, PUSH, MISFIT, ABSORB, EMIT, DEPOSIT, FIELDS, SORT, EXCHANGE)
+
+#: a device value turned into a Python number (:func:`host_read`)
+HOST_READ = "opal.host_read"
+#: stages inside the phases
+TAU_DECREMENT = "opal.push.tau_decrement"
+EMIT_SAMPLE = "opal.emit.sample"
+ABSORB_SEGMENTS = "opal.absorb.segments"
+ABSORB_WORKING_SET = "opal.absorb.working_set"
+ABSORB_TABLE = "opal.absorb.table"
+ABSORB_DRAWS = "opal.absorb.draws"
+ABSORB_WALK = "opal.absorb.walk"
+#: the collectives of ``parallel.dist.Ring`` (with a process group)
+SHIFT = "opal.collective.shift"
+PSUM = "opal.collective.psum"
+ALL_GATHER = "opal.collective.all_gather"
+GATHER = "opal.collective.gather"
+BARRIER = "opal.collective.barrier"
+
+#: every span of the program
+SPANS = (STEP, *PHASES, HOST_READ, TAU_DECREMENT, EMIT_SAMPLE,
+         ABSORB_SEGMENTS, ABSORB_WORKING_SET, ABSORB_TABLE, ABSORB_DRAWS,
+         ABSORB_WALK, SHIFT, PSUM, ALL_GATHER, GATHER, BARRIER)
+
+#: counters: host reads; misfit rows pushed by the fallback; steps (of a
+#: species) in which the fallback ran
+HOST_READS = "host_reads"
+MISFIT_ROWS = "misfit_rows"
+MISFIT_STEPS = "misfit_steps"
+COUNTERS = (HOST_READS, MISFIT_ROWS, MISFIT_STEPS)
+
+_PHASE_SET = frozenset(PHASES)
+
+
+class _Record:
+    """What the current profiled stretch recorded: the calls of each
+    span, the (start, end) marks of each phase (CUDA event pairs, or
+    host seconds), and the counters."""
+
+    def __init__(self):
+        self.live = False
+        self.calls: dict = {}
+        self.marks: dict = {}
+        self.counters: dict = {}
+
+    def clear(self):
+        self.calls, self.marks, self.counters = {}, {}, {}
+
+    def arm(self):
+        """Start a new record at the first event of a profiler session."""
+        if not self.live:
+            self.clear()
+            self.live = True
+
+
+_RECORD = _Record()
+
+
+#: the context of a span while nothing records
+_NULL = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "device", "_range", "_start")
+
+    def __init__(self, name: str, device):
+        self.name, self.device = name, device
+
+    def __enter__(self):
+        rec = _RECORD
+        rec.arm()
+        rec.calls[self.name] = rec.calls.get(self.name, 0) + 1
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        if self.name in _PHASE_SET:
+            self._start = _mark(self.device)
+        return self
+
+    def __exit__(self, *exc):
+        if self.name in _PHASE_SET:
+            _RECORD.marks.setdefault(self.name, []).append(
+                (self._start, _mark(self.device)))
+        self._range.__exit__(*exc)
+        return False
+
+
+def _mark(device):
+    """A point on the device's timeline: a CUDA event recorded on its
+    current stream, or the host clock for any other device."""
+    if device is not None and device.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(device))
+        return ev
+    return time.perf_counter()
+
+
+def span(name: str, device=None):
+    """A context around ``name``: nothing while no profiler records; a
+    ``record_function`` range while one does, timed on ``device`` if
+    ``name`` is a phase."""
+    if not _profiler._is_profiler_enabled:
+        if _RECORD.live:
+            _RECORD.live = False
+        return _NULL
+    return _Span(name, device)
+
+
+def count(name: str, n: int):
+    """Add ``n``, a number the host holds, to the counter ``name`` while
+    a profiler records."""
+    if _profiler._is_profiler_enabled:
+        _RECORD.arm()
+        _RECORD.counters[name] = _RECORD.counters.get(name, 0) + n
+
+
+def host_read(t: torch.Tensor):
+    """``t`` as Python numbers (``t.tolist()``: a number for a 0-d
+    tensor), the one way the step reads the device; it waits for the
+    device's queue.  Counted in :data:`HOST_READS` under its own span
+    while a profiler records."""
+    if not _profiler._is_profiler_enabled:
+        return t.tolist()
+    with span(HOST_READ):
+        count(HOST_READS, 1)
+        return t.tolist()
+
+
+def snapshot() -> dict:
+    """The last profiled stretch: ``{"counters": {name: n}, "spans":
+    {name: {"calls": n, "device_ms": ms}}}``, every counter of
+    :data:`COUNTERS` present, ``device_ms`` on the phases alone (summed
+    over their calls).  The device must have been synchronised."""
+    rec = _RECORD
+    spans = {}
+    for name, calls in rec.calls.items():
+        spans[name] = {"calls": calls}
+        if name in _PHASE_SET:
+            spans[name]["device_ms"] = sum(
+                _elapsed_ms(a, b) for a, b in rec.marks.get(name, ()))
+    # the next session starts a new record
+    rec.live = False
+    return {"counters": {k: rec.counters.get(k, 0) for k in
+                         (*COUNTERS, *rec.counters)},
+            "spans": spans}
+
+
+def _elapsed_ms(a, b) -> float:
+    if isinstance(a, float):
+        return (b - a) * 1e3
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def reset():
+    """Clear the record."""
+    _RECORD.clear()
+    _RECORD.live = False

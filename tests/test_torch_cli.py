@@ -140,7 +140,10 @@ def test_profile_writes_table_and_keeps_outputs(tmp_path, capsys):
                       "--profile", str(tmp_path / "trace")]) == 0
     err = capsys.readouterr().err
     assert "profile: " in err and "s wall" in err
-    assert "aten::" in (tmp_path / "trace" / "profile.txt").read_text()
+    table = (tmp_path / "trace" / "profile.txt").read_text()
+    assert "aten::" in table
+    # the program's spans and counters a step end the table
+    assert "opal.step: host" in table and "host_reads: " in table
     for name in ("2_energy.dat", "2_grid.dat"):
         assert (prof.parent / name).read_text() == \
             (plain.parent / name).read_text(), name

@@ -1,0 +1,224 @@
+"""The program's spans and counters (``opal_tpu_torch.trace``) on the CPU.
+
+With no profiler recording, a span is a shared no-op and nothing is
+counted.  Under a CPU profiler, on a small periodic fused deck whose
+window is tight enough that rows miss it: every step holds each phase
+once, the sorts and exchanges follow the deck's cadences, each step
+reads the device once, the misfit counter equals the rows the fallback
+pushed, and the final state equals the unprofiled run's bit for bit.
+"""
+
+import numpy as np
+import pytest
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from opal_tpu_torch import constants as const
+from opal_tpu_torch import trace
+from opal_tpu_torch.grid import GridGeometry
+from opal_tpu_torch.sim import SimOptions, Simulation
+from opal_tpu_torch.species import SpeciesSpec, initialize
+
+pytestmark = pytest.mark.unit
+
+NX, NPC, CAP, STEPS = 64, 16, 1536, 24
+DX = 500.0
+DT = 0.95 * DX / const.SPEED_OF_LIGHT
+#: sorts every 8 steps, exchanges every 4: 3 sorts and 6 exchanges
+OPTS = dict(dt=DT, fused_pusher=True, fused_block=128, fused_window=12,
+            fused_resort_every=8, migration_every=4,
+            max_drift_cells_per_step=0.45, migration_window=256,
+            migration_capacity=64, fused_misfit_capacity=256)
+STEP_PHASES = (trace.HALO, trace.PUSH, trace.MISFIT, trace.DEPOSIT,
+               trace.FIELDS)
+
+
+def _deck(**over):
+    geom = GridGeometry(nx=NX, dx=DX, xmin=0.0, n_devices=1)
+    sim = Simulation(geom, SimOptions(**{**OPTS, **over}),
+                     {"electron": SpeciesSpec.electron()}, device="cpu",
+                     dtype=torch.float32, field_dtype=torch.float64)
+    st = initialize(
+        SpeciesSpec.electron(), geom, NPC,
+        density=lambda x: np.full_like(np.asarray(x, float), 20.0),
+        ux=lambda x, u, nr: 0.25 * np.sign(u - 0.5) * (1.0 + 0.2 * nr),
+        uy=lambda x, u, nr: 0.05 * nr, uz=lambda x, u, nr: np.zeros_like(x),
+        dt=DT, capacity_per_device=CAP, seed=3, dtype=np.float32,
+        work_dtype=np.float64, device="cpu")
+    return sim, st
+
+
+def _run(sim, st, steps=STEPS):
+    E, B, J, rho = sim.init_fields()
+    B[:, 2] = 1e-7  # a gyrating orbit: rows leave their windows
+    return sim.run(E, B, J, rho, {"electron": st}, 0.0, sim.zero_counters(),
+                   steps)
+
+
+@pytest.fixture(autouse=True)
+def _clean_record():
+    trace.reset()
+    yield
+    trace.reset()
+
+
+def _profiled(fn):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, prof
+
+
+def _spans(prof):
+    """The program's spans on the host: (name, start_us, end_us)."""
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()
+            if e.device_type == DeviceType.CPU and e.name in trace.SPANS]
+
+
+def test_spans_are_inert_without_a_profiler(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) without a profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert not torch.autograd.profiler._is_profiler_enabled
+    with trace.span(trace.STEP), trace.span(trace.HALO, torch.device("cpu")):
+        trace.count(trace.MISFIT_ROWS, 5)
+        assert trace.host_read(torch.tensor(7)) == 7
+    assert trace.span(trace.PUSH) is trace.span(trace.SORT)
+    sim, st = _deck()
+    _run(sim, st, steps=4)
+    snap = trace.snapshot()
+    assert snap["spans"] == {}
+    assert snap["counters"] == dict.fromkeys(trace.COUNTERS, 0)
+
+
+def test_host_read_returns_python_numbers():
+    assert trace.host_read(torch.tensor(3, dtype=torch.int64)) == 3
+    assert trace.host_read(torch.tensor([1, 2])) == [1, 2]
+    (got, pair), _ = _profiled(lambda: (
+        trace.host_read(torch.tensor(2.5)),
+        trace.host_read(torch.tensor([4, 5]))))
+    assert (got, pair) == (2.5, [4, 5])
+    snap = trace.snapshot()
+    assert snap["counters"][trace.HOST_READS] == 2
+    assert snap["spans"][trace.HOST_READ] == {"calls": 2}
+
+
+def test_phase_spans_time_the_host_clock_on_the_cpu():
+    def work():
+        for _ in range(3):
+            with trace.span(trace.SORT, torch.device("cpu")):
+                torch.ones(1000).cumsum(0)
+        with trace.span(trace.STEP):
+            pass
+
+    _profiled(work)
+    snap = trace.snapshot()
+    assert snap["spans"][trace.SORT]["calls"] == 3
+    assert snap["spans"][trace.SORT]["device_ms"] > 0.0
+    # not a phase: calls alone
+    assert snap["spans"][trace.STEP] == {"calls": 1}
+
+
+def test_a_new_profiler_session_starts_a_new_record():
+    def one():
+        with trace.span(trace.STEP):
+            trace.count(trace.MISFIT_ROWS, 3)
+
+    _profiled(one)
+    assert trace.snapshot()["counters"][trace.MISFIT_ROWS] == 3
+    # no span between the sessions: the snapshot closed the record
+    _profiled(one)
+    assert trace.snapshot()["counters"][trace.MISFIT_ROWS] == 3
+    _profiled(one)
+    one()  # a span with no profiler between the sessions closes it too
+    _profiled(one)
+    snap = trace.snapshot()
+    assert snap["counters"][trace.MISFIT_ROWS] == 3
+    assert snap["spans"][trace.STEP]["calls"] == 1
+    trace.reset()
+    assert trace.snapshot()["spans"] == {}
+
+
+def test_each_step_holds_its_phases_and_the_cadences_hold():
+    sim, st = _deck()
+    _, prof = _profiled(lambda: _run(sim, st))
+    spans = _spans(prof)
+    steps = [s for s in spans if s[0] == trace.STEP]
+    assert len(steps) == STEPS
+    for _, a, b in steps:
+        inside = [n for n, s, e in spans if a <= s and e <= b and
+                  n in trace.PHASES]
+        assert sorted(inside) == sorted(STEP_PHASES), inside
+    names = [n for n, _, _ in spans]
+    assert names.count(trace.SORT) == 3
+    assert names.count(trace.EXCHANGE) == 6
+    # sorts and exchanges run between the steps, phases never nest
+    for n, a, b in spans:
+        if n in (trace.SORT, trace.EXCHANGE):
+            assert not any(s <= a and b <= e for _, s, e in steps)
+    snap = trace.snapshot()
+    for name in (*STEP_PHASES, trace.SORT, trace.EXCHANGE):
+        assert snap["spans"][name]["device_ms"] > 0.0, name
+    assert snap["spans"][trace.STEP]["calls"] == STEPS
+
+
+def test_host_reads_and_misfit_rows_are_counted(monkeypatch):
+    sim, st = _deck()
+    pushed = []
+    real = Simulation._push_rows
+
+    def spy(self, name, cell, *args, **kw):
+        pushed.append(cell.shape[0])
+        return real(self, name, cell, *args, **kw)
+
+    monkeypatch.setattr(Simulation, "_push_rows", spy)
+    out, _ = _profiled(lambda: _run(sim, st))
+    assert int(out[6]["electron"]) == 0
+    snap = trace.snapshot()
+    assert snap["counters"][trace.HOST_READS] == STEPS
+    assert snap["spans"][trace.HOST_READ]["calls"] == STEPS
+    assert sum(pushed) > 0, "the deck's window should make misfits"
+    assert snap["counters"][trace.MISFIT_ROWS] == sum(pushed)
+    assert snap["counters"][trace.MISFIT_STEPS] == len(pushed)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_the_profiler_changes_no_result(packed):
+    sim, st = _deck(packed_fused=packed)
+    plain = _run(sim, st)
+    traced, _ = _profiled(lambda: _run(sim, st))
+    for i in range(4):
+        assert torch.equal(plain[i], traced[i]), i
+    assert plain[5] == traced[5]
+    for k, v in plain[4]["electron"].columns().items():
+        assert torch.equal(v, traced[4]["electron"].columns()[k]), k
+    snap = trace.snapshot()
+    assert snap["counters"][trace.HOST_READS] == STEPS
+    assert snap["spans"][trace.PUSH]["calls"] == STEPS
+
+
+def test_ring_collectives_have_spans_with_a_group(tmp_path):
+    """A world of 1 under a ``gloo`` group issues its reductions and
+    gathers (its shift is a local copy); a ring without a group issues
+    none and records no collective span."""
+    from opal_tpu_torch.parallel import dist
+
+    x = torch.arange(4.0)
+    _profiled(lambda: (dist.SOLO.psum(x), dist.SOLO.all_gather(x),
+                       dist.SOLO.shift(x, x)))
+    assert trace.snapshot()["spans"] == {}
+    ring = dist.init(0, 1, f"file://{tmp_path}/rendezvous", "cpu")
+    try:
+        (total, every, first, _, _), _ = _profiled(lambda: (
+            ring.psum(x), ring.all_gather(x), ring.gather(x),
+            ring.shift(x, x), ring.barrier()))
+    finally:
+        dist.close(ring)
+    assert torch.equal(total, x) and torch.equal(every, x[None])
+    assert torch.equal(first, x[None])
+    calls = {k: v["calls"] for k, v in trace.snapshot()["spans"].items()}
+    # the barrier is a sum of one element
+    assert calls == {trace.PSUM: 2, trace.ALL_GATHER: 1, trace.GATHER: 1,
+                     trace.BARRIER: 1}
