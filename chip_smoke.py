@@ -162,7 +162,13 @@ the port on the card, phase by phase, each printing one line or more:
     deck's empty photon buffer) through ``species.initialize_device``
     on the card against the host draw ``species.initialize`` of the
     same deck copied to it: equal cells, alive masks and weights, row
-    for row, and each draw's seconds.
+    for row, and each draw's seconds;
+31. the misfit fallback kernel against its plain version at the
+    two_stream_128m cell's field table and table capacity (2048), after
+    B1 on 16.8M electrons with 15 moved out of their window: columns, slab
+    and losses within the tolerances of ``tests/test_torch_misfit_cuda.py``,
+    and the kernel's device, call and plain times with an empty table
+    and with the 15 rows.
 
 ``python3 chip_smoke.py --ranks N`` runs phases 1-2, then phase 27
 instead of 3-28: the two_stream deck (2000 steps), phase 24's
@@ -176,7 +182,7 @@ Kernel times (``ms``) are device time: 20 calls queued behind a
 device-side spin run back to back between two CUDA events.  The
 wrapper's whole call (``call_ms``) and the plain version's
 (``plain_ms``) are timed by CUDA events around each call, host launch
-included.  Phases 1-29 take about ten to
+included.  Phases 1-31 take about ten to
 eighteen minutes.  Any failed check raises, so the
 script exits non-zero without the final line.  Before the last line it
 prints one JSON object describing each kernel form of the paths, and
@@ -3439,6 +3445,98 @@ def device_init_on_card(smi: str):
     return out
 
 
+def misfit_fallback_kernel(smi: str):
+    """Phase 31: the misfit fallback kernel (``ops.fused.misfit_fallback``)
+    against its plain version at the shape of ``two_stream_128m.column``'s
+    step: its field table (nx 16384) and table capacity (2048), after B1
+    (lite Vay, block 8192, window 12) on 16,777,216 sorted electrons
+    (1024 a cell, so that a block spans 8 or 9 cells as at the cell's
+    8192) of which 15 were moved out of their window.  The columns, the slab and
+    the losses within the tolerances of
+    ``tests/test_torch_misfit_cuda.py``; then the kernel's device time
+    (20 calls back to back), the wrapper's call and the plain version's
+    (medians of 20), with an empty table and with the 15 rows, and the
+    bound: the table and the rows' columns, field taps and slab taps
+    once at the HBM rate, against the rows' f32 operations.  Returns
+    {"empty" | "15 rows": (ms, call_ms, plain_ms, bound_ms, bound_by)}."""
+    from opal_tpu_torch import constants as const
+    from opal_tpu_torch.grid import HALO, GridGeometry
+    from opal_tpu_torch.ops import fused as F
+    from opal_tpu_torch.parallel.migrate import sort_state
+
+    nx, cap, n_mis = 16384, 2048, 15
+    dx = 500.0
+    dt = 0.95 * dx / const.SPEED_OF_LIGHT
+    geom = GridGeometry(nx=nx, dx=dx, xmin=0.0, n_devices=1)
+    st = sort_state(two_stream_state(geom, 1024, 16_777_216, dt, "cuda"),
+                    nx)
+    spec = F.FusedSpec(block=8192, window=12, n_rows=nx + 2 * HALO + 2 * F.PAD,
+                       dx=dx, dt=dt, charge=const.ELECTRON_CHARGE,
+                       mass=const.ELECTRON_MASS, row_off=HALO + F.PAD)
+    anchors = F.block_anchors(spec, st.cell)
+    g = torch.Generator(device="cpu").manual_seed(31)
+    moved = torch.randperm(st.cell.numel(), generator=g)[:n_mis].cuda()
+    st.cell[moved] = (st.cell[moved] + 12) % nx
+    E = (10.0 * torch.randn(nx + 2 * HALO, 3, generator=g)).cuda()
+    B = (1e-8 * torch.randn(nx + 2 * HALO, 3, generator=g)).cuda()
+    eb = F.make_eb_rows(E, B)
+    cols, miss, out, _ = F.fused_push_deposit(
+        spec, anchors, st.cell, st.x, st.y, st.z, st.ux, st.uy, st.uz,
+        st.gamma, st.weight, st.work, eb)
+    mtab, losses = F.misfit_compact(miss, cap)
+    assert int((mtab < st.cell.numel()).sum()) == n_mis
+
+    def args(table):
+        rows = {c: v.clone() for c, v in F.column_rows(cols, spec.block)
+                .items()}
+        return (spec, table, rows, st.weight, eb, E, B, out.clone(),
+                losses.clone())
+
+    ka, pa = args(mtab), args(mtab)
+    F.misfit_fallback(*ka)
+    F.misfit_fallback_reference(*pa[:4], *pa[5:])
+    torch.cuda.synchronize()
+    err = 0.0
+    for c, want in pa[2].items():
+        got = ka[2][c]
+        if c == "cell":
+            assert torch.equal(got, want), c
+            continue
+        e = (got - want).abs().max().item()
+        assert e <= 1e-6 * want.abs().max().item(), (c, e)
+        err = max(err, e)
+    slab_err = (ka[7] - pa[7]).abs().max().item()
+    assert slab_err <= 1e-5 * pa[7].abs().max().item(), slab_err
+    assert int(ka[8]) == int(pa[8]) == 0
+
+    empty = torch.full_like(mtab, st.cell.numel())
+    out_ = {}
+    for label, table, n in (("empty", empty, 0), ("15 rows", mtab, n_mis)):
+        a = args(table)
+        ms = device_ms(lambda: F.misfit_fallback(*a))
+        call_ms = cuda_ms(lambda: F.misfit_fallback(*a))
+        plain_ms = cuda_ms(lambda: F.misfit_fallback_reference(*a[:4],
+                                                              *a[5:]))
+        # the table; a row's 9 columns both ways, its weight, its 4 field
+        # rows (8 values) and its 15 slab taps
+        nbytes = 8 * cap + n * 4 * (2 * 9 + 1 + 4 * 8 + 15)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n * (OPS_PUSH["vay"] + OPS_DEPOSIT) / F32_OPS_PER_S * 1e3
+        bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                              else (t_ops, "operations"))
+        out_[label] = (ms, call_ms, plain_ms, bound_ms, bound_by)
+        log(31, f"misfit fallback (lite Vay), table of {cap} with {n} rows, "
+                f"field table {spec.n_rows} rows: kernel {ms:.4f} ms of "
+                f"device time (20 calls back to back), the wrapper's call "
+                f"{call_ms:.4f} ms, plain {plain_ms:.4f} ms (medians of 20), "
+                f"bound {bound_ms:.6f} ms ({bound_by}); on {smi}")
+    log(31, f"kernel against plain on {n_mis} rows: columns within "
+            f"{err:.3e} (max |err|), slab {slab_err:.3e}, losses equal")
+    del st, cols, miss, out
+    torch.cuda.empty_cache()
+    return out_
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -3561,6 +3659,7 @@ def main(argv=None) -> int:
                           "forced-event state": captured_19}, smi)
         del captured_19, captured_21, captured_22
         device_init_on_card(smi)
+        fallback = misfit_fallback_kernel(smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3676,6 +3775,13 @@ def main(argv=None) -> int:
            if label != qed_main[k]],
         "forms_off_path": [row(f) for f in timed
                            if f not in by_path and f not in other_shapes],
+        "misfit_fallback": [
+            dict(name=f"misfit_fallback[vay] (table of 2048, {label})",
+                 route="cuda", source=KERNEL["source"],
+                 replaces="opal_tpu/sim.py:628", ms=ms, call_ms=call_ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            for label, (ms, call_ms, plain_ms, bound_ms, bound_by)
+            in fallback.items()],
     }))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -107,8 +107,8 @@ CONSTANTS = {"threads": "kThreads", "segments": "kMaxSegments"}
 DIAGNOSTICS = ("nosum", "noother", "cheaptaps")
 # the deposit's 15 taps, and its summing from the warp vote to the
 # closing braces of the deposit block and the row loop
-_TAPS = re.compile(r"    v\[0\] = qf \* flux\(.*?"
-                   r"    v\[14\] = qx \* w_q;\n", re.S)
+_TAPS = re.compile(r" +v\[0\] = qf \* flux\(.*?"
+                   r" +v\[14\] = qx \* w_q;\n", re.S)
 _SUMS = re.compile(r"      if \(!__all_sync\(kFullMask.*?"
                    r"(?=  if constexpr \(kDeposit\) flush\(\);)", re.S)
 # taps that stay live (a condition the compiler cannot decide) but are

@@ -106,6 +106,11 @@ def library() -> ctypes.CDLL:
         [vp] * 8 + [ctypes.c_longlong] + [i32] * 7 + [f32] * 10 + [vp]
     )
     i64, f64 = ctypes.c_longlong, ctypes.c_double
+    fn = L.opal_misfit_fallback
+    fn.restype = i32
+    fn.argtypes = (
+        [vp, i64, i64] + [vp] * 17 + [i64] * 2 + [i32] * 7 + [f32] * 10 + [vp]
+    )
     fn = L.opal_absorb_walk
     fn.restype = i32
     fn.argtypes = [vp] * 20 + [i64] * 4 + [i32] * 11 + [f64] * 3 + [vp]

@@ -23,9 +23,12 @@
 // Each with the deposit on, or skipped (dep_skip, fused.py:523-524:
 // decks without current deposition), which then has no shared tile, no
 // flush and no slab pointer at all.
+// Below them, misfit_fallback_kernel replaces opal_tpu/sim.py's
+// _fallback: it pushes the rows either kernel left (outside their
+// window) with the same row push, one launch a step (its own note).
 // The plain PyTorch versions are
-// opal_tpu_torch/ops/fused.py::fused_push_deposit_reference and
-// ::fused_push_deposit_packed_reference.
+// opal_tpu_torch/ops/fused.py::fused_push_deposit_reference,
+// ::fused_push_deposit_packed_reference and ::misfit_fallback_reference.
 //
 // What bounds it on an H100: HBM traffic.  Each row reads nine or ten
 // 4-byte columns (cell x y z ux uy uz gamma weight [work]) and writes
@@ -177,61 +180,29 @@ __device__ __forceinline__ void add_to_tile(float* tile, int row, float s,
     atomicAdd(tile + row * kCols + (lane >> 1), s);
 }
 
-// kBoris: the Boris push (ions) instead of Vay (electrons).  kWork: the
-// work column is carried (read from work_in, or from 0 when work_in is
-// null, and written to nwork; Vay adds the step's work, Boris passes it
-// through); without it neither pointer is touched.  kFull: prev_x, gh
-// and chi are written (Boris: gh is its gamma at the half rotation, chi
-// 0).  kDeposit: the deposit into the (n_rows, 16) slab; without it
-// `out` is not touched.  kPacked: the cell column is f32 (the packed
-// hot matrix).  Ten forms are instantiated: {lite Vay, full Vay} with
-// work and lite Boris without (column layout), and full Vay and full
-// Boris with work (packed layout), each with and without the deposit.
-//
-// push_row reads, pushes and writes back row r of block b, and with the
-// deposit returns the row's tile row celln - base + 2 and its 15 tap
-// values in v; kNoKey (v untouched) for a row that deposits nothing.
-template <bool kBoris, bool kWork, bool kFull, bool kDeposit, bool kPacked>
-__device__ __forceinline__ int push_row(const Args& a, int64_t i, int64_t j,
-                                        int64_t iw, const float* win,
-                                        int base, int W, int row_off,
-                                        int lo_row, int hi_row,
-                                        const Consts& k, int& min_fit,
-                                        int& min_alive, float (&v)[kCols]) {
-  float cellf = 0.0f;
-  int cell;
-  if constexpr (kPacked) {
-    // the f32 cell column truncates to i32, as astype does
-    cellf = static_cast<const float*>(a.cell)[i];
-    cell = (int)cellf;
-  } else {
-    cell = static_cast<const int*>(a.cell)[i];
-  }
-  const int row = cell + row_off;
-  const int rel = row - base;
-  const float xv = a.x[i], yv = a.y[i], zv = a.z[i];
-  const float uxv = a.ux[i], uyv = a.uy[i], uzv = a.uz[i], gv = a.gamma[i];
-  const float q = a.weight[iw] * k.charge;
-  float w_in = 0.0f;
-  if (kWork && a.work_in) w_in = a.work_in[i];
-  const bool fit = rel >= 1 && rel <= W - 3 && row >= lo_row && row <= hi_row;
-  const bool alive = q != 0.0f;
-  a.miss[j] = (alive && !fit) ? 1.0f : 0.0f;
-  if (alive) min_alive = min(min_alive, row);
-  if (!(fit && alive)) {
-    if constexpr (kPacked) static_cast<float*>(a.ncell)[i] = cellf;
-    else static_cast<int*>(a.ncell)[i] = cell;
-    a.nx[i] = xv; a.ny[i] = yv; a.nz[i] = zv;
-    a.nux[i] = uxv; a.nuy[i] = uyv; a.nuz[i] = uzv; a.ng[i] = gv;
-    if (kWork) a.nwork[i] = w_in;
-    if (kFull) {
-      a.nprev[j] = xv;
-      a.ngh[j] = 1.0f;
-      a.nchi[j] = 0.0f;
-    }
-    return kNoKey;
-  }
+// One pushed row: its new cell (table row), position, momentum and
+// Lorentz factor, 1 / gamma, and the form's extra outputs (the work; gh
+// and chi in the full form, 1 and 0 where the form has none).
+struct Pushed {
+  int celln;
+  float xn, prevn, yn, zn, unx, uny, unz, gn, ign, wk, gh, chi;
+};
 
+// kBoris: the Boris push (ions) instead of Vay (electrons).  kWork: the
+// work column is carried (Vay adds the step's work to w_in, Boris passes
+// it through).  kFull: gh and chi are computed (Boris: gh is its gamma
+// at the half rotation, chi 0).
+//
+// push_core gathers the fields of a row in table row `row`, pushes it
+// and advances x.  The fields come from the rows of a window that starts
+// `rel` rows below `row`: field_row(jt) returns window row jt's Ex Ey Ez
+// Bx By Bz, and the taps are rows rel-1 .. rel+2.
+template <bool kBoris, bool kWork, bool kFull, class FieldRow>
+__device__ __forceinline__ Pushed push_core(const FieldRow& field_row,
+                                            int row, int rel, float xv,
+                                            float yv, float zv, float uxv,
+                                            float uyv, float uzv, float gv,
+                                            float w_in, const Consts& k) {
   // ---- gather: taps rel-1 .. rel+2, summed from 0 in order ---------
   const float d = (float)rel + xv;
   float Ex = 0.0f, Ey = 0.0f, Ez = 0.0f, By = 0.0f, Bz = 0.0f;
@@ -241,14 +212,14 @@ __device__ __forceinline__ int push_row(const Args& a, int64_t i, int64_t j,
     const float dj = d - (float)jt;
     const float ce = w2(dj);          // edge taps (Ey, Ez)
     const float cc = w2(dj - 0.5f);   // centred taps (Ex, By, Bz)
-    const float* e = win + jt * 6;
+    const float* e = field_row(jt);
     Ex = Ex + cc * e[0];
     Ey = Ey + ce * e[1];
     Ez = Ez + ce * e[2];
     By = By + cc * e[4];
     Bz = Bz + cc * e[5];
   }
-  const float Bx = 0.0f + win[rel * 6 + 3];
+  const float Bx = 0.0f + field_row(rel)[3];
 
   float unx, uny, unz, gn, ign, vty, vtz, wk = w_in, gh = 1.0f, chi = 0.0f;
   if constexpr (kBoris) {
@@ -323,51 +294,131 @@ __device__ __forceinline__ int push_row(const Args& a, int64_t i, int64_t j,
   }
 
   // ---- x advance; the cell moves by the sign of floor(xn) -----------
-  float xn = xv + (k.kx * unx) * ign;
+  Pushed p;
+  const float xn = xv + (k.kx * unx) * ign;
   const float fl = floorf(xn);
-  const int celln = row + (fl < 0.0f ? -1 : (fl > 0.0f ? 1 : 0));
-  xn = xn - fl;
-  const float prevn = xv - fl;
+  p.celln = row + (fl < 0.0f ? -1 : (fl > 0.0f ? 1 : 0));
+  p.xn = xn - fl;
+  p.prevn = xv - fl;
+  p.yn = yv + vty * k.dt;
+  p.zn = zv + vtz * k.dt;
+  p.unx = unx; p.uny = uny; p.unz = unz; p.gn = gn; p.ign = ign;
+  p.wk = wk; p.gh = gh; p.chi = chi;
+  return p;
+}
 
+// Writes a pushed row: the cell..work columns at i, and in the full form
+// prev_x and chi (and gh with kGh) at j.  kPacked: the cell column is
+// f32 (the packed hot matrix).
+template <bool kWork, bool kFull, bool kGh, bool kPacked>
+__device__ __forceinline__ void store_row(const Args& a, int64_t i,
+                                          int64_t j, const Pushed& p,
+                                          int row_off) {
   if constexpr (kPacked)
-    static_cast<float*>(a.ncell)[i] = (float)(celln - row_off);
+    static_cast<float*>(a.ncell)[i] = (float)(p.celln - row_off);
   else
-    static_cast<int*>(a.ncell)[i] = celln - row_off;
-  a.nx[i] = xn;
-  a.ny[i] = yv + vty * k.dt;
-  a.nz[i] = zv + vtz * k.dt;
-  a.nux[i] = unx; a.nuy[i] = uny; a.nuz[i] = unz; a.ng[i] = gn;
-  if (kWork) a.nwork[i] = wk;
+    static_cast<int*>(a.ncell)[i] = p.celln - row_off;
+  a.nx[i] = p.xn;
+  a.ny[i] = p.yn;
+  a.nz[i] = p.zn;
+  a.nux[i] = p.unx; a.nuy[i] = p.uny; a.nuz[i] = p.unz; a.ng[i] = p.gn;
+  if (kWork) a.nwork[i] = p.wk;
   if (kFull) {
-    a.nprev[j] = prevn;
-    a.ngh[j] = gh;
-    a.nchi[j] = chi;
+    a.nprev[j] = p.prevn;
+    if (kGh) a.ngh[j] = p.gh;
+    a.nchi[j] = p.chi;
   }
-  min_fit = min(min_fit, celln);
+}
+
+// The 15 unshifted deposit taps of a pushed row of macrocharge q, at its
+// new cell.
+__device__ __forceinline__ void deposit_taps(float q, const Pushed& p,
+                                             const Consts& k,
+                                             float (&v)[kCols]) {
+  const float qf = q * k.inv_dt;
+  const float qx = q * k.inv_dx;
+  const float qy = qx * ((k.c * p.uny) * p.ign);
+  const float qz = qx * ((k.c * p.unz) * p.ign);
+  const float xn = p.xn, prevn = p.prevn;
+  const float w_m1 = w2(1.0f + xn), w_0 = w2(xn), w_p1 = w2(1.0f - xn);
+  const float w_q = w2(2.0f - xn);  // the reference's index-2 rho quirk
+  v[0] = qf * flux(-1.5f - prevn, -1.5f - xn);
+  v[1] = qf * flux(-0.5f - prevn, -0.5f - xn);
+  v[2] = qf * flux(0.5f - prevn, 0.5f - xn);
+  v[3] = qf * flux(1.5f - prevn, 1.5f - xn);
+  v[4] = qf * flux(2.5f - prevn, 2.5f - xn);
+  v[5] = qy * w_m1;
+  v[6] = qy * w_0;
+  v[7] = qy * w_p1;
+  v[8] = qz * w_m1;
+  v[9] = qz * w_0;
+  v[10] = qz * w_p1;
+  v[11] = qx * w_m1;
+  v[12] = qx * w_0;
+  v[13] = qx * w_p1;
+  v[14] = qx * w_q;
+}
+
+// kWork: the work column is read from work_in (or 0 when work_in is
+// null) and written to nwork; without it neither pointer is touched.
+// kFull: prev_x, gh and chi are written.  kDeposit: the deposit into the
+// (n_rows, 16) slab; without it `out` is not touched.  Ten forms are
+// instantiated: {lite Vay, full Vay} with work and lite Boris without
+// (column layout), and full Vay and full Boris with work (packed
+// layout), each with and without the deposit.
+//
+// push_row reads, pushes and writes back row r of block b, and with the
+// deposit returns the row's tile row celln - base + 2 and its 15 tap
+// values in v; kNoKey (v untouched) for a row that deposits nothing.
+template <bool kBoris, bool kWork, bool kFull, bool kDeposit, bool kPacked>
+__device__ __forceinline__ int push_row(const Args& a, int64_t i, int64_t j,
+                                        int64_t iw, const float* win,
+                                        int base, int W, int row_off,
+                                        int lo_row, int hi_row,
+                                        const Consts& k, int& min_fit,
+                                        int& min_alive, float (&v)[kCols]) {
+  float cellf = 0.0f;
+  int cell;
+  if constexpr (kPacked) {
+    // the f32 cell column truncates to i32, as astype does
+    cellf = static_cast<const float*>(a.cell)[i];
+    cell = (int)cellf;
+  } else {
+    cell = static_cast<const int*>(a.cell)[i];
+  }
+  const int row = cell + row_off;
+  const int rel = row - base;
+  const float xv = a.x[i], yv = a.y[i], zv = a.z[i];
+  const float uxv = a.ux[i], uyv = a.uy[i], uzv = a.uz[i], gv = a.gamma[i];
+  const float q = a.weight[iw] * k.charge;
+  float w_in = 0.0f;
+  if (kWork && a.work_in) w_in = a.work_in[i];
+  const bool fit = rel >= 1 && rel <= W - 3 && row >= lo_row && row <= hi_row;
+  const bool alive = q != 0.0f;
+  a.miss[j] = (alive && !fit) ? 1.0f : 0.0f;
+  if (alive) min_alive = min(min_alive, row);
+  if (!(fit && alive)) {
+    if constexpr (kPacked) static_cast<float*>(a.ncell)[i] = cellf;
+    else static_cast<int*>(a.ncell)[i] = cell;
+    a.nx[i] = xv; a.ny[i] = yv; a.nz[i] = zv;
+    a.nux[i] = uxv; a.nuy[i] = uyv; a.nuz[i] = uzv; a.ng[i] = gv;
+    if (kWork) a.nwork[i] = w_in;
+    if (kFull) {
+      a.nprev[j] = xv;
+      a.ngh[j] = 1.0f;
+      a.nchi[j] = 0.0f;
+    }
+    return kNoKey;
+  }
+
+  const Pushed p = push_core<kBoris, kWork, kFull>(
+      [win](int jt) { return win + jt * 6; }, row, rel, xv, yv, zv, uxv, uyv,
+      uzv, gv, w_in, k);
+  store_row<kWork, kFull, true, kPacked>(a, i, j, p, row_off);
+  min_fit = min(min_fit, p.celln);
   if constexpr (kDeposit) {
-    // ---- deposit: 15 unshifted taps at tile row celln - base + 2 ----
-    const float qf = q * k.inv_dt;
-    const float qx = q * k.inv_dx;
-    const float qy = qx * ((k.c * uny) * ign);
-    const float qz = qx * ((k.c * unz) * ign);
-    const float w_m1 = w2(1.0f + xn), w_0 = w2(xn), w_p1 = w2(1.0f - xn);
-    const float w_q = w2(2.0f - xn);  // the reference's index-2 rho quirk
-    v[0] = qf * flux(-1.5f - prevn, -1.5f - xn);
-    v[1] = qf * flux(-0.5f - prevn, -0.5f - xn);
-    v[2] = qf * flux(0.5f - prevn, 0.5f - xn);
-    v[3] = qf * flux(1.5f - prevn, 1.5f - xn);
-    v[4] = qf * flux(2.5f - prevn, 2.5f - xn);
-    v[5] = qy * w_m1;
-    v[6] = qy * w_0;
-    v[7] = qy * w_p1;
-    v[8] = qz * w_m1;
-    v[9] = qz * w_0;
-    v[10] = qz * w_p1;
-    v[11] = qx * w_m1;
-    v[12] = qx * w_0;
-    v[13] = qx * w_p1;
-    v[14] = qx * w_q;
-    return celln - base + 2;
+    deposit_taps(q, p, k, v);
+    return p.celln - base + 2;
   } else {
     return kNoKey;
   }
@@ -515,6 +566,105 @@ int launch(const Args& a, long long nblk, int64_t s_h, int64_t s_a,
   return (int)cudaGetLastError();
 }
 
+// threads a CTA of the misfit fallback: a thread an entry of its table
+constexpr int kFallbackThreads = 128;
+
+// The misfit fallback: the rows of a block that lie outside its window
+// (or its deposit reach), which fused_push_deposit_kernel flags in
+// `miss` and leaves as they were, pushed here one thread a row.  It
+// replaces opal_tpu/sim.py's _fallback (:628-708; the port's plain twin
+// is ops/fused.py::misfit_fallback_reference), which runs
+// fields_at -> vay_push/boris_push -> deposit_into_slab on the
+// compacted rows.  What bounds it is the launch: the table holds a few
+// to a few hundred rows of its capacity (2048 at the 134M-electron
+// deck), so the work is microseconds.  So it is one launch of a thread
+// per table entry, every step, whatever the table holds: the host never
+// reads the count, and an entry of `n` (unused) returns at once.  A row's fields come from
+// the whole (n_rows, 8) field table in global memory (L2-resident, read
+// at its row's 4 taps), not a window: the row clamped into the slab and
+// its taps wrapped around it, as the plain gather (fields_at) reads the
+// halo-extended slab, which matters only to rows past the deposit reach.
+// The push is B1's own (push_core, the window taken to start one row
+// below the row's), with the same form, and the row is written back in
+// place into B1's output columns.  Its 15 taps go to the slab with one
+// global atomic each, where its new row lies in the deposit reach
+// [pad+2, n_rows-pad-3]; a row whose old row lies outside it adds one
+// to `losses` instead (a wrong drift estimate then voids the run
+// loudly, as in opal_tpu).  Where `counts` is given (while a profiler
+// records), the rows of the table are added to counts[0] and, if there
+// are any, one step to counts[1].
+template <bool kBoris, bool kWork, bool kFull, bool kDeposit, bool kPacked>
+__global__ void __launch_bounds__(kFallbackThreads)
+misfit_fallback_kernel(const Args a, const long long* mtab, int cap,
+                       long long n, int64_t s_h, int64_t s_a, int block,
+                       int n_rows, int row_off, int pad, long long* losses,
+                       unsigned long long* counts, Consts k) {
+  const int t = blockIdx.x * kFallbackThreads + threadIdx.x;
+  const long long r = t < cap ? mtab[t] : n;
+  if (counts != nullptr) {
+    // the table is ascending, its unused entries (n) at the end
+    const unsigned used = __ballot_sync(kFullMask, r < n);
+    if (threadIdx.x % 32 == 0 && used != 0)
+      atomicAdd(counts, (unsigned long long)__popc(used));
+    if (t == 0 && r < n) atomicAdd(counts + 1, 1ull);
+  }
+  if (r >= n) return;
+  const int64_t b = r / block, pin = r % block;
+  const int64_t i = b * s_h + pin, j = b * s_a + pin;
+  // the row as B1 left it: its values before the step
+  int cell;
+  if constexpr (kPacked)
+    cell = (int)static_cast<const float*>(a.ncell)[i];
+  else
+    cell = static_cast<const int*>(a.ncell)[i];
+  const int row = cell + row_off;
+  const float q = a.weight[r] * k.charge;
+  const float w_in = kWork ? a.nwork[i] : 0.0f;
+  // slab row s0 (table row s0 + pad) holds the row's cell; the window
+  // starts one row below it
+  const int n_slab = n_rows - 2 * pad;
+  const int s0 = min(max(row - pad, 0), n_slab - 1);
+  const float* eb = a.eb;
+  const Pushed p = push_core<kBoris, kWork, kFull>(
+      [eb, s0, n_slab, pad](int jt) {
+        int sr = s0 - 1 + jt;
+        sr = sr < 0 ? sr + n_slab : (sr >= n_slab ? sr - n_slab : sr);
+        return eb + (int64_t)(sr + pad) * 8;
+      },
+      row, 1, a.nx[i], a.ny[i], a.nz[i], a.nux[i], a.nuy[i], a.nuz[i],
+      a.ng[i], w_in, k);
+  // the packed layout's aux gh is left as B1 wrote it: it runs no QED,
+  // and nothing reads gh there
+  store_row<kWork, kFull, !kPacked, kPacked>(a, i, j, p, row_off);
+  if constexpr (kDeposit) {
+    const int lo_row = pad + 2, hi_row = n_rows - pad - 3;
+    if (q != 0.0f && (row < lo_row || row > hi_row))
+      atomicAdd(reinterpret_cast<unsigned long long*>(losses), 1ull);
+    if (p.celln >= lo_row && p.celln <= hi_row) {
+      float v[kCols];
+      deposit_taps(q, p, k, v);
+      float* o = a.out + (int64_t)p.celln * kCols;
+#pragma unroll
+      for (int c = 0; c < kCols - 1; ++c) atomicAdd(o + c, v[c]);
+    }
+  }
+}
+
+template <bool kBoris, bool kWork, bool kFull, bool kDeposit, bool kPacked>
+int launch_fallback(const Args& a, const long long* mtab, int cap,
+                    long long n, int64_t s_h, int64_t s_a, int block,
+                    int n_rows, int row_off, int pad, long long* losses,
+                    unsigned long long* counts, Consts k,
+                    cudaStream_t stream) {
+  const unsigned grid = (unsigned)((cap + kFallbackThreads - 1) /
+                                   kFallbackThreads);
+  misfit_fallback_kernel<kBoris, kWork, kFull, kDeposit, kPacked>
+      <<<grid, kFallbackThreads, 0, stream>>>(a, mtab, cap, n, s_h, s_a,
+                                              block, n_rows, row_off, pad,
+                                              losses, counts, k);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The column layout.  boris: 0 Vay, 1 Boris.  work_out: carry the work
@@ -594,5 +744,64 @@ extern "C" int opal_fused_push_deposit_packed(
                                  window, n_rows, row_off, pad, k, s)
   if (boris) return deposit ? OPAL_LAUNCH(true, true) : OPAL_LAUNCH(true, false);
   return deposit ? OPAL_LAUNCH(false, true) : OPAL_LAUNCH(false, false);
+#undef OPAL_LAUNCH
+}
+
+// The misfit fallback after either kernel, in place: `mtab` (cap,)
+// int64, ascending row indices into the n rows with n marking an unused
+// entry; the columns are the kernel's outputs, column c of row r at
+// c + (r / block) * s + r % block, with s = s_h for cell x y z ux uy uz
+// gamma work and s = s_a for prev_x gh chi (the column layout: s_h = s_a
+// = block; the packed one: 9 * block and 4 * block).  cell is int32, or
+// f32 with `packed`.  work: the work column (null for Boris in the
+// column layout).  full: prev_x and chi (and gh, in the column layout)
+// are written.  out: the (n_rows, 16) slab (null: no deposit, and
+// `losses` is not touched).  counts: two uint64, or null.  The forms
+// are the kernels': {lite Vay, full Vay} with work and lite Boris
+// without (column layout), full Vay and full Boris with work (packed);
+// any other combination returns cudaErrorInvalidValue.
+extern "C" int opal_misfit_fallback(
+    const long long* mtab, long long cap, long long n, void* cell, float* x,
+    float* y, float* z, float* ux, float* uy, float* uz, float* gamma,
+    float* work, float* prev_x, float* gh, float* chi, const float* weight,
+    const float* eb, float* out, long long* losses,
+    unsigned long long* counts, long long s_h, long long s_a, int block,
+    int n_rows, int row_off, int pad, int boris, int full, int packed,
+    float charge, float alpha, float c, float kwork, float dt, float talpha,
+    float kx, float inv_dt, float inv_dx, float crit, void* stream) {
+  if (block <= 0 || cap < 0 || cap > 0x7fffffff || !mtab || !cell ||
+      !weight || !eb)
+    return (int)cudaErrorInvalidValue;
+  const bool work_on = work != nullptr;
+  if (packed ? !(full && work_on) : work_on == (boris != 0))
+    return (int)cudaErrorInvalidValue;
+  if (full && (!prev_x || !chi || (!packed && (boris || !gh))))
+    return (int)cudaErrorInvalidValue;
+  if (out != nullptr && losses == nullptr) return (int)cudaErrorInvalidValue;
+  if (cap == 0) return 0;
+  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+               nullptr,  nullptr, weight,  nullptr, eb,      cell,
+               x,        y,       z,       ux,      uy,      uz,
+               gamma,    work,    prev_x,  gh,      chi,     nullptr,
+               nullptr,  nullptr, out};
+  const Consts k{charge, alpha, c, kwork, dt, talpha, kx, inv_dt, inv_dx,
+                 crit};
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool deposit = out != nullptr;
+#define OPAL_LAUNCH(B, W, F, D, P)                                          \
+  launch_fallback<B, W, F, D, P>(a, mtab, (int)cap, n, s_h, s_a, block,    \
+                                 n_rows, row_off, pad, losses, counts, k, s)
+  if (packed) {
+    if (boris) return deposit ? OPAL_LAUNCH(true, true, true, true, true)
+                              : OPAL_LAUNCH(true, true, true, false, true);
+    return deposit ? OPAL_LAUNCH(false, true, true, true, true)
+                   : OPAL_LAUNCH(false, true, true, false, true);
+  }
+  if (boris) return deposit ? OPAL_LAUNCH(true, false, false, true, false)
+                            : OPAL_LAUNCH(true, false, false, false, false);
+  if (full) return deposit ? OPAL_LAUNCH(false, true, true, true, false)
+                           : OPAL_LAUNCH(false, true, true, false, false);
+  return deposit ? OPAL_LAUNCH(false, true, false, true, false)
+                 : OPAL_LAUNCH(false, true, false, false, false);
 #undef OPAL_LAUNCH
 }

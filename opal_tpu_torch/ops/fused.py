@@ -26,8 +26,8 @@ Shape contract (as in the JAX kernel)
 * particles are *approximately* cell-sorted: block b sees field rows
   [anchors[b], anchors[b] + window).  Alive rows whose cell is outside
   rel in [1, window-3] (or outside the deposit reach) are not updated
-  and not deposited; they are flagged in ``miss`` and handled by the
-  caller's compacted fallback (``Simulation._fused_push_deposit``).
+  and not deposited; they are flagged in ``miss`` and pushed by the
+  compacted fallback (:func:`misfit_fallback`).
 * the field slab is an (n_rows, 8) f32 table with columns
   Ex Ey Ez Bx By Bz 0 0 and ``PAD`` extra rows on both sides.
 
@@ -45,13 +45,15 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 from typing import NamedTuple
 
 import torch
 
 from .. import constants as const
 from .deposit import _particle_values
-from .interp import flux, weight
+from .interp import fields_at, flux, weight
+from .pusher import boris_push, vay_push
 
 F32 = torch.float32
 
@@ -767,3 +769,193 @@ def misfit_compact(miss, capacity):
         R, torch.arange(1, capacity + 1, device=miss.device)
     )
     return table, torch.clamp(R[-1] - capacity, min=0)
+
+
+# ----------------------------------------------------------------------
+# The misfit fallback (opal_tpu/sim.py:617-708)
+# ----------------------------------------------------------------------
+#
+# The rows a kernel flags in ``miss`` (alive, outside their block's
+# window or its deposit reach) come back from it as they were.  The
+# fallback pushes and deposits them, in place in the kernel's outputs,
+# every step at the table's fixed capacity: on a card as one launch
+# whatever the table holds, so that the step reads nothing back to the
+# host.  Both layouts go through it as the same rows: each column an
+# (nblk, block) view into the kernel's outputs.
+
+#: the columns of the fallback's rows; ``work`` is the kernel's work
+#: column (``work`` or ``winc``), and prev_x gh chi are there in the full
+#: forms (no gh in the packed layout)
+ROW_COLS = ("cell", "x", "y", "z", "ux", "uy", "uz", "gamma", "work",
+            "prev_x", "gh", "chi")
+
+
+def column_rows(cols: dict, block: int) -> dict:
+    """The outputs of :func:`fused_push_deposit` as the fallback's rows:
+    each column an (nblk, block) view, ``winc`` named ``work``."""
+    return {("work" if c == "winc" else c): v.view(-1, block)
+            for c, v in cols.items()}
+
+
+def packed_rows(h, aux) -> dict:
+    """The outputs of :func:`fused_push_deposit_packed` as the fallback's
+    rows: views of the hot matrix's columns and of the aux matrix's
+    prev_x and chi.  Its gh stays as the kernel wrote it (1 on misfit
+    rows): the packed layout runs no QED and nothing reads it, as in
+    opal_tpu."""
+    nblk, _, RB, L = h.shape
+    rows = {c: h[:, k].view(nblk, RB * L) for k, c in enumerate(H_COLS)}
+    for c in ("prev_x", "chi"):
+        rows[c] = aux[:, A_COLS.index(c)].view(nblk, RB * L)
+    return rows
+
+
+def misfit_fallback_reference(spec: FusedSpec, mtab, rows: dict, weight_,
+                              E_slab, B_slab, out_slab, losses,
+                              counts=None):
+    """Plain PyTorch version of :func:`misfit_fallback` (opal_tpu's
+    ``_fallback``): the unfused field gather (``fields_at`` on the
+    halo-extended field slabs), the Vay or Boris push and the deposit
+    into the tap slab (:func:`deposit_into_slab`) of the table's rows.
+    Same arguments; on the CPU the count waits on nothing, so a table
+    with no row returns at once."""
+    nblk, block = rows["x"].shape
+    idx = mtab[mtab < nblk * block]
+    if counts is not None:
+        counts += torch.tensor([idx.numel(), int(idx.numel() > 0)],
+                               device=counts.device)
+    if not idx.numel():
+        return
+    blk, pin = idx // block, idx % block
+    old = {c: v[blk, pin] for c, v in rows.items()}
+    cell = old["cell"].to(torch.int32)
+    x = old["x"]
+    q = weight_.reshape(-1)[idx] * float(spec.charge)
+    Ep, Bp = fields_at(E_slab, B_slab, cell + (spec.row_off - PAD), x)
+    Ep, Bp = Ep.to(x.dtype), Bp.to(x.dtype)
+    u = torch.stack([old["ux"], old["uy"], old["uz"]], dim=1)
+    if spec.pusher == "vay":
+        res = vay_push(cell, x, old["y"], old["z"], u, old["gamma"], None,
+                       old["work"], Ep, Bp, spec.dx, spec.dt)
+        new = dict(cell=res.cell, x=res.x, prev_x=res.prev_x, y=res.y,
+                   z=res.z, u=res.u, gamma=res.gamma, work=res.work,
+                   gh=res.gamma_half, chi=res.chi)
+    else:
+        cell_n, x_n, prev_x, y, z, u_n, gamma_m1 = boris_push(
+            cell, x, old["y"], old["z"], u, torch.full_like(x, spec.charge),
+            torch.full_like(x, spec.mass), Ep, Bp, spec.dx, spec.dt)
+        # ions carry their work through
+        new = dict(cell=cell_n, x=x_n, prev_x=prev_x, y=y, z=z, u=u_n,
+                   gamma=1.0 + gamma_m1, chi=torch.zeros_like(x))
+    new.update(ux=new["u"][:, 0], uy=new["u"][:, 1], uz=new["u"][:, 2])
+    for c, v in rows.items():
+        if c in new:
+            v[blk, pin] = new[c].to(v.dtype)
+    if out_slab is not None:
+        vel = const.SPEED_OF_LIGHT * new["u"] / new["gamma"][:, None]
+        out_slab.copy_(deposit_into_slab(
+            out_slab, new["cell"] + spec.row_off, new["x"], new["prev_x"], q,
+            vel, spec.dx, spec.dt))
+        # rows past the deposit reach drop taps: losses
+        lo, hi = _reach_rows(spec)
+        row = cell + spec.row_off
+        losses += ((q != 0.0) & ((row < lo) | (row > hi))).sum()
+
+
+def misfit_fallback(spec: FusedSpec, mtab, rows: dict, weight_, eb_rows,
+                    E_slab, B_slab, out_slab, losses, counts=None):
+    """Push and deposit the misfit rows of the compaction table ``mtab``
+    (:func:`misfit_compact`: ascending row indices, ``n`` marking an
+    unused entry) after either kernel, in place.
+
+    ``rows`` are the kernel's outputs (:func:`column_rows`,
+    :func:`packed_rows`), which hold the misfit rows as they were before
+    the step; their pushed values are written there, the full forms'
+    prev_x and chi (and gh, in the column layout) too.  ``weight_`` is
+    the weight of the ``n`` rows, ``eb_rows`` the kernel's field table
+    and ``E_slab``/``B_slab`` the field slabs it was made from (the plain
+    version gathers from them, in the field dtype, as opal_tpu does).
+    Unless ``out_slab`` is ``None`` (``dep_skip``) the rows' taps are
+    added to it, and a row whose cell before the step lies past the
+    deposit reach adds one to the 0-d int64 ``losses`` instead.  Where
+    ``counts`` is given, an int64 pair, the table's rows are added to
+    ``counts[0]`` and, if there are any, one to ``counts[1]``.
+
+    CPU tensors go through :func:`misfit_fallback_reference`; CUDA
+    tensors launch the CUDA kernel (``csrc/fused_push_deposit.cu``,
+    ``misfit_fallback_kernel``) on the current stream, once whatever the
+    table holds, or raise."""
+    if mtab.device.type == "cpu":
+        return misfit_fallback_reference(spec, mtab, rows, weight_, E_slab,
+                                         B_slab, out_slab, losses, counts)
+    if mtab.device.type != "cuda":
+        raise ValueError(f"no fallback kernel for device {mtab.device}")
+    packed, full = rows["cell"].dtype == F32, "prev_x" in rows
+    _check_fallback_args(spec, mtab, rows, weight_, eb_rows, out_slab,
+                         losses, counts, packed)
+    from .._build import library
+
+    lib = library()
+    nblk, block = rows["x"].shape
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+    k = _scalars(spec)
+    with torch.cuda.device(mtab.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.opal_misfit_fallback(
+            ptr(mtab), mtab.numel(), nblk * block,
+            *(ptr(rows.get(c)) for c in ROW_COLS),
+            ptr(weight_), ptr(eb_rows), ptr(out_slab),
+            ptr(losses if out_slab is not None else None), ptr(counts),
+            rows["x"].stride(0), rows["chi" if full else "x"].stride(0),
+            block, spec.n_rows, spec.row_off, PAD,
+            int(spec.pusher == "boris"), int(full), int(packed),
+            *(k[c] for c in ("charge", "alpha", "c", "kwork", "dt",
+                             "talpha", "kx", "inv_dt", "inv_dx", "crit")),
+            ctypes.c_void_p(stream),
+        )
+    if rc != 0:
+        raise RuntimeError(f"misfit_fallback kernel failed: cudaError {rc}")
+    misfit_fallback.launches[
+        packed_form_name(spec) if packed else form_name(spec)] += 1
+
+
+def _check_fallback_args(spec: FusedSpec, mtab, rows: dict, weight_,
+                         eb_rows, out_slab, losses, counts, packed: bool):
+    nblk, block = rows["x"].shape
+    if block != spec.block:
+        raise ValueError(f"rows of {block} a block, spec {spec.block}")
+    unknown = set(rows) - set(ROW_COLS)
+    if unknown:
+        raise ValueError(f"no fallback column {sorted(unknown)}")
+    # the C entry's strides: one for cell .. work, one for prev_x gh chi
+    strides = {}
+    for c, v in rows.items():
+        dtype = torch.int32 if c == "cell" and not packed else F32
+        if v.dtype != dtype:
+            raise TypeError(f"{c} must be {dtype}, got {v.dtype}")
+        if tuple(v.shape) != (nblk, block) or v.stride(1) != 1:
+            raise ValueError(f"{c} must be an ({nblk}, {block}) view with "
+                             f"rows at unit stride")
+        strides.setdefault(c in ROW_COLS[:9], set()).add(v.stride(0))
+    if any(len(s) != 1 for s in strides.values()):
+        raise ValueError(f"fallback columns of mixed strides: {strides}")
+    want = dict(mtab=(mtab, (mtab.numel(),), torch.int64),
+                weight=(weight_, (nblk * block,), F32),
+                eb_rows=(eb_rows, (spec.n_rows, 8), F32),
+                losses=(losses, (), torch.int64))
+    if out_slab is not None:
+        want["out_slab"] = (out_slab, (spec.n_rows, 16), F32)
+    if counts is not None:
+        want["counts"] = (counts, (2,), torch.int64)
+    for name, (t, shape, dtype) in want.items():
+        if t.device != mtab.device:
+            raise ValueError(f"{name} is on {t.device}, mtab on {mtab.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.numel() != math.prod(shape) or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {shape}")
+
+
+#: fallback launches of each kernel form (as :data:`FORMS` names them)
+#: since the counts were last reset
+misfit_fallback.launches = dict.fromkeys(FORMS, 0)

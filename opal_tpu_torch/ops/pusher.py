@@ -59,6 +59,8 @@ class PushResult(NamedTuple):
     chi: torch.Tensor
     tau: torch.Tensor | None
     work: torch.Tensor
+    #: the Lorentz factor at the half step, which the emission rate reads
+    gamma_half: torch.Tensor
 
 
 def vay_push(cell, x, y, z, u, gamma, tau, work, E, B, dx, dt, *,
@@ -129,11 +131,11 @@ def vay_push(cell, x, y, z, u, gamma, tau, work, E, B, dx, dt, *,
 
     cell, x_new, prev_x = _cell_fixup(cell, x_new, prev_x)
     if wide:
-        x_new, prev_x, y_new, z_new, u_new, gamma_new, chi = (
-            a.to(out_dtype)
-            for a in (x_new, prev_x, y_new, z_new, u_new, gamma_new, chi))
+        x_new, prev_x, y_new, z_new, u_new, gamma_new, chi, gamma_half = (
+            a.to(out_dtype) for a in (x_new, prev_x, y_new, z_new, u_new,
+                                      gamma_new, chi, gamma_half))
     return PushResult(cell, x_new, prev_x, y_new, z_new, u_new, gamma_new,
-                      chi, tau, work)
+                      chi, tau, work, gamma_half)
 
 
 def boris_push(cell, x, y, z, u, charge, mass, E, B, dx, dt):

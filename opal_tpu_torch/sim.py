@@ -11,7 +11,8 @@ and ``opal_tpu/sim.py``'s (``:1020-1247``), on each rank of a ring
    edges);
 2. push each species: the fused CUDA kernel (gather + Vay push for
    electrons or Boris push for ions [+ deposit]) plus the compacted
-   unfused fallback for rows outside their block window, on the column
+   fallback for rows outside their block window (one more kernel, of
+   a fixed capacity, that reads nothing back), on the column
    layout or, with ``packed_fused``, on the packed one, or the unfused
    ops for species the kernel cannot take (photons fly ballistically,
    and with absorption on update their chi from the fields); with
@@ -132,8 +133,8 @@ class SimOptions:
     max_drift_cells_per_step: float = 0.95
     # the fused CUDA kernel for electrons and ions (f32 state, capacity
     # a multiple of fused_block); alive rows outside their block window
-    # go through a compacted unfused fallback of fused_misfit_capacity
-    # rows per step, and any excess is counted as a loss
+    # go through a compacted fallback of fused_misfit_capacity rows per
+    # step, and any excess is counted as a loss
     fused_pusher: bool = False
     fused_block: int = 4096
     fused_window: int = 32
@@ -296,46 +297,16 @@ class Simulation:
     def _velocity(self, st: ParticleState):
         return const.SPEED_OF_LIGHT * st.u / st.gamma[:, None]
 
-    def _push_rows(self, name, cell, x, y, z, u, gamma, work, E_slab,
-                   B_slab, tau=None, f64_compute=False):
-        """The unfused push of some rows: field gather, then the Vay
-        push for electrons (with the optical-depth decrement when a
-        ``tau`` is given, in the field dtype with ``f64_compute``) or
-        the Boris push for ions.  Returns the updated columns by name
-        (with ``prev_x``; electrons also ``chi``, ``work`` and, with a
-        ``tau``, ``tau``)."""
-        geom, opt = self.geom, self.options
-        spec = self.specs[name]
-        Ep, Bp = fields_at(E_slab, B_slab, cell + HALO, x)
-        if not f64_compute:
-            Ep, Bp = Ep.to(x.dtype), Bp.to(x.dtype)
-        if spec.kind == "electron":
-            res = vay_push(
-                cell, x, y, z, u, gamma, tau, work, Ep, Bp, geom.dx, opt.dt,
-                classical_rates=not opt.radiation_reaction,
-                compute_dtype=self.field_dtype if f64_compute else None,
-            )
-            cell, x, prev_x, y, z, u, gamma = res[:7]
-            extra = dict(chi=res.chi, work=res.work)
-            if tau is not None:
-                extra["tau"] = res.tau
-        else:
-            cell, x, prev_x, y, z, u, gamma_m1 = boris_push(
-                cell, x, y, z, u, torch.full_like(x, spec.charge),
-                torch.full_like(x, spec.mass), Ep, Bp, geom.dx, opt.dt,
-            )
-            gamma = 1.0 + gamma_m1
-            extra = {}
-        return dict(cell=cell, x=x, prev_x=prev_x, y=y, z=z, ux=u[:, 0],
-                    uy=u[:, 1], uz=u[:, 2], gamma=gamma, **extra)
-
     def _push_species(self, name, st: ParticleState, E_slab, B_slab):
         """The unfused push of a whole species
-        (``opal_tpu/sim.py:376-442``).  Photons fly ballistically; with
+        (``opal_tpu/sim.py:376-442``): the field gather, then the Vay
+        push for electrons (with emission on, with the optical-depth
+        decrement; on mixed-precision QED decks in the field dtype) or
+        the Boris push for ions.  Photons fly ballistically; with
         absorption on they update chi from the fields at their old
         position, which the absorption pass reads, and without it keep a
         stale chi, refreshed at output time."""
-        opt = self.options
+        geom, opt = self.geom, self.options
         spec = self.specs[name]
         if spec.kind == "photon":
             if opt.immobile_photons:
@@ -345,37 +316,57 @@ class Simulation:
                 Ep, Bp = fields_at(E_slab, B_slab, st.cell + HALO, st.x)
                 Ep, Bp = Ep.to(st.x.dtype), Bp.to(st.x.dtype)
             cell, x, prev_x, y, z, chi = photon_push(
-                st.cell, st.x, st.y, st.z, st.u, Ep, Bp,
-                self.geom.dx, opt.dt,
+                st.cell, st.x, st.y, st.z, st.u, Ep, Bp, geom.dx, opt.dt,
             )
             upd = dict(cell=cell, x=x, prev_x=prev_x, y=y, z=z)
             if chi is not None:
                 upd["chi"] = chi
             return dataclasses.replace(st, **upd)
         electron = spec.kind == "electron"
-        return dataclasses.replace(st, **self._push_rows(
-            name, st.cell, st.x, st.y, st.z, st.u, st.gamma, st.work,
-            E_slab, B_slab,
-            tau=st.tau if electron and opt.photon_emission else None,
-            # mixed-precision QED decks: f64 arithmetic, f32 storage
-            f64_compute=(opt.push_f64_compute and electron
-                         and st.x.dtype != self.field_dtype),
-        ))
+        # mixed-precision QED decks: f64 arithmetic, f32 storage
+        f64_compute = (opt.push_f64_compute and electron
+                       and st.x.dtype != self.field_dtype)
+        Ep, Bp = fields_at(E_slab, B_slab, st.cell + HALO, st.x)
+        if not f64_compute:
+            Ep, Bp = Ep.to(st.x.dtype), Bp.to(st.x.dtype)
+        if electron:
+            tau = st.tau if opt.photon_emission else None
+            res = vay_push(
+                st.cell, st.x, st.y, st.z, st.u, st.gamma, tau, st.work, Ep,
+                Bp, geom.dx, opt.dt,
+                classical_rates=not opt.radiation_reaction,
+                compute_dtype=self.field_dtype if f64_compute else None,
+            )
+            cell, x, prev_x, y, z, u, gamma = res[:7]
+            upd = dict(chi=res.chi, work=res.work)
+            if tau is not None:
+                upd["tau"] = res.tau
+        else:
+            cell, x, prev_x, y, z, u, gamma_m1 = boris_push(
+                st.cell, st.x, st.y, st.z, st.u,
+                torch.full_like(st.x, spec.charge),
+                torch.full_like(st.x, spec.mass), Ep, Bp, geom.dx, opt.dt,
+            )
+            gamma = 1.0 + gamma_m1
+            upd = {}
+        return dataclasses.replace(
+            st, cell=cell, x=x, prev_x=prev_x, y=y, z=z, ux=u[:, 0],
+            uy=u[:, 1], uz=u[:, 2], gamma=gamma, **upd)
 
     def _fused_push_deposit(self, name, st: ParticleState, E_slab, B_slab,
                             anchors):
-        """The fused kernel plus the compacted unfused fallback for alive
-        rows outside their block window (``opal_tpu/sim.py:541-721``).
+        """The fused kernel plus the compacted fallback for alive rows
+        outside their block window (``opal_tpu/sim.py:541-721``).
 
         Depositing before migration equals the reference's
         post-migration deposit: a one-cell leaver deposits into halo
         rows, which the fold adds to the neighbour.
 
         With emission on, the optical depth falls outside the kernel by
-        the rate at the kernel's chi and half-step gamma
-        (``opal_tpu/sim.py:574-593``); rows the kernel did not update
-        carry chi 0 there, so rate 0, and the fallback decrements its
-        own.
+        the rate at the chi and half-step gamma of every row
+        (``opal_tpu/sim.py:574-593``), after the fallback has written
+        its rows' (the kernel leaves chi 0 and gh 1 on rows it did not
+        update, so rate 0 where nothing pushed them).
 
         Returns (state, out_slab, losses, anchors_next): ``out_slab`` is
         the kernel's tap slab with the fallback's deposit added, folded
@@ -384,8 +375,6 @@ class Simulation:
         opt = self.options
         spec = self.specs[name]
         fspec = self._fused_spec(name)
-        emit_on = (spec.kind == "electron" and opt.photon_emission
-                   and st.tau is not None)
         with trace.span(trace.PUSH, self.device):
             eb = F.make_eb_rows(E_slab, B_slab)
             cols, miss, out_slab, anchors_next = F.fused_push_deposit(
@@ -394,133 +383,71 @@ class Simulation:
                 st.work if fspec.work_out and not fspec.work_inc else None,
                 eb,
             )
-            upd = {k: cols[k] for k in
-                   ("cell", "x", "y", "z", "ux", "uy", "uz", "gamma")}
-            # the lite kernel leaves prev_x and chi unchanged: nothing
-            # reads prev_x between steps and chi is refreshed at output
-            # time
-            if not fspec.lite:
-                upd.update(prev_x=cols["prev_x"], chi=cols["chi"])
-            if emit_on:
-                rate = (emission.rate if opt.radiation_reaction
-                        else emission.classical_rate)
-                with trace.span(trace.TAU_DECREMENT):
-                    upd["tau"] = (st.tau - rate(cols["chi"], cols["gh"])
-                                  * opt.dt).to(st.tau.dtype)
-            if fspec.work_inc:
-                upd["work"] = st.work + cols["winc"].to(st.work.dtype)
-            elif fspec.work_out:
-                upd["work"] = cols["work"]
+        losses = self._misfit_fallback(
+            fspec, miss, F.column_rows(cols, fspec.block), st.weight, eb,
+            E_slab, B_slab, out_slab)
 
-        with trace.span(trace.MISFIT, self.device):
-            n = st.cell.shape[0]
-            mtab, losses = F.misfit_compact(miss, opt.fused_misfit_capacity)
-            # one host read per step: most steps have no misfit at all,
-            # and then the fallback launches nothing
-            n_mis = self._misfit_count(mtab, n)
-            if n_mis:
-                idx = mtab[:n_mis]
-                m_cell = st.cell[idx]
-                m_q = st.weight[idx].to(torch.float32) * spec.charge
-                fb = self._push_rows(
-                    name, m_cell, st.x[idx], st.y[idx], st.z[idx],
-                    torch.stack([st.ux[idx], st.uy[idx], st.uz[idx]], dim=1),
-                    st.gamma[idx], None if st.work is None else st.work[idx],
-                    E_slab, B_slab, tau=st.tau[idx] if emit_on else None,
-                )
-                for k, v in upd.items():
-                    v[idx] = fb[k].to(v.dtype)
-                if opt.current_deposition:
-                    out_slab, lost = self._fallback_deposit(out_slab, fb,
-                                                            m_cell, m_q)
-                    losses = losses + lost
+        upd = {k: cols[k] for k in
+               ("cell", "x", "y", "z", "ux", "uy", "uz", "gamma")}
+        # the lite kernel leaves prev_x and chi unchanged: nothing reads
+        # prev_x between steps and chi is refreshed at output time
+        if not fspec.lite:
+            upd.update(prev_x=cols["prev_x"], chi=cols["chi"])
+        if fspec.work_out and not fspec.work_inc:
+            upd["work"] = cols["work"]
+        emit_on = (spec.kind == "electron" and opt.photon_emission
+                   and st.tau is not None)
+        if emit_on or fspec.work_inc:
+            # what reads the fallback's rows too, over every row once
+            with trace.span(trace.PUSH, self.device):
+                if emit_on:
+                    rate = (emission.rate if opt.radiation_reaction
+                            else emission.classical_rate)
+                    with trace.span(trace.TAU_DECREMENT):
+                        upd["tau"] = (st.tau - rate(cols["chi"], cols["gh"])
+                                      * opt.dt).to(st.tau.dtype)
+                if fspec.work_inc:
+                    upd["work"] = st.work + cols["winc"].to(st.work.dtype)
         return dataclasses.replace(st, **upd), out_slab, losses, anchors_next
 
-    @staticmethod
-    def _misfit_count(mtab, n: int) -> int:
-        """The misfit rows of a compaction table (its entries below the
-        state's ``n`` rows): the step's host read, counted."""
-        n_mis = trace.host_read((mtab < n).sum())
-        trace.count(trace.MISFIT_ROWS, n_mis)
-        trace.count(trace.MISFIT_STEPS, int(n_mis > 0))
-        return n_mis
-
-    def _fallback_deposit(self, out_slab, fb, m_cell, m_q):
-        """Deposit the misfit fallback's pushed rows ``fb`` (pre-push
-        cells ``m_cell``, macrocharges ``m_q``) into the kernel's tap
-        slab.  Rows past the deposit reach drop taps: they are counted
-        as losses.  Returns (out_slab, losses)."""
-        geom, opt = self.geom, self.options
-        u_fb = torch.stack([fb["ux"], fb["uy"], fb["uz"]], dim=1)
-        vel = const.SPEED_OF_LIGHT * u_fb / fb["gamma"][:, None]
-        out_slab = F.deposit_into_slab(
-            out_slab, fb["cell"] + HALO + F.PAD, fb["x"], fb["prev_x"], m_q,
-            vel, geom.dx, opt.dt,
-        )
-        viol = (m_q != 0.0) & (
-            (m_cell < -(HALO - 2)) | (m_cell > geom.n_loc + HALO - 3)
-        )
-        return out_slab, viol.sum()
+    def _misfit_fallback(self, fspec, miss, rows, weight, eb, E_slab, B_slab,
+                         out_slab):
+        """The misfit fallback of both layouts (``opal_tpu/sim.py:
+        617-708``): the kernel's misfit flags ``miss`` compacted into a
+        table of ``fused_misfit_capacity`` rows, which
+        :func:`ops.fused.misfit_fallback` pushes and deposits in place in
+        the kernel's outputs ``rows`` and ``out_slab``.  It runs every
+        step at that capacity, reading nothing back: on a card one
+        launch, an empty table included.  Returns the losses: the
+        table's overflow and, with the deposit, the rows past its
+        reach."""
+        with trace.span(trace.MISFIT, self.device):
+            mtab, losses = F.misfit_compact(miss,
+                                            self.options.fused_misfit_capacity)
+            F.misfit_fallback(
+                fspec, mtab, rows, weight, eb, E_slab, B_slab, out_slab,
+                losses, trace.device_counts(
+                    (trace.MISFIT_ROWS, trace.MISFIT_STEPS), self.device))
+        return losses
 
     def _packed_push_deposit(self, name, ps: F.PackedState, E_slab, B_slab,
                              anchors):
         """:meth:`_fused_push_deposit` on the packed layout
         (``opal_tpu/sim.py:723-827``): the packed kernel, then the
-        compacted unfused fallback for its misfit rows, which gathers
-        and scatters them through flat indices into the hot and aux
+        compacted fallback for its misfit rows in the hot and aux
         matrices.  Electrons in the fallback accumulate the f32 work
         column of the hot matrix; ions pass theirs through.  QED is off
         here (:meth:`_packed_applicable`), so there is no tau update.
 
         Returns (PackedState, out_slab, losses, anchors_next)."""
-        opt = self.options
-        spec = self.specs[name]
         fspec = self._fused_spec(name)
         with trace.span(trace.PUSH, self.device):
             eb = F.make_eb_rows(E_slab, B_slab)
             h, aux, out_slab, anchors_next = F.fused_push_deposit_packed(
                 fspec, anchors, ps.h, ps.weight, eb)
-
-        with trace.span(trace.MISFIT, self.device):
-            nblk, CH, RB, _ = h.shape
-            CA = aux.shape[1]
-            block = RB * 128
-            n = nblk * block
-            mtab, losses = F.misfit_compact(
-                aux[:, F.A_COLS.index("miss")].reshape(n),
-                opt.fused_misfit_capacity)
-            # one host read per step, as in the column path; the table is
-            # ascending with the unused slots (== n) at its end, so its
-            # first n_mis entries are exactly the misfit rows
-            n_mis = self._misfit_count(mtab, n)
-            if n_mis:
-                idx = mtab[:n_mis]
-                # flat indices of each row's columns: indexing h[blk, :,
-                # ...] across the column dim would copy h transposed
-                blk, pin = idx // block, idx % block
-                hidx = (blk * (CH * block) + pin)[:, None] \
-                    + block * torch.arange(CH, device=idx.device)[None, :]
-                rows = h.view(-1)[hidx]
-                m_cell = rows[:, 0].to(torch.int32)
-                m_q = ps.weight.view(-1)[idx] * float(spec.charge)
-                electron = spec.kind == "electron"
-                fb = self._push_rows(
-                    name, m_cell, rows[:, 1], rows[:, 2], rows[:, 3],
-                    rows[:, 4:7], rows[:, 7], rows[:, 8] if electron else None,
-                    E_slab, B_slab,
-                )
-                h.view(-1)[hidx] = torch.stack(
-                    [fb["cell"].to(torch.float32)]
-                    + [fb[c] for c in F.H_COLS[1:8]]
-                    + [fb["work"] if electron else rows[:, 8]], dim=1)
-                aidx = (blk * (CA * block) + pin)[:, None] \
-                    + block * torch.arange(2, device=idx.device)[None, :]
-                chi = fb["chi"] if electron else torch.zeros_like(fb["x"])
-                aux.view(-1)[aidx] = torch.stack([fb["prev_x"], chi], dim=1)
-                if opt.current_deposition:
-                    out_slab, lost = self._fallback_deposit(out_slab, fb,
-                                                            m_cell, m_q)
-                    losses = losses + lost
+        losses = self._misfit_fallback(
+            fspec, aux[:, F.A_COLS.index("miss")].reshape(-1),
+            F.packed_rows(h, aux), ps.weight, eb, E_slab, B_slab, out_slab)
         return (F.PackedState(h=h, aux=aux, weight=ps.weight, tau=ps.tau),
                 out_slab, losses, anchors_next)
 

@@ -15,7 +15,9 @@ session records, :func:`span` returns a shared no-op context, and
   and one where it closes, so that its time is its kernels plus the
   idle gaps between them; on a CPU device, which runs each operation as
   it is issued, the host clock;
-- counters add up what the host already holds (no read of their own).
+- counters add up what the host already holds (no read of their own),
+  or, with :func:`device_counts`, what only the device knows, added up
+  there and read once, by :func:`snapshot`.
 
 Phases never nest inside each other, so their times add up.  Nothing is
 written anywhere: :func:`snapshot` returns what the last profiled
@@ -40,8 +42,8 @@ HALO = "opal.halo"
 #: a species' push: the fused kernel with its field table and work and
 #: optical-depth updates, or the unfused push
 PUSH = "opal.push"
-#: the misfit fallback: the compaction, its host read, the unfused push
-#: of the misfit rows and their deposit
+#: the misfit fallback: the compaction, the push of the misfit rows and
+#: their deposit
 MISFIT = "opal.misfit"
 #: photon absorption and stimulated emission (``interactions.absorb``)
 ABSORB = "opal.absorb"
@@ -83,7 +85,8 @@ SPANS = (STEP, *PHASES, HOST_READ, TAU_DECREMENT, EMIT_SAMPLE,
          ABSORB_WALK, SHIFT, PSUM, ALL_GATHER, GATHER, BARRIER)
 
 #: counters: host reads; misfit rows pushed by the fallback; steps (of a
-#: species) in which the fallback ran
+#: species) in which the fallback had rows (the last two counted on the
+#: device)
 HOST_READS = "host_reads"
 MISFIT_ROWS = "misfit_rows"
 MISFIT_STEPS = "misfit_steps"
@@ -95,16 +98,19 @@ _PHASE_SET = frozenset(PHASES)
 class _Record:
     """What the current profiled stretch recorded: the calls of each
     span, the (start, end) marks of each phase (CUDA event pairs, or
-    host seconds), and the counters."""
+    host seconds), the counters, and the device's tallies of counters
+    (:func:`device_counts`) not yet read."""
 
     def __init__(self):
         self.live = False
         self.calls: dict = {}
         self.marks: dict = {}
         self.counters: dict = {}
+        self.tallies: dict = {}
 
     def clear(self):
         self.calls, self.marks, self.counters = {}, {}, {}
+        self.tallies = {}
 
     def arm(self):
         """Start a new record at the first event of a profiler session."""
@@ -173,6 +179,22 @@ def count(name: str, n: int):
         _RECORD.counters[name] = _RECORD.counters.get(name, 0) + n
 
 
+def device_counts(names: tuple, device):
+    """While a profiler records: an int64 tensor on ``device``, an entry
+    for each counter of ``names``, for the step to add to on the device
+    (no read, no launch of its own); :func:`snapshot` reads it once and
+    adds it to the counters.  ``None`` while nothing records."""
+    if not _profiler._is_profiler_enabled:
+        return None
+    rec = _RECORD
+    rec.arm()
+    key = (names, torch.device(device))
+    if key not in rec.tallies:
+        rec.tallies[key] = torch.zeros(len(names), dtype=torch.int64,
+                                       device=device)
+    return rec.tallies[key]
+
+
 def host_read(t: torch.Tensor):
     """``t`` as Python numbers (``t.tolist()``: a number for a 0-d
     tensor), the one way the step reads the device; it waits for the
@@ -188,9 +210,14 @@ def host_read(t: torch.Tensor):
 def snapshot() -> dict:
     """The last profiled stretch: ``{"counters": {name: n}, "spans":
     {name: {"calls": n, "device_ms": ms}}}``, every counter of
-    :data:`COUNTERS` present, ``device_ms`` on the phases alone (summed
-    over their calls).  The device must have been synchronised."""
+    :data:`COUNTERS` present (those the device added up read here, once),
+    ``device_ms`` on the phases alone (summed over their calls).  The
+    device must have been synchronised."""
     rec = _RECORD
+    for (names, _), t in rec.tallies.items():
+        for name, n in zip(names, t.tolist()):
+            rec.counters[name] = rec.counters.get(name, 0) + n
+    rec.tallies = {}
     spans = {}
     for name, calls in rec.calls.items():
         spans[name] = {"calls": calls}

@@ -3,9 +3,11 @@
 With no profiler recording, a span is a shared no-op and nothing is
 counted.  Under a CPU profiler, on a small periodic fused deck whose
 window is tight enough that rows miss it: every step holds each phase
-once, the sorts and exchanges follow the deck's cadences, each step
-reads the device once, the misfit counter equals the rows the fallback
-pushed, and the final state equals the unprofiled run's bit for bit.
+once (the push twice: the deck's mixed precision adds the work
+increment after the fallback), the sorts and exchanges follow the
+deck's cadences, no step reads the device, the misfit counters, added
+up on the device, equal the rows of the fallback's tables, and the
+final state equals the unprofiled run's bit for bit.
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 from opal_tpu_torch import constants as const
 from opal_tpu_torch import trace
 from opal_tpu_torch.grid import GridGeometry
+from opal_tpu_torch.ops import fused as F
 from opal_tpu_torch.sim import SimOptions, Simulation
 from opal_tpu_torch.species import SpeciesSpec, initialize
 
@@ -30,8 +33,10 @@ OPTS = dict(dt=DT, fused_pusher=True, fused_block=128, fused_window=12,
             fused_resort_every=8, migration_every=4,
             max_drift_cells_per_step=0.45, migration_window=256,
             migration_capacity=64, fused_misfit_capacity=256)
-STEP_PHASES = (trace.HALO, trace.PUSH, trace.MISFIT, trace.DEPOSIT,
-               trace.FIELDS)
+#: the phases of a step: the push's second span adds the work increment
+#: (f32 particles, f64 fields) over every row after the fallback
+STEP_PHASES = (trace.HALO, trace.PUSH, trace.MISFIT, trace.PUSH,
+               trace.DEPOSIT, trace.FIELDS)
 
 
 def _deck(**over):
@@ -86,6 +91,7 @@ def test_spans_are_inert_without_a_profiler(monkeypatch):
         trace.count(trace.MISFIT_ROWS, 5)
         assert trace.host_read(torch.tensor(7)) == 7
     assert trace.span(trace.PUSH) is trace.span(trace.SORT)
+    assert trace.device_counts((trace.MISFIT_ROWS,), "cpu") is None
     sim, st = _deck()
     _run(sim, st, steps=4)
     snap = trace.snapshot()
@@ -164,24 +170,51 @@ def test_each_step_holds_its_phases_and_the_cadences_hold():
     assert snap["spans"][trace.STEP]["calls"] == STEPS
 
 
+def test_device_counts_are_read_at_the_snapshot():
+    """A tally lives through the profiled stretch, every call handing
+    back the same tensor; the snapshot adds it to the counters once (a
+    second snapshot reads the same), and a new session starts anew."""
+    def one():
+        t = trace.device_counts((trace.MISFIT_ROWS, trace.MISFIT_STEPS),
+                                "cpu")
+        t += torch.tensor([5, 1])
+        assert trace.device_counts((trace.MISFIT_ROWS, trace.MISFIT_STEPS),
+                                   torch.device("cpu")) is t
+        t += torch.tensor([2, 1])
+        trace.count(trace.MISFIT_ROWS, 10)
+
+    _profiled(one)
+    for _ in range(2):
+        counters = trace.snapshot()["counters"]
+        assert counters[trace.MISFIT_ROWS] == 17
+        assert counters[trace.MISFIT_STEPS] == 2
+    _profiled(one)
+    assert trace.snapshot()["counters"][trace.MISFIT_ROWS] == 17
+
+
 def test_host_reads_and_misfit_rows_are_counted(monkeypatch):
+    """No step reads the device; the misfit counters are the rows of
+    each fallback table (its entries below the state's row count) and
+    the tables that hold any."""
     sim, st = _deck()
-    pushed = []
-    real = Simulation._push_rows
+    tables = []
+    real = F.misfit_compact
 
-    def spy(self, name, cell, *args, **kw):
-        pushed.append(cell.shape[0])
-        return real(self, name, cell, *args, **kw)
+    def spy(miss, capacity):
+        mtab, losses = real(miss, capacity)
+        tables.append(int((mtab < miss.numel()).sum()))
+        return mtab, losses
 
-    monkeypatch.setattr(Simulation, "_push_rows", spy)
+    monkeypatch.setattr(F, "misfit_compact", spy)
     out, _ = _profiled(lambda: _run(sim, st))
     assert int(out[6]["electron"]) == 0
     snap = trace.snapshot()
-    assert snap["counters"][trace.HOST_READS] == STEPS
-    assert snap["spans"][trace.HOST_READ]["calls"] == STEPS
-    assert sum(pushed) > 0, "the deck's window should make misfits"
-    assert snap["counters"][trace.MISFIT_ROWS] == sum(pushed)
-    assert snap["counters"][trace.MISFIT_STEPS] == len(pushed)
+    assert snap["counters"][trace.HOST_READS] == 0
+    assert trace.HOST_READ not in snap["spans"]
+    assert len(tables) == STEPS
+    assert sum(tables) > 0, "the deck's window should make misfits"
+    assert snap["counters"][trace.MISFIT_ROWS] == sum(tables)
+    assert snap["counters"][trace.MISFIT_STEPS] == sum(n > 0 for n in tables)
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -195,8 +228,10 @@ def test_the_profiler_changes_no_result(packed):
     for k, v in plain[4]["electron"].columns().items():
         assert torch.equal(v, traced[4]["electron"].columns()[k]), k
     snap = trace.snapshot()
-    assert snap["counters"][trace.HOST_READS] == STEPS
-    assert snap["spans"][trace.PUSH]["calls"] == STEPS
+    assert snap["counters"][trace.HOST_READS] == 0
+    # the column layout adds the work increment in a second push span;
+    # the packed one accumulates the work in its hot matrix
+    assert snap["spans"][trace.PUSH]["calls"] == STEPS * (1 if packed else 2)
 
 
 def test_ring_collectives_have_spans_with_a_group(tmp_path):
