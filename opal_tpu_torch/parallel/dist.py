@@ -81,7 +81,9 @@ class Ring:
             dist.P2POp(dist.irecv, from_left, self.left, self.group, 0),
             dist.P2POp(dist.irecv, from_right, self.right, self.group, 1),
         ]
-        with trace.span(trace.SHIFT):
+        # under NCCL, wait() orders the compute stream after the batch
+        # and returns at once: the host runs on
+        with trace.collective(trace.SHIFT, self.device, to_right, to_left):
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
         return from_left, from_right
@@ -91,7 +93,7 @@ class Ring:
         if self.group is None:
             return x
         x = x.clone()
-        with trace.span(trace.PSUM):
+        with trace.collective(trace.PSUM, self.device, x):
             dist.all_reduce(x, group=self.group)
         return x
 
@@ -113,7 +115,8 @@ class Ring:
         x = (x.to(torch.uint8) if flag else x).contiguous()
         out = ([torch.empty_like(x) for _ in range(self.world)]
                if everyone or self.rank == 0 else None)
-        with trace.span(trace.ALL_GATHER if everyone else trace.GATHER):
+        with trace.collective(trace.ALL_GATHER if everyone else trace.GATHER,
+                              self.device, x):
             if everyone:
                 dist.all_gather(out, x, group=self.group)
             else:
@@ -124,10 +127,12 @@ class Ring:
         return out.bool() if flag else out
 
     def barrier(self):
-        """Wait for every rank (a sum of one element)."""
+        """Wait for every rank (a sum of one element, outside the
+        collectives that :mod:`trace` times and counts)."""
         if self.group is not None:
             with trace.span(trace.BARRIER):
-                self.psum(torch.zeros((), device=self.device))
+                dist.all_reduce(torch.zeros((), device=self.device),
+                                group=self.group)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
 

@@ -15,15 +15,23 @@ session records, :func:`span` returns a shared no-op context, and
   and one where it closes, so that its time is its kernels plus the
   idle gaps between them; on a CPU device, which runs each operation as
   it is issued, the host clock;
+- a *collective* span (:data:`COLLECTIVES`, opened by
+  :func:`collective`) times its extent the same way, around the
+  collective and its wait: the compute stream's stall for the other
+  ranks.  It is counted in :data:`COLLECTIVE_CALLS`, and its payload,
+  from the tensors' shapes, in :data:`COLLECTIVE_BYTES`;
 - counters add up what the host already holds (no read of their own),
   or, with :func:`device_counts`, what only the device knows, added up
   there and read once, by :func:`snapshot`.
 
-Phases never nest inside each other, so their times add up.  Nothing is
-written anywhere: :func:`snapshot` returns what the last profiled
-stretch recorded, resolving the CUDA events (call it after the device
-has been synchronised), and :func:`reset` clears it.  The record clears
-itself when a new profiler session starts.
+Phases never nest inside each other, so their times add up.  The
+collectives lie inside the phases (the halo, the deposit's fold, the
+exchange) or between them: they are no phase, and their device
+milliseconds are reported beside the phases', never in their sum.
+Nothing is written anywhere: :func:`snapshot` returns what the last
+profiled stretch recorded, resolving the CUDA events (call it after the
+device has been synchronised), and :func:`reset` clears it.  The record
+clears itself when a new profiler session starts.
 """
 
 from __future__ import annotations
@@ -77,6 +85,10 @@ SHIFT = "opal.collective.shift"
 PSUM = "opal.collective.psum"
 ALL_GATHER = "opal.collective.all_gather"
 GATHER = "opal.collective.gather"
+#: the collectives timed on the device and counted (:func:`collective`)
+COLLECTIVES = (SHIFT, PSUM, ALL_GATHER, GATHER)
+#: a wait for every rank (``Ring.barrier``): a span alone, neither timed
+#: nor counted, since it stands between the steps
 BARRIER = "opal.collective.barrier"
 
 #: every span of the program
@@ -86,13 +98,17 @@ SPANS = (STEP, *PHASES, HOST_READ, TAU_DECREMENT, EMIT_SAMPLE,
 
 #: counters: host reads; misfit rows pushed by the fallback; steps (of a
 #: species) in which the fallback had rows (the last two counted on the
-#: device)
+#: device); collectives issued and the bytes of their payloads
 HOST_READS = "host_reads"
 MISFIT_ROWS = "misfit_rows"
 MISFIT_STEPS = "misfit_steps"
-COUNTERS = (HOST_READS, MISFIT_ROWS, MISFIT_STEPS)
+COLLECTIVE_CALLS = "collectives"
+COLLECTIVE_BYTES = "collective_bytes"
+COUNTERS = (HOST_READS, MISFIT_ROWS, MISFIT_STEPS, COLLECTIVE_CALLS,
+            COLLECTIVE_BYTES)
 
-_PHASE_SET = frozenset(PHASES)
+#: the spans timed on the device
+_TIMED_SET = frozenset(PHASES + COLLECTIVES)
 
 
 class _Record:
@@ -138,12 +154,12 @@ class _Span:
         rec.calls[self.name] = rec.calls.get(self.name, 0) + 1
         self._range = torch.profiler.record_function(self.name)
         self._range.__enter__()
-        if self.name in _PHASE_SET:
+        if self.name in _TIMED_SET:
             self._start = _mark(self.device)
         return self
 
     def __exit__(self, *exc):
-        if self.name in _PHASE_SET:
+        if self.name in _TIMED_SET:
             _RECORD.marks.setdefault(self.name, []).append(
                 (self._start, _mark(self.device)))
         self._range.__exit__(*exc)
@@ -169,6 +185,20 @@ def span(name: str, device=None):
             _RECORD.live = False
         return _NULL
     return _Span(name, device)
+
+
+def collective(name: str, device, *tensors):
+    """The span of the collective ``name`` of :data:`COLLECTIVES` over
+    ``tensors`` (what this rank sends), timed on ``device`` as a phase is:
+    nothing while no profiler records; while one does, also counted once
+    in :data:`COLLECTIVE_CALLS` and by the tensors' bytes in
+    :data:`COLLECTIVE_BYTES` (their shapes, no read)."""
+    s = span(name, device)
+    if s is not _NULL:
+        count(COLLECTIVE_CALLS, 1)
+        count(COLLECTIVE_BYTES, sum(t.numel() * t.element_size()
+                                    for t in tensors))
+    return s
 
 
 def count(name: str, n: int):
@@ -211,8 +241,8 @@ def snapshot() -> dict:
     """The last profiled stretch: ``{"counters": {name: n}, "spans":
     {name: {"calls": n, "device_ms": ms}}}``, every counter of
     :data:`COUNTERS` present (those the device added up read here, once),
-    ``device_ms`` on the phases alone (summed over their calls).  The
-    device must have been synchronised."""
+    ``device_ms`` on the phases and the collectives alone (summed over
+    their calls).  The device must have been synchronised."""
     rec = _RECORD
     for (names, _), t in rec.tallies.items():
         for name, n in zip(names, t.tolist()):
@@ -221,7 +251,7 @@ def snapshot() -> dict:
     spans = {}
     for name, calls in rec.calls.items():
         spans[name] = {"calls": calls}
-        if name in _PHASE_SET:
+        if name in _TIMED_SET:
             spans[name]["device_ms"] = sum(
                 _elapsed_ms(a, b) for a, b in rec.marks.get(name, ()))
     # the next session starts a new record

@@ -10,6 +10,8 @@ up on the device, equal the rows of the fallback's tables, and the
 final state equals the unprofiled run's bit for bit.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -237,7 +239,9 @@ def test_the_profiler_changes_no_result(packed):
 def test_ring_collectives_have_spans_with_a_group(tmp_path):
     """A world of 1 under a ``gloo`` group issues its reductions and
     gathers (its shift is a local copy); a ring without a group issues
-    none and records no collective span."""
+    none and records no collective span.  Each collective is timed (by
+    the host clock on the CPU) and counted with its payload's bytes; the
+    barrier is a span alone; nothing is recorded with no profiler."""
     from opal_tpu_torch.parallel import dist
 
     x = torch.arange(4.0)
@@ -246,14 +250,67 @@ def test_ring_collectives_have_spans_with_a_group(tmp_path):
     assert trace.snapshot()["spans"] == {}
     ring = dist.init(0, 1, f"file://{tmp_path}/rendezvous", "cpu")
     try:
+        ring.psum(x), ring.all_gather(x), ring.barrier()
+        unrecorded = trace.snapshot()
         (total, every, first, _, _), _ = _profiled(lambda: (
             ring.psum(x), ring.all_gather(x), ring.gather(x),
             ring.shift(x, x), ring.barrier()))
     finally:
         dist.close(ring)
+    assert unrecorded["spans"] == {}
+    assert unrecorded["counters"] == dict.fromkeys(trace.COUNTERS, 0)
     assert torch.equal(total, x) and torch.equal(every, x[None])
     assert torch.equal(first, x[None])
-    calls = {k: v["calls"] for k, v in trace.snapshot()["spans"].items()}
-    # the barrier is a sum of one element
-    assert calls == {trace.PSUM: 2, trace.ALL_GATHER: 1, trace.GATHER: 1,
+    snap = trace.snapshot()
+    calls = {k: v["calls"] for k, v in snap["spans"].items()}
+    assert calls == {trace.PSUM: 1, trace.ALL_GATHER: 1, trace.GATHER: 1,
                      trace.BARRIER: 1}
+    for name in (trace.PSUM, trace.ALL_GATHER, trace.GATHER):
+        assert snap["spans"][name]["device_ms"] > 0.0, name
+    assert "device_ms" not in snap["spans"][trace.BARRIER]
+    assert snap["counters"][trace.COLLECTIVE_CALLS] == 3
+    assert snap["counters"][trace.COLLECTIVE_BYTES] == 3 * 4 * 4
+
+
+def test_collectives_stay_out_of_the_phase_sums(tmp_path):
+    """A collective inside a phase is timed on its own, and the phase's
+    extent holds it: the phases are the same spans, with the same calls,
+    whether the step runs under a group or not, and the deck's step
+    issues one collective a ``run`` call at a world of 1 (the losses'
+    sum)."""
+    from opal_tpu_torch.parallel import dist
+
+    cpu = torch.device("cpu")
+    x = torch.arange(4.0)
+    sim, st = _deck()
+    _profiled(lambda: _run(sim, st, steps=4))
+    solo = trace.snapshot()
+    ring = dist.init(0, 1, f"file://{tmp_path}/rendezvous", "cpu")
+    try:
+        geom = GridGeometry(nx=NX, dx=DX, xmin=0.0, n_devices=1)
+        grouped = Simulation(geom, SimOptions(**OPTS),
+                             {"electron": SpeciesSpec.electron()},
+                             device="cpu", dtype=torch.float32,
+                             field_dtype=torch.float64, ring=ring)
+        _profiled(lambda: _run(grouped, st, steps=4))
+        snap = trace.snapshot()
+
+        def nested():
+            with trace.span(trace.HALO, cpu):
+                ring.psum(x)
+                time.sleep(0.002)
+
+        _profiled(nested)
+        inner = trace.snapshot()
+    finally:
+        dist.close(ring)
+    phases = lambda s: {n: v["calls"] for n, v in s["spans"].items()
+                        if n in trace.PHASES}
+    assert phases(snap) == phases(solo)
+    assert set(snap["spans"]) - set(solo["spans"]) == {trace.PSUM}
+    assert not set(trace.COLLECTIVES) & set(trace.PHASES)
+    assert snap["counters"][trace.COLLECTIVE_CALLS] == 1
+    assert solo["counters"][trace.COLLECTIVE_CALLS] == 0
+    halo = inner["spans"][trace.HALO]["device_ms"]
+    psum = inner["spans"][trace.PSUM]["device_ms"]
+    assert 0.0 < psum < halo and halo >= 2.0
