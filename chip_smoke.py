@@ -168,7 +168,16 @@ the port on the card, phase by phase, each printing one line or more:
     B1 on 16.8M electrons with 15 moved out of their window: columns, slab
     and losses within the tolerances of ``tests/test_torch_misfit_cuda.py``,
     and the kernel's device, call and plain times with an empty table
-    and with the 15 rows.
+    and with the 15 rows;
+32. the misfit compaction kernel (``csrc/misfit_compact.cu``) against
+    its plain version, the PyTorch chain it replaced, at the shapes of
+    its callers: the two_stream_128m cell's 147,644,416 flags with a
+    table of 2048 (no flag, then 15), and ``bench --qed``'s and the
+    colliding_beams crossing's emitter compactions (2,621,440 and 75,776
+    flags, 1% flagged, a table of every flagged row): tables and
+    overflows equal, with the kernel's device, call and plain times, its
+    bound (the flags read and the table written once at the HBM rate),
+    the device time of each of its three launches and their registers.
 
 ``python3 chip_smoke.py --ranks N`` runs phases 1-2, then phase 27
 instead of 3-28: the two_stream deck (2000 steps), phase 24's
@@ -182,7 +191,7 @@ Kernel times (``ms``) are device time: 20 calls queued behind a
 device-side spin run back to back between two CUDA events.  The
 wrapper's whole call (``call_ms``) and the plain version's
 (``plain_ms``) are timed by CUDA events around each call, host launch
-included.  Phases 1-31 take about ten to
+included.  Phases 1-32 take about ten to
 eighteen minutes.  Any failed check raises, so the
 script exits non-zero without the final line.  Before the last line it
 prints one JSON object describing each kernel form of the paths, and
@@ -3537,6 +3546,81 @@ def misfit_fallback_kernel(smi: str):
     return out_
 
 
+def misfit_compact_kernel(smi: str):
+    """Phase 32: the misfit compaction (``ops.fused.misfit_compact``)
+    against its plain version, on the card, at the shapes of its callers:
+    the fallback's at ``two_stream_128m.column`` (147,644,416 flags, a
+    table of 2048, with no flag and with 15 at random rows), and the
+    emitter compactions of ``bench --qed`` (2,621,440 flags) and of the
+    colliding_beams crossing (75,776), 1% flagged and a table of every
+    flagged row, as ``interactions.emit_radiation`` asks.  Tables and
+    overflows must be equal.  Then the kernel's device time (20 calls
+    back to back), the wrapper's call and the plain version's (medians
+    of 20), the plain version being the PyTorch chain the kernel
+    replaced (compare, int64 cast, cub's scan, searchsorted), so it is
+    the library time too; the bound, the flags read once and the table
+    written once at the HBM rate; and the device time of each of the
+    three launches (``torch.profiler``, 20 calls).  Returns {label: (ms,
+    call_ms, plain_ms, bound_ms, launches_us)}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from opal_tpu_torch import _build
+    from opal_tpu_torch.ops import fused as F
+
+    lib, _ = _build.build()
+    regs = {m[1]: m[2] for m in re.finditer(
+        r"Compiling entry function '\S*(misfit_\w+?_kernel)\S*'.*?"
+        r"Used (\d+) registers", lib.with_suffix(".log").read_text(),
+        re.S)}
+    log(32, f"ptxas registers: {regs}")
+    g = torch.Generator(device="cuda").manual_seed(32)
+    n_cell = 147_644_416
+    cell_15 = torch.zeros(n_cell, device="cuda")
+    cell_15[torch.randperm(n_cell, generator=g, device="cuda")[:15]] = 1.0
+    shapes = [
+        ("two_stream_128m cell, no flag", torch.zeros(n_cell, device="cuda"),
+         2048),
+        ("two_stream_128m cell, 15 flagged", cell_15, 2048),
+    ]
+    for label, n in (("bench --qed emitters", 2_621_440),
+                     ("colliding_beams crossing emitters", 75_776)):
+        miss = (torch.rand(n, generator=g, device="cuda") < 0.01).float()
+        shapes.append((f"{label}, 1% flagged", miss, int(miss.sum())))
+    out = {}
+    for label, miss, cap in shapes:
+        k = F.misfit_compact(miss, cap)
+        p = F.misfit_compact_reference(miss, cap)
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]), label
+        ms = device_ms(lambda: F.misfit_compact(miss, cap))
+        call_ms = cuda_ms(lambda: F.misfit_compact(miss, cap))
+        plain_ms = cuda_ms(lambda: F.misfit_compact_reference(miss, cap))
+        bound_ms = (4 * miss.numel() + 8 * cap) / HBM_BYTES_PER_S * 1e3
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                F.misfit_compact(miss, cap)
+            torch.cuda.synchronize()
+        launches_us = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and "misfit_" in e.name:
+                key = re.search(r"misfit_\w+?_kernel", e.name)[0]
+                launches_us[key] = launches_us.get(key, 0.0) + (
+                    e.time_range.end - e.time_range.start) / 20
+        out[label] = (ms, call_ms, plain_ms, bound_ms, launches_us)
+        log(32, f"misfit compaction, {label}: {miss.numel()} flags, table "
+                f"of {cap}: kernel {ms:.4f} ms of device time (20 calls "
+                f"back to back; {100 * bound_ms / ms:.1f}% of its bound), "
+                f"the wrapper's call {call_ms:.4f} ms, plain (the torch "
+                f"chain) {plain_ms:.4f} ms (medians of 20), bound "
+                f"{bound_ms:.6f} ms (bytes); launches (us): "
+                + ", ".join(f"{n} {t:.2f}" for n, t in launches_us.items())
+                + f"; tables equal; on {smi}")
+    del shapes, cell_15, miss
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -3660,6 +3744,7 @@ def main(argv=None) -> int:
         del captured_19, captured_21, captured_22
         device_init_on_card(smi)
         fallback = misfit_fallback_kernel(smi)
+        compaction = misfit_compact_kernel(smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3782,6 +3867,14 @@ def main(argv=None) -> int:
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
             for label, (ms, call_ms, plain_ms, bound_ms, bound_by)
             in fallback.items()],
+        "misfit_compact": [
+            dict(name=f"misfit_compact ({label})", route="cuda",
+                 source="opal_tpu_torch/csrc/misfit_compact.cu",
+                 replaces=None, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by="bytes", library_ms=plain_ms,
+                 launches_us=launches_us)
+            for label, (ms, call_ms, plain_ms, bound_ms, launches_us)
+            in compaction.items()],
     }))
     print(smi)
     print(json.dumps({"ok": True, "device": {

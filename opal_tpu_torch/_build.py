@@ -111,6 +111,9 @@ def library() -> ctypes.CDLL:
     fn.argtypes = (
         [vp, i64, i64] + [vp] * 17 + [i64] * 2 + [i32] * 7 + [f32] * 10 + [vp]
     )
+    fn = L.opal_misfit_compact
+    fn.restype = i32
+    fn.argtypes = [vp, i64, i64, i64, vp, i64, vp, i64, vp, vp, vp]
     fn = L.opal_absorb_walk
     fn.restype = i32
     fn.argtypes = [vp] * 20 + [i64] * 4 + [i32] * 11 + [f64] * 3 + [vp]

@@ -759,16 +759,113 @@ def block_anchors(spec: FusedSpec, cell):
     ).to(torch.int32)
 
 
-def misfit_compact(miss, capacity):
-    """Indices of up to ``capacity`` misfit rows (ascending), plus the
-    overflow count (0-d int64).  Entries beyond the misfit total come
-    back as n, the length of ``miss``."""
-    m = miss > 0.5
+#: rows of a tile of the compaction kernel (``csrc/misfit_compact.cu``'s
+#: ``kTile``): it counts the flags a tile, and reads again only the tiles
+#: whose rows enter the table
+COMPACT_TILE = 8192
+
+
+def misfit_compact_reference(miss, capacity, counts=None):
+    """Plain PyTorch version of :func:`misfit_compact` (opal_tpu's
+    ``misfit_compact``, XLA's cumsum and searchsorted): a compare, an
+    int64 cast, a cumsum and a searchsorted over every flag.  Same
+    arguments; where ``counts`` is given, the tiles the kernel reads
+    again are added to it (:func:`compact_tiles_read`)."""
+    m = miss.reshape(-1) > 0.5
     R = torch.cumsum(m.long(), dim=0)
     table = torch.searchsorted(
         R, torch.arange(1, capacity + 1, device=miss.device)
     )
+    if counts is not None:
+        counts += compact_tiles_read(miss, capacity)
     return table, torch.clamp(R[-1] - capacity, min=0)
+
+
+def compact_tiles_read(miss, capacity):
+    """The tiles of :data:`COMPACT_TILE` rows (cut within each row of a
+    2-d ``miss``) that the compaction kernel reads a second time: those
+    with a flag whose flags before them number fewer than ``capacity``
+    (0-d int64)."""
+    m = (miss > 0.5).reshape(-1, miss.shape[-1] if miss.dim() == 2
+                             else miss.numel())
+    nblk, block = m.shape
+    tiles = torch.zeros((nblk, -(-block // COMPACT_TILE) * COMPACT_TILE),
+                        dtype=torch.int64, device=miss.device)
+    tiles[:, :block] = m
+    c = tiles.view(-1, COMPACT_TILE).sum(dim=1)
+    return ((c > 0) & (torch.cumsum(c, dim=0) - c < capacity)).sum()
+
+
+def misfit_compact(miss, capacity, counts=None):
+    """Indices of the first ``capacity`` rows whose flag in ``miss`` is
+    above 0.5 (int64, ascending), plus the overflow count (a fresh 0-d
+    int64: the flagged rows past the capacity).  Entries beyond the
+    flagged total come back as n, the number of flags.
+
+    ``miss`` is f32: a contiguous column of the n flags, or an (nblk,
+    block) view with its rows at unit stride, row r of the flags at
+    ``miss[r // block, r % block]`` (the packed layout's aux column).
+    Where ``counts`` is given, a (1,) int64 (while a profiler records),
+    the tiles the kernel read a second time are added to it.
+
+    CPU tensors go through :func:`misfit_compact_reference`; CUDA tensors
+    launch the compaction kernel (``csrc/misfit_compact.cu``: three
+    launches, sized by the shapes alone, no read of the device) on the
+    current stream, or raise."""
+    if miss.device.type == "cpu":
+        return misfit_compact_reference(miss, capacity, counts)
+    if miss.device.type != "cuda":
+        raise ValueError(f"no compaction kernel for device {miss.device}")
+    capacity = int(capacity)
+    nblk, block, stride = _check_compact_args(miss, capacity, counts)
+    from .._build import library
+
+    lib = library()
+    dev = miss.device
+    ntiles = nblk * -(-block // COMPACT_TILE)
+    table = torch.empty(capacity, dtype=torch.int64, device=dev)
+    overflow = torch.empty((), dtype=torch.int64, device=dev)
+    scan = torch.empty(ntiles + 1, dtype=torch.int64, device=dev)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.opal_misfit_compact(
+            ptr(miss), nblk, block, stride, ptr(scan), scan.numel(),
+            ptr(table), capacity, ptr(overflow), ptr(counts),
+            ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"misfit_compact kernel failed: cudaError {rc}")
+    misfit_compact.launches += 1
+    return table, overflow
+
+
+def _check_compact_args(miss, capacity: int, counts):
+    """(nblk, block, stride) of the flags, or raise."""
+    if miss.dtype != F32:
+        raise TypeError(f"miss must be {F32}, got {miss.dtype}")
+    if capacity < 0:
+        raise ValueError(f"capacity must be >= 0, got {capacity}")
+    if miss.dim() == 1 and miss.is_contiguous():
+        n = miss.numel()
+        rows = (1, n, n)
+    elif miss.dim() == 2 and miss.stride(1) == 1 and (
+            miss.shape[0] <= 1 or miss.stride(0) >= miss.shape[1]):
+        rows = (*miss.shape, miss.stride(0))
+    else:
+        raise ValueError(
+            f"miss must be a contiguous column or an (nblk, block) view "
+            f"with rows at unit stride, got shape {tuple(miss.shape)} "
+            f"strides {miss.stride()}")
+    if counts is not None and (
+            counts.device != miss.device or counts.dtype != torch.int64
+            or counts.shape != (1,)):
+        raise ValueError("counts must be a (1,) int64 on the flags' device")
+    return rows
+
+
+#: compaction calls on the card (three kernel launches each) since the
+#: count was last reset
+misfit_compact.launches = 0
 
 
 # ----------------------------------------------------------------------

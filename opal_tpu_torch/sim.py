@@ -422,8 +422,9 @@ class Simulation:
         table's overflow and, with the deposit, the rows past its
         reach."""
         with trace.span(trace.MISFIT, self.device):
-            mtab, losses = F.misfit_compact(miss,
-                                            self.options.fused_misfit_capacity)
+            mtab, losses = F.misfit_compact(
+                miss, self.options.fused_misfit_capacity,
+                trace.device_counts((trace.MISFIT_TILES,), self.device))
             F.misfit_fallback(
                 fspec, mtab, rows, weight, eb, E_slab, B_slab, out_slab,
                 losses, trace.device_counts(
@@ -446,7 +447,7 @@ class Simulation:
             h, aux, out_slab, anchors_next = F.fused_push_deposit_packed(
                 fspec, anchors, ps.h, ps.weight, eb)
         losses = self._misfit_fallback(
-            fspec, aux[:, F.A_COLS.index("miss")].reshape(-1),
+            fspec, aux[:, F.A_COLS.index("miss")].view(aux.shape[0], -1),
             F.packed_rows(h, aux), ps.weight, eb, E_slab, B_slab, out_slab)
         return (F.PackedState(h=h, aux=aux, weight=ps.weight, tau=ps.tau),
                 out_slab, losses, anchors_next)

@@ -97,15 +97,17 @@ SPANS = (STEP, *PHASES, HOST_READ, TAU_DECREMENT, EMIT_SAMPLE,
          ABSORB_WALK, SHIFT, PSUM, ALL_GATHER, GATHER, BARRIER)
 
 #: counters: host reads; misfit rows pushed by the fallback; steps (of a
-#: species) in which the fallback had rows (the last two counted on the
-#: device); collectives issued and the bytes of their payloads
+#: species) in which the fallback had rows; tiles of flags the misfit
+#: compaction read a second time (the last three counted on the device);
+#: collectives issued and the bytes of their payloads
 HOST_READS = "host_reads"
 MISFIT_ROWS = "misfit_rows"
 MISFIT_STEPS = "misfit_steps"
+MISFIT_TILES = "misfit_tiles"
 COLLECTIVE_CALLS = "collectives"
 COLLECTIVE_BYTES = "collective_bytes"
-COUNTERS = (HOST_READS, MISFIT_ROWS, MISFIT_STEPS, COLLECTIVE_CALLS,
-            COLLECTIVE_BYTES)
+COUNTERS = (HOST_READS, MISFIT_ROWS, MISFIT_STEPS, MISFIT_TILES,
+            COLLECTIVE_CALLS, COLLECTIVE_BYTES)
 
 #: the spans timed on the device
 _TIMED_SET = frozenset(PHASES + COLLECTIVES)

@@ -144,6 +144,7 @@ def test_profile_writes_table_and_keeps_outputs(tmp_path, capsys):
     assert "aten::" in table
     # the program's spans and counters a step end the table
     assert "opal.step: host" in table and "host_reads: " in table
+    assert "misfit_tiles: " in table
     for name in ("2_energy.dat", "2_grid.dat"):
         assert (prof.parent / name).read_text() == \
             (plain.parent / name).read_text(), name

@@ -281,11 +281,13 @@ def test_run_reads_nothing_back(packed, dev):
     tables = []
     real = F.misfit_compact
 
-    def spy(miss, capacity):
-        mtab, losses = real(miss, capacity)
+    def spy(miss, capacity, counts=None):
+        mtab, losses = real(miss, capacity, counts)
         tables.append(mtab)
         return mtab, losses
 
+    # the wrapper counts its launches on the name it is called by
+    spy.launches = 0
     F.misfit_compact = spy
     try:
         plain = run(inputs())

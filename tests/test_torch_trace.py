@@ -202,8 +202,8 @@ def test_host_reads_and_misfit_rows_are_counted(monkeypatch):
     tables = []
     real = F.misfit_compact
 
-    def spy(miss, capacity):
-        mtab, losses = real(miss, capacity)
+    def spy(miss, capacity, counts=None):
+        mtab, losses = real(miss, capacity, counts)
         tables.append(int((mtab < miss.numel()).sum()))
         return mtab, losses
 
@@ -217,6 +217,9 @@ def test_host_reads_and_misfit_rows_are_counted(monkeypatch):
     assert sum(tables) > 0, "the deck's window should make misfits"
     assert snap["counters"][trace.MISFIT_ROWS] == sum(tables)
     assert snap["counters"][trace.MISFIT_STEPS] == sum(n > 0 for n in tables)
+    # the deck's flags fit one tile, read again when it holds a row
+    assert CAP <= F.COMPACT_TILE
+    assert snap["counters"][trace.MISFIT_TILES] == sum(n > 0 for n in tables)
 
 
 @pytest.mark.parametrize("packed", [False, True])
